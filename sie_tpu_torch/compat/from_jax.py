@@ -1,0 +1,108 @@
+"""Load the JAX package's flax parameters into the port's modules.
+
+The port names its submodules after the flax scopes, so a flax path maps
+to a PyTorch parameter name by three renames (`TokenEmbedding_0` ->
+`token_embedding`, `FullAttentionLayer_0` -> `attention`, `layer_<i>` ->
+`layers.<i>`) and by the leaf's kind:
+
+- Dense `kernel` (in, out)            -> Linear `weight`, transposed;
+- Conv `kernel` (k, C_in, C_out)      -> Conv1d `weight`, transpose(2, 1, 0);
+- LayerNorm `scale`                   -> `weight`;
+- `bias`, and the raw parameters `shapelets_<i>` (n, C, L),
+  `threshold_<i>`, `bilinear_w`, `pos_embed` -> as they are.
+
+Every flax leaf is consumed exactly once and every PyTorch parameter is
+filled: an unknown, duplicate or missing leaf, or a shape that differs,
+raises `ParamLoadError`.
+"""
+
+from __future__ import annotations
+
+import re
+from collections.abc import Mapping
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+
+class ParamLoadError(ValueError):
+    pass
+
+
+_RENAMES = {"TokenEmbedding_0": "token_embedding",
+            "FullAttentionLayer_0": "attention"}
+
+
+def _flatten(tree: Any, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
+    if isinstance(tree, Mapping):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, prefix + (str(k),)))
+        return out
+    return {prefix: np.asarray(tree)}
+
+
+def _scope(part: str) -> str:
+    m = re.fullmatch(r"layer_(\d+)", part)
+    if m:
+        return f"layers.{m.group(1)}"
+    return _RENAMES.get(part, part)
+
+
+def _target(module: nn.Module, path: Tuple[str, ...],
+            value: np.ndarray) -> Tuple[str, np.ndarray]:
+    """The PyTorch parameter name for a flax leaf, and the value laid out
+    for it."""
+    owner_name = ".".join(_scope(p) for p in path[:-1])
+    leaf = path[-1]
+    try:
+        owner = module.get_submodule(owner_name) if owner_name else module
+    except AttributeError:
+        raise ParamLoadError(f"flax leaf {path} has no module "
+                             f"{owner_name!r} in the port") from None
+    if leaf == "kernel":
+        if isinstance(owner, nn.Linear):
+            value = value.T
+        elif isinstance(owner, nn.Conv1d):
+            value = value.transpose(2, 1, 0)
+        else:
+            raise ParamLoadError(f"flax kernel {path} maps to "
+                                 f"{type(owner).__name__}, not a Linear or "
+                                 f"Conv1d")
+        leaf = "weight"
+    elif leaf == "scale":
+        if not isinstance(owner, nn.LayerNorm):
+            raise ParamLoadError(f"flax scale {path} maps to "
+                                 f"{type(owner).__name__}, not a LayerNorm")
+        leaf = "weight"
+    return (f"{owner_name}.{leaf}" if owner_name else leaf), value
+
+
+def load_jax_params(module: nn.Module, params: Any) -> nn.Module:
+    """Fill `module` from the flax parameter tree `params` (the value of
+    `variables["params"]`, as numpy arrays or anything numpy reads)."""
+    targets = dict(module.named_parameters())
+    filled: Dict[str, Tuple[str, ...]] = {}
+    with torch.no_grad():
+        for path, value in _flatten(params).items():
+            name, value = _target(module, path, value)
+            if name not in targets:
+                raise ParamLoadError(f"flax leaf {path} has no parameter "
+                                     f"{name!r} in the port")
+            if name in filled:
+                raise ParamLoadError(f"flax leaves {filled[name]} and {path} "
+                                     f"both map to {name!r}")
+            p = targets[name]
+            if tuple(value.shape) != tuple(p.shape):
+                raise ParamLoadError(f"flax leaf {path} has shape "
+                                     f"{value.shape}; {name!r} has "
+                                     f"{tuple(p.shape)}")
+            p.copy_(torch.tensor(value, dtype=torch.float32))
+            filled[name] = path
+    missing = sorted(set(targets) - set(filled))
+    if missing:
+        raise ParamLoadError(f"no flax leaf filled {len(missing)} parameters, "
+                             f"e.g. {missing[:6]}")
+    return module

@@ -1,0 +1,250 @@
+"""Embeddings, attention and the encoder stack (counterpart of
+sie_tpu/models/layers.py), as the classification Transformer uses them.
+
+Numerics follow flax's dtype rules, so that the port and the JAX package
+round at the same places under `amp` (bf16 compute):
+- a Dense/Conv with `dtype` casts its input, kernel and bias to that dtype
+  (`dense`, `TokenEmbedding`); parameters are stored in float32;
+- flax `LayerNorm` has no dtype, computes in float32 and returns float32
+  from a bf16 input (`layer_norm`), with eps 1e-6;
+- `jax.nn.gelu` is the tanh approximation (`gelu`).
+
+Parameters are initialised from an explicit `torch.Generator` with the
+distributions the JAX package uses (PyTorch's own defaults).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sie_tpu_torch.ops.attention import fused_attention
+
+_LN_EPS = 1e-6   # flax LayerNorm default
+_SKINNY = 16     # `dense` computes products with fewer outputs in f32
+
+
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to sie_tpu_torch yet (ROADMAP.md, 'Modules "
+        f"still to port')")
+
+
+# ------------------------------------------------------------------ init
+def uniform_(t: torch.Tensor, bound: float, g: torch.Generator) -> None:
+    with torch.no_grad():
+        t.uniform_(-bound, bound, generator=g)
+
+
+def normal_(t: torch.Tensor, std: float, g: torch.Generator) -> None:
+    with torch.no_grad():
+        t.normal_(0.0, std, generator=g)
+
+
+def linear(in_features: int, out_features: int, g: torch.Generator,
+           bias: bool = True) -> nn.Linear:
+    """nn.Linear with U(-b, b) weight and bias, b = 1/sqrt(in_features)
+    (PyTorch's default, and the JAX package's
+    `torch_default_kernel_init`/`torch_default_bias_init`)."""
+    lin = nn.utils.skip_init(nn.Linear, in_features, out_features, bias=bias)
+    b = 1.0 / math.sqrt(in_features)
+    uniform_(lin.weight, b, g)
+    if bias:
+        uniform_(lin.bias, b, g)
+    return lin
+
+
+def layer_norm_module(d: int) -> nn.LayerNorm:
+    return nn.LayerNorm(d, eps=_LN_EPS)
+
+
+# ------------------------------------------------------------ numerics
+def dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """flax `nn.Dense(dtype=dtype)`: input, kernel and bias cast to dtype,
+    the product accumulated in f32 and rounded to dtype, then the bias."""
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    if dtype != torch.bfloat16 or lin.out_features >= _SKINNY:
+        return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+    # A head with a few outputs over a long input (the Transformer's
+    # (B, 845*512) -> 3 projection): with bf16 reductions disallowed cuBLAS
+    # runs it without split-K, one tile walking all of K (72 ms on an H100
+    # at B=64). The same bf16 operands multiplied in f32 give the same
+    # f32-accumulated sum.
+    y = F.linear(x.to(dtype).float(), lin.weight.to(dtype).float()).to(dtype)
+    return y if bias is None else y + bias
+
+
+def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """flax `nn.LayerNorm()`: float32 statistics and float32 result."""
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
+                        norm.bias, norm.eps)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu`, whose default is the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def sinusoidal_embedding(length: int, d_model: int) -> np.ndarray:
+    """Classic sin/cos position table (length, d_model) float32."""
+    pe = np.zeros((length, d_model), dtype=np.float32)
+    position = np.arange(length, dtype=np.float32)[:, None]
+    div = np.exp(np.arange(0, d_model, 2, dtype=np.float32)
+                 * -(math.log(10000.0) / d_model))
+    pe[:, 0::2] = np.sin(position * div)
+    pe[:, 1::2] = np.cos(position * div[: pe[:, 1::2].shape[1]])
+    return pe
+
+
+# ------------------------------------------------------------ embedding
+class TokenEmbedding(nn.Module):
+    """Circular pad of 1 on each side of time, then a k=3 conv, no bias."""
+
+    def __init__(self, c_in: int, d_model: int, dtype: torch.dtype,
+                 g: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        self.tokenConv = nn.utils.skip_init(nn.Conv1d, c_in, d_model, 3,
+                                            bias=False)
+        # kaiming normal, fan_in, leaky_relu(0.01) gain
+        normal_(self.tokenConv.weight,
+                math.sqrt(2.0 / (1 + 0.01 ** 2) / (3 * c_in)), g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:   # (B, T, C)
+        xp = torch.cat([x[:, -1:, :], x, x[:, :1, :]], dim=1).to(self.dtype)
+        w = self.tokenConv.weight.to(self.dtype)
+        return F.conv1d(xp.transpose(1, 2), w).transpose(1, 2)  # (B, T, d)
+
+
+class DataEmbedding(nn.Module):
+    """Token + sinusoidal position embedding (the classification path:
+    no time marks)."""
+
+    def __init__(self, c_in: int, d_model: int, dtype: torch.dtype,
+                 g: torch.Generator):
+        super().__init__()
+        self.d_model = d_model
+        self.token_embedding = TokenEmbedding(c_in, d_model, dtype, g)
+        self._pe: Dict[Tuple, torch.Tensor] = {}
+
+    def _position(self, length: int, like: torch.Tensor) -> torch.Tensor:
+        key = (length, like.device, like.dtype)
+        if key not in self._pe:
+            self._pe[key] = torch.from_numpy(
+                sinusoidal_embedding(length, self.d_model)).to(
+                    device=like.device, dtype=like.dtype)
+        return self._pe[key]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        v = self.token_embedding(x)
+        return v + self._position(x.shape[1], v)[None]
+
+
+# ------------------------------------------------------------ attention
+class FullAttentionLayer(nn.Module):
+    """QKV projections + scaled dot-product full attention. The fused branch
+    runs kernel K5; the other branch is plain `torch.matmul`, as the JAX
+    package leaves it to XLA. The gate is the JAX package's."""
+
+    def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype,
+                 g: torch.Generator, use_fused: bool = False,
+                 fused_max_len: int = 4096, fused_min_len: int = 256,
+                 use_flash: bool = False):
+        super().__init__()
+        if use_flash:
+            raise not_ported("use_flash_attention (the stock TPU flash "
+                             "kernel; K5 covers the same op)")
+        self.n_heads = n_heads
+        self.dtype = dtype
+        self.use_fused = use_fused
+        self.fused_max_len = fused_max_len
+        self.fused_min_len = fused_min_len
+        dk = d_model // n_heads
+        self.query = linear(d_model, dk * n_heads, g)
+        self.key = linear(d_model, dk * n_heads, g)
+        self.value = linear(d_model, dk * n_heads, g)
+        self.out = linear(dk * n_heads, d_model, g)
+
+    def uses_kernel(self, q_len: int, k_len: int, dk: int) -> bool:
+        return (self.use_fused and q_len == k_len
+                and (self.fused_max_len == 0 or q_len <= self.fused_max_len)
+                and q_len >= self.fused_min_len
+                and dk <= 128)
+
+    def forward(self, q_in, k_in, v_in):
+        h = self.n_heads
+        b, l = q_in.shape[:2]
+        dt = self.dtype
+        q = dense(q_in, self.query, dt).unflatten(-1, (h, -1))   # (B, L, H, dk)
+        k = dense(k_in, self.key, dt).unflatten(-1, (h, -1))
+        v = dense(v_in, self.value, dt).unflatten(-1, (h, -1))
+        dk = q.shape[-1]
+        if self.uses_kernel(l, k_in.shape[1], dk):
+            fold = lambda z: z.transpose(1, 2).contiguous().view(b * h, l, dk)
+            o = fused_attention(fold(q), fold(k), fold(v), 1.0 / math.sqrt(dk))
+            out = o.view(b, h, l, dk).transpose(1, 2)
+        else:
+            qh, kh, vh = (z.transpose(1, 2) for z in (q, k, v))  # (B, H, L, dk)
+            if dt == torch.bfloat16:
+                # the score matrix is stored bf16 (f32 accumulation)
+                scores = torch.matmul(qh, kh.transpose(-1, -2)).float()
+            else:
+                scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+            a = torch.softmax(scores / math.sqrt(dk), dim=-1)
+            out = torch.matmul(a.to(vh.dtype), vh).transpose(1, 2)
+        out = out.reshape(b, l, h * dk).to(dt)
+        return dense(out, self.out, dt)
+
+
+class EncoderLayer(nn.Module):
+    """Post-norm attention + pointwise FFN (variant 'full', no MoE)."""
+
+    def __init__(self, d_model: int, d_ff: int, n_heads: int,
+                 dtype: torch.dtype, g: torch.Generator,
+                 activation: str = "gelu", use_fused: bool = False,
+                 fused_max_len: int = 4096, fused_min_len: int = 256,
+                 use_flash: bool = False, variant: str = "full",
+                 moe_experts: int = 0):
+        super().__init__()
+        if variant != "full":
+            raise not_ported(f"attention_variant={variant!r}")
+        if moe_experts > 0:
+            raise not_ported("the MoE FFN (moe_experts > 0)")
+        self.dtype = dtype
+        self.activation = activation
+        self.attention = FullAttentionLayer(
+            d_model, n_heads, dtype, g, use_fused=use_fused,
+            fused_max_len=fused_max_len, fused_min_len=fused_min_len,
+            use_flash=use_flash)
+        self.norm1 = layer_norm_module(d_model)
+        self.conv1 = linear(d_model, d_ff, g)
+        self.conv2 = linear(d_ff, d_model, g)
+        self.norm2 = layer_norm_module(d_model)
+
+    def forward(self, x):
+        x = x + self.attention(x, x, x)
+        x = y = layer_norm(self.norm1, x)
+        act = F.relu if self.activation == "relu" else gelu
+        y = act(dense(y, self.conv1, self.dtype))
+        y = dense(y, self.conv2, self.dtype)
+        return layer_norm(self.norm2, x + y)
+
+
+class Encoder(nn.Module):
+    """Stack of EncoderLayers + final LayerNorm."""
+
+    def __init__(self, e_layers: int, d_model: int, **kw):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            EncoderLayer(d_model, **kw) for _ in range(e_layers))
+        self.norm = layer_norm_module(d_model)
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = layer(x)
+        return layer_norm(self.norm, x)

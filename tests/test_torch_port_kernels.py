@@ -1,0 +1,71 @@
+"""The CUDA kernels of sie_tpu_torch against their plain versions, on the
+card. Every test here is marked `cuda` and skips without a card (a CUDA
+kernel has no CPU mode); this file imports no JAX, so it also runs where
+only PyTorch is installed:
+
+    python -m pytest tests/test_torch_port_kernels.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sie_tpu_torch.ops.attention import attention_plain, fused_attention
+from sie_tpu_torch.ops.shapelet_l1 import (l1_sliding_distance,
+                                           l1_sliding_distance_plain)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _normal(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            for s in shapes]
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "sqeuclidean"])
+@pytest.mark.parametrize("n,l", [(2, 7), (10, 300), (21, 5), (3, 600)])
+def test_k1_matches_plain(card, metric, n, l):
+    x, s = (a.to(card) for a in _normal(9, (2, 5, 600), (n, 5, l)))
+    before = l1_sliding_distance.launches
+    got = l1_sliding_distance(x, s, metric)
+    torch.cuda.synchronize()
+    assert l1_sliding_distance.launches == before + 1
+    want = l1_sliding_distance_plain(x, s, metric)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-4   # f32 summation order
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,dk", [(40, 16), (130, 64), (300, 8), (70, 128)])
+def test_k5_matches_plain(card, dtype, t, dk):
+    q, k, v = (a.to(card, dtype) for a in _normal(3, *[(4, t, dk)] * 3))
+    scale = 1.0 / np.sqrt(dk)
+    before = fused_attention.launches
+    got = fused_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 1
+    want = attention_plain(q, k, v, scale)
+    # bf16: output rounding and the online softmax's rounding order
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(card):
+    x, s = (a.to(card) for a in _normal(1, (2, 3, 40), (2, 3, 5)))
+    with pytest.raises(ValueError):
+        l1_sliding_distance(x.double(), s.double())
+    with pytest.raises(ValueError):
+        l1_sliding_distance(x.transpose(1, 2).contiguous().transpose(1, 2), s)
+    q = torch.zeros((2, 8, 256), device=card)
+    with pytest.raises(ValueError):
+        fused_attention(q, q, q, 1.0)            # dk > 128
+    with pytest.raises(ValueError):
+        fused_attention(q.cpu(), q, q, 1.0)      # mixed devices
