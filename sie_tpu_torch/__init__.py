@@ -7,6 +7,8 @@ kernels under `csrc/`, built by nvcc for sm_90a at first use
 and its plain PyTorch version for a CPU tensor.
 
 Ported so far: the serving forward of InterpGN / SBM / LTS / DNN with the
-Transformer expert (`serve.Predictor`), with kernels K1 (shapelet distance,
-`ops/shapelet_l1.py`) and K5 (fused attention, `ops/attention.py`).
+Transformer expert (`serve.Predictor`) and their training step
+(`train.trainer.Trainer`), with kernels K1/K2 (shapelet distance, forward
+and backward, `ops/shapelet_l1.py`) and K5/K6 (fused attention with
+dropout, forward and backward, `ops/attention.py`).
 """

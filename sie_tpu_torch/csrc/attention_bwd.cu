@@ -1,0 +1,655 @@
+// K6: backward of full softmax attention with optional dropout: from q, k,
+// v, the forward's output o and row log-sum-exp lse (K5), and the output
+// gradient dO, all (BH, T, dk) in bf16 or float32 (lse (BH, T) f32), it
+// computes dQ, dK and dV in the input dtype.
+//
+// Replaces the Pallas kernel `_bwd_kernel` of
+// sie_tpu/ops/pallas/attention_pallas.py (launched by `_attn_bwd_impl`,
+// rule `_bwd_rule`). Per query row, with a = softmax of the scaled, masked
+// scores (bf16 inputs: raw scores rounded to bf16 before the scale, as in
+// `_score_block`) and keep the dropout mask of the forward:
+//   ad = keep ? a / (1 - rate) : 0;          dV = ad^T dO  (ad in dO's type)
+//   dA = keep ? (dO V^T) / (1 - rate) : 0;
+//   dS = a * (dA - delta) * scale, rounded to q's type;
+//   dQ = dS K;  dK = dS^T Q  (f32 accumulation, cast to the input type).
+// The Pallas kernel takes delta = rowsum(dA * a) over the full key row it
+// holds; here delta = rowsum(dO * O) from the forward's output, which is
+// equal in exact arithmetic (sum_j dA_j a_j = dO . sum_j ad_j v_j) and
+// differs by the rounding of O to bf16. Probabilities are recomputed per
+// 64-key tile as exp(score - lse): exact, where the forward's online
+// softmax was not.
+//
+// What bounds it on an H100: the Pallas cost estimate counts 10*BH*T^2*dk
+// FLOP (five T x T x dk products); at the flagship (BH=512, T=845, dk=64)
+// that is 2.3e11 FLOP, 0.24 ms at the bf16 tensor-core peak, against
+// ~0.4 GB of inputs and outputs (0.12 ms at 3.35 TB/s): bound by
+// operations. This design recomputes the scores and dO V^T in both of its
+// passes, so it runs seven products, not five.
+//
+// Design (FlashAttention-2's backward, deterministic, no atomics): three
+// launches on one stream.
+//   1. delta[r] = sum_d dO[r, d] O[r, d] in f32, one warp per row.
+//   2. dK, dV: a block of 4 warps owns 64 keys (16 per warp) and walks all
+//      64-query tiles, Q and dO staged in shared memory two tiles deep by
+//      cp.async, lse and delta beside them. Each warp computes its 16 x 64
+//      transposed score tile S^T = K_w Q^T and dP^T = V_w dO^T with
+//      mma.sync m16n8k16 (bf16 in, f32 out), turns them into P^T and dS^T
+//      in registers, and accumulates dV_w += P_drop^T dO and
+//      dK_w += dS^T Q in registers: the accumulator layout of two score
+//      tiles is the A operand of the next product, as in K5.
+//   3. dQ: a block owns 64 query rows and walks the key tiles, K and V
+//      staged two deep; each warp computes S = Q_w K^T and dP = dO_w V^T
+//      and accumulates dQ_w += dS K.
+// Each output element is written by one thread, summed in a fixed order.
+// f32 inputs take FP32-FMA kernels of the same two passes (tensor cores
+// would compute in TF32): four threads per row split dk and reduce each
+// dot product with two shuffles, over 32-row tiles in shared memory.
+
+#include "attention_common.cuh"
+
+namespace {
+
+using namespace attn;
+
+constexpr int NWARP = 4;     // bf16 kernels: warps per block
+constexpr int BT = 64;       // bf16 kernels: rows per block and per tile
+
+struct Args {
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  float* delta;
+  void *grad_q, *grad_k, *grad_v;
+  const int* seed;
+  int BH, T, dk;
+  float scale;
+  uint32_t thresh;
+  float inv_keep;
+  cudaStream_t stream;
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+// ------------------------------------------------------------ pass 1: delta
+template <typename E>
+__global__ void attn_bwd_delta(const E* __restrict__ o,
+                               const E* __restrict__ dout,
+                               float* __restrict__ delta, int rows, int dk) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;   // whole warps return together
+  const size_t off = (size_t)row * dk;
+  float acc = 0.f;
+  for (int d = lane; d < dk; d += 32)
+    acc = fmaf(to_f(o[off + d]), to_f(dout[off + d]), acc);
+#pragma unroll
+  for (int s = 16; s > 0; s /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+  if (lane == 0) delta[row] = acc;
+}
+
+// --------------------------------------------------- pass 2, bf16: dK, dV
+template <int DKP>
+constexpr size_t dkv_smem_bytes() {
+  // K, V, then Q and dO of two buffers; then lse2 and delta of two buffers
+  return sizeof(bf16) * 6 * BT * (DKP + 8) + sizeof(float) * 4 * BT;
+}
+
+template <int DKP, bool DROP>
+__global__ void __launch_bounds__(NWARP * 32)
+attn_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dk_out,
+                  bf16* __restrict__ dv_out, int T, int dk, float scale,
+                  const int* __restrict__ seedp, uint32_t thresh,
+                  float inv_keep) {
+  constexpr int LDH = DKP + 8;
+  constexpr int TILE = BT * LDH;
+  constexpr int KD = DKP / 16;    // k-steps over dk
+  constexpr int NS = BT / 8;      // 8-query column tiles of S^T
+  constexpr int ND = DKP / 8;     // 8-wide column tiles of dK, dV
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + TILE;
+  bf16* QD = Vs + TILE;           // Q, dO of buffer 0, then of buffer 1
+  float* LD = reinterpret_cast<float*>(QD + 4 * TILE);  // lse2, delta x 2
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, i2 = (lane % 4) * 2;
+  const float sl2 = scale * LOG2E;
+  const int bh = blockIdx.y;
+  const size_t base = (size_t)bh * T * dk;
+  const int kv0 = blockIdx.x * BT;
+  const int ntiles = (T + BT - 1) / BT;
+  uint32_t dkey = 0;
+  if (DROP) dkey = dropout_key(*seedp, bh);
+
+  // lse in log2 units and delta of query tile j into buffer j % 2; rows
+  // past T get lse2 = +inf, so their probabilities are exactly 0
+  auto stage_rows = [&](int j) {
+    float* dst = LD + (j % 2) * 2 * BT;
+    for (int i = threadIdx.x; i < BT; i += blockDim.x) {
+      const int t = j * BT + i;
+      dst[i] = t < T ? lse[(size_t)bh * T + t] * LOG2E : INFINITY;
+      dst[BT + i] = t < T ? delta[(size_t)bh * T + t] : 0.f;
+    }
+  };
+
+  load_tile<DKP>(Ks, k + base, kv0, T, dk);
+  load_tile<DKP>(Vs, v + base, kv0, T, dk);
+  cp_async_commit();
+  load_tile<DKP>(QD, q + base, 0, T, dk);
+  load_tile<DKP>(QD + TILE, dout + base, 0, T, dk);
+  stage_rows(0);
+  cp_async_commit();
+
+  float acck[ND][4], accv[ND][4];
+#pragma unroll
+  for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acck[dn][e] = accv[dn][e] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    if (j + 1 < ntiles) {
+      bf16* nxt = QD + ((j + 1) % 2) * 2 * TILE;
+      load_tile<DKP>(nxt, q + base, (j + 1) * BT, T, dk);
+      load_tile<DKP>(nxt + TILE, dout + base, (j + 1) * BT, T, dk);
+      stage_rows(j + 1);
+    }
+    cp_async_commit();
+    cp_async_wait_one();   // K, V and query tile j have landed
+    __syncthreads();
+    const bf16* Qs = QD + (j % 2) * 2 * TILE;
+    const bf16* dOs = Qs + TILE;
+    const float* lse2 = LD + (j % 2) * 2 * BT;
+    const float* dlt = lse2 + BT;
+    const int q0 = j * BT;
+
+    // S^T = K_w Q^T and dP^T = V_w dO^T (rows: this warp's 16 keys)
+    float st[NS][4], dp[NS][4];
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ka[4], va[4];
+      load_a<LDH>(ka, Ks, warp * 16, kk);
+      load_a<LDH>(va, Vs, warp * 16, kk);
+#pragma unroll
+      for (int nt = 0; nt < NS; nt += 2) {
+        uint32_t b[4];
+        load_bt<LDH>(b, Qs, nt, kk);
+        mma_bf16(st[nt], ka, b[0], b[1]);
+        mma_bf16(st[nt + 1], ka, b[2], b[3]);
+        load_bt<LDH>(b, dOs, nt, kk);
+        mma_bf16(dp[nt], va, b[0], b[1]);
+        mma_bf16(dp[nt + 1], va, b[2], b[3]);
+      }
+    }
+
+    // P^T, its dropped form (into st), and dS^T (into dp)
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kv0 + warp * 16 + g + 8 * (e / 2);
+        const int qi = nt * 8 + i2 + (e & 1);
+        const float x = key < T ? round_bf16(st[nt][e]) * sl2 : NEG;
+        const float p = exp2f(x - lse2[qi]);
+        float da = dp[nt][e];
+        float pd = p;
+        if (DROP) {
+          const bool keep = dropout_keep(dkey, q0 + qi, key, thresh);
+          pd = keep ? p * inv_keep : 0.f;
+          da = keep ? da * inv_keep : 0.f;
+        }
+        st[nt][e] = pd;
+        dp[nt][e] = p * (da - dlt[qi]) * scale;
+      }
+
+    // dV_w += P_drop^T dO and dK_w += dS^T Q, both over this query tile
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      uint32_t pa[4], sa[4];
+      pack_a(pa, st[2 * kk], st[2 * kk + 1]);
+      pack_a(sa, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < ND; dn += 2) {
+        uint32_t b[4];
+        load_b<LDH>(b, dOs, dn, kk);
+        mma_bf16(accv[dn], pa, b[0], b[1]);
+        mma_bf16(accv[dn + 1], pa, b[2], b[3]);
+        load_b<LDH>(b, Qs, dn, kk);
+        mma_bf16(acck[dn], sa, b[0], b[1]);
+        mma_bf16(acck[dn + 1], sa, b[2], b[3]);
+      }
+    }
+    __syncthreads();   // every warp is done with this buffer before refill
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = kv0 + warp * 16 + g + 8 * h;
+    if (key >= T) continue;
+    const size_t off = base + (size_t)key * dk;
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = dn * 8 + i2 + e;
+        if (col < dk) {
+          dk_out[off + col] = __float2bfloat16(acck[dn][2 * h + e]);
+          dv_out[off + col] = __float2bfloat16(accv[dn][2 * h + e]);
+        }
+      }
+  }
+}
+
+// ------------------------------------------------------- pass 3, bf16: dQ
+template <int DKP>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(bf16) * 6 * BT * (DKP + 8);   // Q, dO, two K and V tiles
+}
+
+template <int DKP, bool DROP>
+__global__ void __launch_bounds__(NWARP * 32)
+attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dq_out,
+                 int T, int dk, float scale, const int* __restrict__ seedp,
+                 uint32_t thresh, float inv_keep) {
+  constexpr int LDH = DKP + 8;
+  constexpr int TILE = BT * LDH;
+  constexpr int KD = DKP / 16;
+  constexpr int NS = BT / 8;      // 8-key column tiles of S
+  constexpr int ND = DKP / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + TILE;
+  bf16* KVs = dOs + TILE;         // K, V of buffer 0, then of buffer 1
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, i2 = (lane % 4) * 2;
+  const float sl2 = scale * LOG2E;
+  const int bh = blockIdx.y;
+  const size_t base = (size_t)bh * T * dk;
+  const int q0 = blockIdx.x * BT;
+  const int ntiles = (T + BT - 1) / BT;
+  uint32_t dkey = 0;
+  if (DROP) dkey = dropout_key(*seedp, bh);
+
+  load_tile<DKP>(Qs, q + base, q0, T, dk);
+  load_tile<DKP>(dOs, dout + base, q0, T, dk);
+  cp_async_commit();
+  load_tile<DKP>(KVs, k + base, 0, T, dk);
+  load_tile<DKP>(KVs + TILE, v + base, 0, T, dk);
+  cp_async_commit();
+  cp_async_wait_one();   // Q and dO have landed
+  __syncthreads();
+
+  uint32_t qf[KD][4], of[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    load_a<LDH>(qf[kk], Qs, warp * 16, kk);
+    load_a<LDH>(of[kk], dOs, warp * 16, kk);
+  }
+  // rows g and g + 8 of this warp: lse in log2 units and delta
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + warp * 16 + g + 8 * h;
+    lse2[h] = row < T ? lse[(size_t)bh * T + row] * LOG2E : 0.f;
+    dlt[h] = row < T ? delta[(size_t)bh * T + row] : 0.f;
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    if (j + 1 < ntiles) {
+      bf16* nxt = KVs + ((j + 1) % 2) * 2 * TILE;
+      load_tile<DKP>(nxt, k + base, (j + 1) * BT, T, dk);
+      load_tile<DKP>(nxt + TILE, v + base, (j + 1) * BT, T, dk);
+    }
+    cp_async_commit();
+    cp_async_wait_one();   // key tile j has landed
+    __syncthreads();
+    const bf16* Ks = KVs + (j % 2) * 2 * TILE;
+    const bf16* Vs = Ks + TILE;
+    const int k0 = j * BT;
+
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NS; nt += 2)
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t b[4];
+        load_bt<LDH>(b, Ks, nt, kk);
+        mma_bf16(s[nt], qf[kk], b[0], b[1]);
+        mma_bf16(s[nt + 1], qf[kk], b[2], b[3]);
+        load_bt<LDH>(b, Vs, nt, kk);
+        mma_bf16(dp[nt], of[kk], b[0], b[1]);
+        mma_bf16(dp[nt + 1], of[kk], b[2], b[3]);
+      }
+
+    // dS into dp
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2;
+        const int col = k0 + nt * 8 + i2 + (e & 1);
+        const float x = col < T ? round_bf16(s[nt][e]) * sl2 : NEG;
+        const float p = exp2f(x - lse2[h]);
+        float da = dp[nt][e];
+        if (DROP) {
+          const int row = q0 + warp * 16 + g + 8 * h;
+          da = dropout_keep(dkey, row, col, thresh) ? da * inv_keep : 0.f;
+        }
+        dp[nt][e] = p * (da - dlt[h]) * scale;
+      }
+
+    // dQ_w += dS K: K fragments by ldmatrix.trans (rows are keys)
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      uint32_t a[4];
+      pack_a(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < ND; dn += 2) {
+        uint32_t b[4];
+        load_b<LDH>(b, Ks, dn, kk);
+        mma_bf16(acc[dn], a, b[0], b[1]);
+        mma_bf16(acc[dn + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + warp * 16 + g + 8 * h;
+    if (row >= T) continue;
+    bf16* orow = dq_out + base + (size_t)row * dk;
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = dn * 8 + i2 + e;
+        if (col < dk) orow[col] = __float2bfloat16(acc[dn][2 * h + e]);
+      }
+  }
+}
+
+// ---------------------------------------------------------------- f32 path
+constexpr int FR = 64;          // rows (keys or queries) per block
+constexpr int FT = 32;          // rows of the other side per staged tile
+constexpr int FTHREADS = 4 * FR;
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x;
+}
+
+// dK, dV: four threads per key split dk; query tiles of FT rows in shared
+// memory
+template <int DKP, bool DROP>
+__global__ void __launch_bounds__(FTHREADS)
+attn_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dk_out,
+                 float* __restrict__ dv_out, int T, int dk, float scale,
+                 const int* __restrict__ seedp, uint32_t thresh,
+                 float inv_keep) {
+  constexpr int DS = DKP / 4;
+  __shared__ float Qs[FT][DKP];
+  __shared__ float dOs[FT][DKP];
+  __shared__ float ls[FT], ds_[FT];
+  const int part = threadIdx.x & 3;
+  const int key = blockIdx.x * FR + (threadIdx.x >> 2);
+  const int bh = blockIdx.y;
+  const size_t base = (size_t)bh * T * dk;
+  uint32_t dkey = 0;
+  if (DROP) dkey = dropout_key(*seedp, bh);
+
+  float kr[DS], vr[DS], ak[DS], av[DS];
+#pragma unroll
+  for (int i = 0; i < DS; ++i) {
+    const int d = part + 4 * i;
+    const bool ok = key < T && d < dk;
+    kr[i] = ok ? k[base + (size_t)key * dk + d] : 0.f;
+    vr[i] = ok ? v[base + (size_t)key * dk + d] : 0.f;
+    ak[i] = av[i] = 0.f;
+  }
+
+  for (int q0 = 0; q0 < T; q0 += FT) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < FT * DKP; i += FTHREADS) {
+      const int rr = i / DKP, cc = i % DKP;
+      const int t = q0 + rr;
+      const bool ok = t < T && cc < dk;
+      Qs[rr][cc] = ok ? q[base + (size_t)t * dk + cc] : 0.f;
+      dOs[rr][cc] = ok ? dout[base + (size_t)t * dk + cc] : 0.f;
+    }
+    for (int i = threadIdx.x; i < FT; i += FTHREADS) {
+      const int t = q0 + i;
+      ls[i] = t < T ? lse[(size_t)bh * T + t] : INFINITY;
+      ds_[i] = t < T ? delta[(size_t)bh * T + t] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int r = 0; r < FT; ++r) {
+      float s = 0.f, dpv = 0.f;
+#pragma unroll
+      for (int i = 0; i < DS; ++i) {
+        s = fmaf(kr[i], Qs[r][part + 4 * i], s);
+        dpv = fmaf(vr[i], dOs[r][part + 4 * i], dpv);
+      }
+      s = quad_sum(s);
+      dpv = quad_sum(dpv);
+      const float p = key < T ? expf(s * scale - ls[r]) : 0.f;
+      float pd = p, da = dpv;
+      if (DROP) {
+        const bool keep = dropout_keep(dkey, q0 + r, key, thresh);
+        pd = keep ? p * inv_keep : 0.f;
+        da = keep ? da * inv_keep : 0.f;
+      }
+      const float dsv = p * (da - ds_[r]) * scale;
+#pragma unroll
+      for (int i = 0; i < DS; ++i) {
+        av[i] = fmaf(pd, dOs[r][part + 4 * i], av[i]);
+        ak[i] = fmaf(dsv, Qs[r][part + 4 * i], ak[i]);
+      }
+    }
+  }
+  if (key < T) {
+#pragma unroll
+    for (int i = 0; i < DS; ++i) {
+      const int d = part + 4 * i;
+      if (d < dk) {
+        dk_out[base + (size_t)key * dk + d] = ak[i];
+        dv_out[base + (size_t)key * dk + d] = av[i];
+      }
+    }
+  }
+}
+
+// dQ: four threads per query row split dk; key tiles of FT rows
+template <int DKP, bool DROP>
+__global__ void __launch_bounds__(FTHREADS)
+attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, float* __restrict__ dq_out,
+                int T, int dk, float scale, const int* __restrict__ seedp,
+                uint32_t thresh, float inv_keep) {
+  constexpr int DS = DKP / 4;
+  __shared__ float Ks[FT][DKP];
+  __shared__ float Vs[FT][DKP];
+  const int part = threadIdx.x & 3;
+  const int row = blockIdx.x * FR + (threadIdx.x >> 2);
+  const int bh = blockIdx.y;
+  const size_t base = (size_t)bh * T * dk;
+  uint32_t dkey = 0;
+  if (DROP) dkey = dropout_key(*seedp, bh);
+
+  float qr[DS], dor[DS], acc[DS];
+#pragma unroll
+  for (int i = 0; i < DS; ++i) {
+    const int d = part + 4 * i;
+    const bool ok = row < T && d < dk;
+    qr[i] = ok ? q[base + (size_t)row * dk + d] : 0.f;
+    dor[i] = ok ? dout[base + (size_t)row * dk + d] : 0.f;
+    acc[i] = 0.f;
+  }
+  const float lr = row < T ? lse[(size_t)bh * T + row] : 0.f;
+  const float dl = row < T ? delta[(size_t)bh * T + row] : 0.f;
+
+  for (int k0 = 0; k0 < T; k0 += FT) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < FT * DKP; i += FTHREADS) {
+      const int rr = i / DKP, cc = i % DKP;
+      const int t = k0 + rr;
+      const bool ok = t < T && cc < dk;
+      Ks[rr][cc] = ok ? k[base + (size_t)t * dk + cc] : 0.f;
+      Vs[rr][cc] = ok ? v[base + (size_t)t * dk + cc] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < FT; ++j) {
+      float s = 0.f, dpv = 0.f;
+#pragma unroll
+      for (int i = 0; i < DS; ++i) {
+        s = fmaf(qr[i], Ks[j][part + 4 * i], s);
+        dpv = fmaf(dor[i], Vs[j][part + 4 * i], dpv);
+      }
+      s = quad_sum(s);
+      dpv = quad_sum(dpv);
+      const float p = k0 + j < T ? expf(s * scale - lr) : 0.f;
+      float da = dpv;
+      if (DROP)
+        da = dropout_keep(dkey, row, k0 + j, thresh) ? da * inv_keep : 0.f;
+      const float dsv = p * (da - dl) * scale;
+#pragma unroll
+      for (int i = 0; i < DS; ++i) acc[i] = fmaf(dsv, Ks[j][part + 4 * i], acc[i]);
+    }
+  }
+  if (row < T) {
+#pragma unroll
+    for (int i = 0; i < DS; ++i) {
+      const int d = part + 4 * i;
+      if (d < dk) dq_out[base + (size_t)row * dk + d] = acc[i];
+    }
+  }
+}
+
+// --------------------------------------------------------------- launches
+template <typename E>
+int launch_delta(const Args& a) {
+  const int rows = a.BH * a.T;
+  const int per_block = 8;   // warps, one row each
+  attn_bwd_delta<E><<<(rows + per_block - 1) / per_block, 32 * per_block, 0,
+                      a.stream>>>(static_cast<const E*>(a.o),
+                                  static_cast<const E*>(a.dout), a.delta,
+                                  rows, a.dk);
+  return (int)cudaGetLastError();
+}
+
+template <int DKP, bool DROP>
+int launch_bf16(const Args& a) {
+  int err = launch_delta<bf16>(a);
+  if (err) return err;
+  const dim3 grid((a.T + BT - 1) / BT, a.BH);
+  const size_t b1 = dkv_smem_bytes<DKP>(), b2 = dq_smem_bytes<DKP>();
+  cudaError_t e = cudaFuncSetAttribute(
+      attn_bwd_dkv_bf16<DKP, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b1);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(attn_bwd_dq_bf16<DKP, DROP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)b2);
+  if (e != cudaSuccess) return (int)e;
+  const bf16 *q = static_cast<const bf16*>(a.q),
+             *k = static_cast<const bf16*>(a.k),
+             *v = static_cast<const bf16*>(a.v),
+             *dout = static_cast<const bf16*>(a.dout);
+  attn_bwd_dkv_bf16<DKP, DROP><<<grid, NWARP * 32, b1, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.grad_k),
+      static_cast<bf16*>(a.grad_v), a.T, a.dk, a.scale, a.seed, a.thresh,
+      a.inv_keep);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  attn_bwd_dq_bf16<DKP, DROP><<<grid, NWARP * 32, b2, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.grad_q), a.T, a.dk,
+      a.scale, a.seed, a.thresh, a.inv_keep);
+  return (int)cudaGetLastError();
+}
+
+template <int DKP, bool DROP>
+int launch_f32(const Args& a) {
+  int err = launch_delta<float>(a);
+  if (err) return err;
+  const dim3 grid((a.T + FR - 1) / FR, a.BH);
+  const float *q = static_cast<const float*>(a.q),
+              *k = static_cast<const float*>(a.k),
+              *v = static_cast<const float*>(a.v),
+              *dout = static_cast<const float*>(a.dout);
+  attn_bwd_dkv_f32<DKP, DROP><<<grid, FTHREADS, 0, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.grad_k),
+      static_cast<float*>(a.grad_v), a.T, a.dk, a.scale, a.seed, a.thresh,
+      a.inv_keep);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  attn_bwd_dq_f32<DKP, DROP><<<grid, FTHREADS, 0, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.grad_q), a.T, a.dk,
+      a.scale, a.seed, a.thresh, a.inv_keep);
+  return (int)cudaGetLastError();
+}
+
+template <bool DROP>
+int dispatch(const Args& a, bool is_bf16) {
+  const int dkp = a.dk <= 16 ? 16 : a.dk <= 32 ? 32 : a.dk <= 64 ? 64 : 128;
+  if (is_bf16) {
+    switch (dkp) {
+      case 16: return launch_bf16<16, DROP>(a);
+      case 32: return launch_bf16<32, DROP>(a);
+      case 64: return launch_bf16<64, DROP>(a);
+      default: return launch_bf16<128, DROP>(a);
+    }
+  }
+  switch (dkp) {
+    case 16: return launch_f32<16, DROP>(a);
+    case 32: return launch_f32<32, DROP>(a);
+    case 64: return launch_f32<64, DROP>(a);
+    default: return launch_f32<128, DROP>(a);
+  }
+}
+
+}  // namespace
+
+// q, k, v, o, dout, dq, dk, dv (BH, T, dk) contiguous on the device, bf16
+// when is_bf16 else float32; lse (the forward's, natural log) and the
+// workspace delta (BH, T) float32. Dropout arguments as attention_fwd's.
+// The caller checks 1 <= dk <= 128 and BH <= 65535.
+extern "C" int attention_bwd(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout, const void* lse,
+                             void* delta, void* dq, void* dk, void* dv,
+                             const void* seed, int BH, int T, int dkdim,
+                             float scale, int dropout, unsigned int thresh,
+                             float inv_keep, int is_bf16, void* stream) {
+  if (dkdim < 1 || dkdim > 128) return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, o, dout, static_cast<const float*>(lse),
+               static_cast<float*>(delta), dq, dk, dv,
+               static_cast<const int*>(seed), BH, T, dkdim, scale, thresh,
+               inv_keep, static_cast<cudaStream_t>(stream)};
+  return dropout ? dispatch<true>(a, is_bf16 != 0)
+                 : dispatch<false>(a, is_bf16 != 0);
+}

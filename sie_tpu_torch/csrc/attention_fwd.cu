@@ -1,9 +1,10 @@
 // K5: forward of full softmax attention, out = softmax(scale * Q K^T) V,
-// for q, k, v of shape (BH, T, dk), dk <= 128, in bf16 or float32.
+// for q, k, v of shape (BH, T, dk), dk <= 128, in bf16 or float32, with
+// optional attention dropout and an optional row log-sum-exp output.
 //
 // Replaces the Pallas kernel `_fwd_kernel` of
 // sie_tpu/ops/pallas/attention_pallas.py (launched by `_attn_fwd_impl`,
-// entry `fused_attention`), without dropout (rate 0).
+// entry `fused_attention`).
 //
 // Numerics follow that kernel's `_score_block`: Q K^T accumulates in f32;
 // with bf16 inputs the raw scores are rounded to bf16 before the scale;
@@ -12,6 +13,19 @@
 // accumulates in f32. One difference: the softmax here is online (running
 // max and sum over key tiles), so the bf16 probabilities are rounded before
 // the division by the row sum, not after it.
+//
+// Dropout uses the Pallas kernels' counter hash of (seed, bh,
+// global row, global column) (attention_common.cuh), applied as the
+// kv-blocked Pallas kernel `_fwd_kv_kernel` applies it: the running row sum
+// takes the undropped probabilities, then the dropped ones are zeroed and
+// the kept ones scaled by 1/(1 - rate) before the P V product. The result
+// is the full-row kernel's where(keep, a/(1 - rate), 0) V. Rate 0 is a
+// separate instantiation with no hash code in it.
+//
+// With `lse` given, the kernel also writes each row's natural log-sum-exp
+// of the scaled, masked scores (f32, (BH, T)): the backward K6 recomputes
+// exact probabilities from it. The serving path passes none, and runs an
+// instantiation without dropout or log-sum-exp code.
 //
 // What bounds it on an H100: at the flagship shape (BH=512, T=845, dk=64)
 // the two products are 4*BH*T^2*dk = 9.4e10 FLOP against ~0.2 GB of q, k,
@@ -39,120 +53,28 @@
 // with two shuffles, and run the same online softmax over 32-key tiles held
 // in shared memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "attention_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr float NEG = -1e30f;
+using namespace attn;
 
 // ---------------------------------------------------------------- bf16 path
 constexpr int BQ = 64;      // query rows per block
 constexpr int BK = 64;      // keys per tile
 constexpr int NWARP = 4;    // warps per block, 16 query rows each
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices; lanes 8j..8j+7 give the row addresses of matrix j
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// 16 bytes global -> shared without a register round trip; src_bytes 0
-// zero-fills the destination
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// waits until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// c (16x8, f32) += a (16x16, bf16, row-major) * b (16x8, bf16, col-major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// rows [t0, t0 + 64) of a (T, dk) matrix into a 64 x DKP tile with row
-// stride DKP + 8 (16-byte rows, and ldmatrix's eight row reads of a phase
-// fall in distinct banks); zero past T and past dk. When dk == DKP and the
-// matrix is 16-byte aligned the copy is asynchronous (cp.async, 8 bf16 at
-// a time; the caller commits and waits), else it is done here.
-template <int DKP>
-__device__ void load_tile(bf16* dst, const bf16* __restrict__ src, int t0,
-                          int T, int dk) {
-  constexpr int LDH = DKP + 8;
-  const bool vec = dk == DKP && (reinterpret_cast<uintptr_t>(src) % 16) == 0;
-  if (vec) {
-    for (int i = threadIdx.x; i < 64 * DKP / 8; i += blockDim.x) {
-      const int rr = i / (DKP / 8), cc = (i % (DKP / 8)) * 8;
-      const int t = t0 + rr;
-      cp_async16(dst + rr * LDH + cc, src + (size_t)min(t, T - 1) * dk + cc,
-                 t < T ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < 64 * DKP; i += blockDim.x) {
-      const int rr = i / DKP, cc = i % DKP;
-      const int t = t0 + rr;
-      dst[rr * LDH + cc] = (t < T && cc < dk) ? src[(size_t)t * dk + cc]
-                                              : __float2bfloat16(0.f);
-    }
-  }
-}
-
 template <int DKP>
 constexpr size_t bf16_smem_bytes() {
   return sizeof(bf16) * 5 * 64 * (DKP + 8);   // Q, and two K and V tiles
 }
 
-// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 * g + i. The f32
-// accumulator c of a 16 x 8 tile holds (row g, cols 2i, 2i+1) in c[0..1]
-// and (row g + 8, same cols) in c[2..3]. The A operand (16 x 16) holds
-// (row g, cols 2i..2i+1), (row g + 8, cols 2i..), (row g, cols 2i+8..),
-// (row g + 8, cols 2i+8..); the B operand (16 x 8) holds (rows 2i..2i+1,
-// col g) and (rows 2i+8.., col g).
-template <int DKP>
+template <int DKP, bool DROP, bool LSE>
 __global__ void __launch_bounds__(NWARP * 32)
 attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o, int T, int dk,
-              float scale) {
+              const bf16* __restrict__ v, bf16* __restrict__ o,
+              float* __restrict__ lse, int T, int dk, float scale,
+              const int* __restrict__ seedp, uint32_t thresh, float inv_keep) {
   constexpr int LDH = DKP + 8;
   constexpr int TILE = 64 * LDH;  // elements of one staged tile
   constexpr int KD = DKP / 16;    // k-steps of Q K^T
@@ -164,11 +86,13 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, i2 = (lane % 4) * 2;
   // scores in log2 units: exp(x * scale - m) = exp2(x * sl2 - m2)
-  const float sl2 = scale * 1.4426950408889634f;
+  const float sl2 = scale * LOG2E;
 
   const size_t base = (size_t)blockIdx.y * T * dk;
   const int q0 = blockIdx.x * BQ;
   const int ntiles = (T + BK - 1) / BK;
+  uint32_t dkey = 0;
+  if (DROP) dkey = dropout_key(*seedp, blockIdx.y);
   load_tile<DKP>(Qs, q + base, q0, T, dk);
   cp_async_commit();
   load_tile<DKP>(KVs, k + base, 0, T, dk);
@@ -177,12 +101,10 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait_one();   // Q has landed
   __syncthreads();
 
-  // this warp's Q rows as A fragments: matrix r of the x4 load is rows
-  // (r % 2) * 8 .. +7, cols (r / 2) * 8 .. +7 of the 16 x 16 k-step
+  // this warp's Q rows as A fragments
   uint32_t qf[KD][4];
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    ldsm_x4(qf[kk], Qs + (warp * 16 + lane % 16) * LDH + kk * 16 + (lane / 16) * 8);
+  for (int kk = 0; kk < KD; ++kk) load_a<LDH>(qf[kk], Qs, warp * 16, kk);
 
   float acc[ND][4];
 #pragma unroll
@@ -206,8 +128,7 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* Vs = Ks + TILE;
     const int k0 = j * BK;
 
-    // scores: B = K^T, so B fragments are rows of K; one x4 load gives
-    // those of key tiles nt and nt + 1 for one k-step
+    // scores: B = K^T, so B fragments are rows of K
     float s[NS][4];
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt)
@@ -218,7 +139,7 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
         uint32_t b[4];
-        ldsm_x4(b, Ks + ((nt + lane / 16) * 8 + lane % 8) * LDH + kk * 16 + ((lane / 8) % 2) * 8);
+        load_bt<LDH>(b, Ks, nt, kk);
         mma_bf16(s[nt], qf[kk], b[0], b[1]);
         mma_bf16(s[nt + 1], qf[kk], b[2], b[3]);
       }
@@ -252,24 +173,32 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         s[nt][e] = p;
         l[e / 2] += p;
       }
+    if (DROP) {   // after the row sum: it is over the undropped probabilities
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = q0 + warp * 16 + g + 8 * (e / 2);
+          const int col = k0 + nt * 8 + i2 + (e & 1);
+          s[nt][e] = dropout_keep(dkey, row, col, thresh)
+                         ? s[nt][e] * inv_keep : 0.f;
+        }
+    }
 #pragma unroll
     for (int dn = 0; dn < ND; ++dn)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[dn][e] *= alpha[e / 2];
 
     // P V: the accumulators of score tiles 2kk and 2kk+1 are the A operand
-    // of key step kk; V fragments by ldmatrix.trans (rows are keys), one
-    // x4 load for output tiles dn and dn + 1
+    // of key step kk; V fragments by ldmatrix.trans (rows are keys)
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t a[4];
+      pack_a(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int dn = 0; dn < ND; dn += 2) {
         uint32_t b[4];
-        ldsm_x4_trans(b, Vs + (kk * 16 + lane % 16) * LDH + (dn + lane / 16) * 8);
+        load_b<LDH>(b, Vs, dn, kk);
         mma_bf16(acc[dn], a, b[0], b[1]);
         mma_bf16(acc[dn + 1], a, b[2], b[3]);
       }
@@ -295,6 +224,8 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int col = dn * 8 + i2 + e;
         if (col < dk) orow[col] = __float2bfloat16(acc[dn][2 * h + e] * inv);
       }
+    if (LSE && i2 == 0)
+      lse[(size_t)blockIdx.y * T + row] = (m[h] + log2f(l[h])) * LN2;
   }
 }
 
@@ -303,17 +234,20 @@ constexpr int FQ = 64;         // query rows per block
 constexpr int FK = 32;         // keys per tile
 constexpr int FTHREADS = 4 * FQ;
 
-template <int DKP>
+template <int DKP, bool DROP, bool LSE>
 __global__ void __launch_bounds__(FTHREADS)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int T, int dk,
-             float scale) {
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, int T, int dk, float scale,
+             const int* __restrict__ seedp, uint32_t thresh, float inv_keep) {
   constexpr int DS = DKP / 4;           // dims per thread: part + 4 * i
   __shared__ float Ks[FK][DKP];
   __shared__ float Vs[FK][DKP];
   const int part = threadIdx.x & 3;
   const int row = blockIdx.x * FQ + (threadIdx.x >> 2);
   const size_t base = (size_t)blockIdx.y * T * dk;
+  uint32_t dkey = 0;
+  if (DROP) dkey = dropout_key(*seedp, blockIdx.y);
 
   float qr[DS], acc[DS];
 #pragma unroll
@@ -354,8 +288,9 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < DS; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int j = 0; j < FK; ++j) {
-      const float p = expf(sc[j] - m_new);
+      float p = expf(sc[j] - m_new);
       l += p;
+      if (DROP) p = dropout_keep(dkey, row, k0 + j, thresh) ? p * inv_keep : 0.f;
 #pragma unroll
       for (int i = 0; i < DS; ++i) acc[i] = fmaf(p, Vs[j][part + 4 * i], acc[i]);
     }
@@ -368,56 +303,85 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const int d = part + 4 * i;
       if (d < dk) o[base + (size_t)row * dk + d] = acc[i] / l;
     }
+    if (LSE && part == 0)
+      lse[(size_t)blockIdx.y * T + row] = m + logf(l);
   }
 }
 
-template <int DKP>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int BH,
-                int T, int dk, float scale, cudaStream_t stream) {
+struct Args {
+  const void *q, *k, *v;
+  void *o;
+  float* lse;
+  const int* seed;
+  int BH, T, dk;
+  float scale;
+  uint32_t thresh;
+  float inv_keep;
+  cudaStream_t stream;
+};
+
+template <int DKP, bool DROP, bool LSE>
+int launch_bf16(const Args& a) {
   const size_t bytes = bf16_smem_bytes<DKP>();
   cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_bf16<DKP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      attn_fwd_bf16<DKP, DROP, LSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + BQ - 1) / BQ, BH);
-  attn_fwd_bf16<DKP><<<grid, NWARP * 32, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), T, dk, scale);
+  const dim3 grid((a.T + BQ - 1) / BQ, a.BH);
+  attn_fwd_bf16<DKP, DROP, LSE><<<grid, NWARP * 32, bytes, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.T,
+      a.dk, a.scale, a.seed, a.thresh, a.inv_keep);
   return (int)cudaGetLastError();
 }
 
-template <int DKP>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int BH,
-               int T, int dk, float scale, cudaStream_t stream) {
-  const dim3 grid((T + FQ - 1) / FQ, BH);
-  attn_fwd_f32<DKP><<<grid, FTHREADS, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), T, dk, scale);
+template <int DKP, bool DROP, bool LSE>
+int launch_f32(const Args& a) {
+  const dim3 grid((a.T + FQ - 1) / FQ, a.BH);
+  attn_fwd_f32<DKP, DROP, LSE><<<grid, FTHREADS, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.T,
+      a.dk, a.scale, a.seed, a.thresh, a.inv_keep);
   return (int)cudaGetLastError();
+}
+
+template <bool DROP, bool LSE>
+int dispatch(const Args& a, bool is_bf16) {
+  const int dkp = a.dk <= 16 ? 16 : a.dk <= 32 ? 32 : a.dk <= 64 ? 64 : 128;
+  if (is_bf16) {
+    switch (dkp) {
+      case 16: return launch_bf16<16, DROP, LSE>(a);
+      case 32: return launch_bf16<32, DROP, LSE>(a);
+      case 64: return launch_bf16<64, DROP, LSE>(a);
+      default: return launch_bf16<128, DROP, LSE>(a);
+    }
+  }
+  switch (dkp) {
+    case 16: return launch_f32<16, DROP, LSE>(a);
+    case 32: return launch_f32<32, DROP, LSE>(a);
+    case 64: return launch_f32<64, DROP, LSE>(a);
+    default: return launch_f32<128, DROP, LSE>(a);
+  }
 }
 
 }  // namespace
 
 // q, k, v, o (BH, T, dk) contiguous on the device, bf16 when is_bf16 else
-// float32. The caller checks 1 <= dk <= 128 and BH <= 65535.
+// float32; lse (BH, T) float32 or null. With `dropout` set: seed is one
+// int32 on the device, thresh = min(rate * 2^32, 2^32 - 1) and inv_keep =
+// 1 / (1 - rate); without, those three are not read. The caller checks
+// 1 <= dk <= 128 and BH <= 65535.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
-                             void* o, int BH, int T, int dk, float scale,
-                             int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int dkp = dk <= 16 ? 16 : dk <= 32 ? 32 : dk <= 64 ? 64 : 128;
+                             void* o, void* lse, const void* seed, int BH,
+                             int T, int dk, float scale, int dropout,
+                             unsigned int thresh, float inv_keep, int is_bf16,
+                             void* stream) {
   if (dk < 1 || dk > 128) return (int)cudaErrorInvalidValue;
-  if (is_bf16) {
-    switch (dkp) {
-      case 16: return launch_bf16<16>(q, k, v, o, BH, T, dk, scale, st);
-      case 32: return launch_bf16<32>(q, k, v, o, BH, T, dk, scale, st);
-      case 64: return launch_bf16<64>(q, k, v, o, BH, T, dk, scale, st);
-      default: return launch_bf16<128>(q, k, v, o, BH, T, dk, scale, st);
-    }
-  }
-  switch (dkp) {
-    case 16: return launch_f32<16>(q, k, v, o, BH, T, dk, scale, st);
-    case 32: return launch_f32<32>(q, k, v, o, BH, T, dk, scale, st);
-    case 64: return launch_f32<64>(q, k, v, o, BH, T, dk, scale, st);
-    default: return launch_f32<128>(q, k, v, o, BH, T, dk, scale, st);
-  }
+  const Args a{q, k, v, o, static_cast<float*>(lse),
+               static_cast<const int*>(seed), BH, T, dk, scale, thresh,
+               inv_keep, static_cast<cudaStream_t>(stream)};
+  const bool bf = is_bf16 != 0;
+  if (lse != nullptr)
+    return dropout ? dispatch<true, true>(a, bf) : dispatch<false, true>(a, bf);
+  return dropout ? dispatch<true, false>(a, bf) : dispatch<false, false>(a, bf);
 }

@@ -26,9 +26,12 @@ class InterpGN(nn.Module):
         self.deep_model = build_dnn(cfg, g)
 
     def forward(self, x, padding_mask=None,
-                gating_value: Optional[float] = None):
-        sbm_out, info = self.sbm(x, padding_mask)
-        deep_out = self.deep_model(x, padding_mask)
+                gating_value: Optional[float] = None,
+                generator: Optional[torch.Generator] = None):
+        """`generator` draws the dropout masks in training (see
+        models/layers.py); at eval nothing is drawn."""
+        sbm_out, info = self.sbm(x, padding_mask, generator=generator)
+        deep_out = self.deep_model(x, padding_mask, generator)
         c = sbm_out.shape[-1]
         probs = torch.softmax(sbm_out, dim=-1)
         gini = probs.square().sum(dim=-1, keepdim=True)

@@ -10,13 +10,16 @@ round at the same places under `amp` (bf16 compute):
 - `jax.nn.gelu` is the tanh approximation (`gelu`).
 
 Parameters are initialised from an explicit `torch.Generator` with the
-distributions the JAX package uses (PyTorch's own defaults).
+distributions the JAX package uses (PyTorch's own defaults). Dropout, at
+the JAX package's places, draws its masks from another explicit generator
+that the caller passes to `forward` (flax's `rngs={"dropout": ...}`); in
+eval mode or at rate 0 it draws nothing.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +64,34 @@ def linear(in_features: int, out_features: int, g: torch.Generator,
 
 def layer_norm_module(d: int) -> nn.LayerNorm:
     return nn.LayerNorm(d, eps=_LN_EPS)
+
+
+# ------------------------------------------------------------ dropout
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            training: bool) -> torch.Tensor:
+    """flax `nn.Dropout(rate)`: keep each element with probability
+    1 - rate and scale the kept ones by 1/(1 - rate), the mask drawn from
+    `generator` (on x's device). The identity when not training or at
+    rate 0."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError(f"dropout at rate {rate} in training needs a "
+                         f"torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
+
+
+def dropout_seed(generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One int32 in [0, 2^31 - 1) drawn from `generator`, on its device: the
+    seed of the fused attention's dropout hash (the JAX package draws
+    `randint(make_rng("dropout"), (1,), 0, int32 max)`)."""
+    if generator is None:
+        raise ValueError("attention dropout in training needs a "
+                         "torch.Generator")
+    return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                         device=generator.device, dtype=torch.int32)
 
 
 # ------------------------------------------------------------ numerics
@@ -123,12 +154,13 @@ class TokenEmbedding(nn.Module):
 
 class DataEmbedding(nn.Module):
     """Token + sinusoidal position embedding (the classification path:
-    no time marks)."""
+    no time marks), then dropout."""
 
     def __init__(self, c_in: int, d_model: int, dtype: torch.dtype,
-                 g: torch.Generator):
+                 g: torch.Generator, dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
+        self.dropout = dropout
         self.token_embedding = TokenEmbedding(c_in, d_model, dtype, g)
         self._pe: Dict[Tuple, torch.Tensor] = {}
 
@@ -140,26 +172,31 @@ class DataEmbedding(nn.Module):
                     device=like.device, dtype=like.dtype)
         return self._pe[key]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         v = self.token_embedding(x)
-        return v + self._position(x.shape[1], v)[None]
+        return dropout(v + self._position(x.shape[1], v)[None], self.dropout,
+                       generator, self.training)
 
 
 # ------------------------------------------------------------ attention
 class FullAttentionLayer(nn.Module):
     """QKV projections + scaled dot-product full attention. The fused branch
-    runs kernel K5; the other branch is plain `torch.matmul`, as the JAX
-    package leaves it to XLA. The gate is the JAX package's."""
+    runs kernels K5 and K6 (dropout by their hash, seeded per call from the
+    generator); the other branch is plain `torch.matmul` with dropout on
+    the probabilities, as the JAX package leaves it to XLA. The gate is the
+    JAX package's."""
 
     def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype,
                  g: torch.Generator, use_fused: bool = False,
                  fused_max_len: int = 4096, fused_min_len: int = 256,
-                 use_flash: bool = False):
+                 use_flash: bool = False, attention_dropout: float = 0.0):
         super().__init__()
         if use_flash:
             raise not_ported("use_flash_attention (the stock TPU flash "
                              "kernel; K5 covers the same op)")
         self.n_heads = n_heads
+        self.attention_dropout = attention_dropout
         self.dtype = dtype
         self.use_fused = use_fused
         self.fused_max_len = fused_max_len
@@ -176,7 +213,8 @@ class FullAttentionLayer(nn.Module):
                 and q_len >= self.fused_min_len
                 and dk <= 128)
 
-    def forward(self, q_in, k_in, v_in):
+    def forward(self, q_in, k_in, v_in,
+                generator: Optional[torch.Generator] = None):
         h = self.n_heads
         b, l = q_in.shape[:2]
         dt = self.dtype
@@ -185,8 +223,12 @@ class FullAttentionLayer(nn.Module):
         v = dense(v_in, self.value, dt).unflatten(-1, (h, -1))
         dk = q.shape[-1]
         if self.uses_kernel(l, k_in.shape[1], dk):
+            # bh = b * H + h in the dropout hash, as the JAX package folds
             fold = lambda z: z.transpose(1, 2).contiguous().view(b * h, l, dk)
-            o = fused_attention(fold(q), fold(k), fold(v), 1.0 / math.sqrt(dk))
+            rate = self.attention_dropout if self.training else 0.0
+            seed = dropout_seed(generator) if rate > 0.0 else 0
+            o = fused_attention(fold(q), fold(k), fold(v), 1.0 / math.sqrt(dk),
+                                rate, seed)
             out = o.view(b, h, l, dk).transpose(1, 2)
         else:
             qh, kh, vh = (z.transpose(1, 2) for z in (q, k, v))  # (B, H, L, dk)
@@ -196,6 +238,7 @@ class FullAttentionLayer(nn.Module):
             else:
                 scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
             a = torch.softmax(scores / math.sqrt(dk), dim=-1)
+            a = dropout(a, self.attention_dropout, generator, self.training)
             out = torch.matmul(a.to(vh.dtype), vh).transpose(1, 2)
         out = out.reshape(b, l, h * dk).to(dt)
         return dense(out, self.out, dt)
@@ -209,7 +252,7 @@ class EncoderLayer(nn.Module):
                  activation: str = "gelu", use_fused: bool = False,
                  fused_max_len: int = 4096, fused_min_len: int = 256,
                  use_flash: bool = False, variant: str = "full",
-                 moe_experts: int = 0):
+                 moe_experts: int = 0, dropout: float = 0.0):
         super().__init__()
         if variant != "full":
             raise not_ported(f"attention_variant={variant!r}")
@@ -217,21 +260,23 @@ class EncoderLayer(nn.Module):
             raise not_ported("the MoE FFN (moe_experts > 0)")
         self.dtype = dtype
         self.activation = activation
+        self.dropout = dropout
         self.attention = FullAttentionLayer(
             d_model, n_heads, dtype, g, use_fused=use_fused,
             fused_max_len=fused_max_len, fused_min_len=fused_min_len,
-            use_flash=use_flash)
+            use_flash=use_flash, attention_dropout=dropout)
         self.norm1 = layer_norm_module(d_model)
         self.conv1 = linear(d_model, d_ff, g)
         self.conv2 = linear(d_ff, d_model, g)
         self.norm2 = layer_norm_module(d_model)
 
-    def forward(self, x):
-        x = x + self.attention(x, x, x)
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        drop = lambda z: dropout(z, self.dropout, generator, self.training)
+        x = x + drop(self.attention(x, x, x, generator))
         x = y = layer_norm(self.norm1, x)
         act = F.relu if self.activation == "relu" else gelu
-        y = act(dense(y, self.conv1, self.dtype))
-        y = dense(y, self.conv2, self.dtype)
+        y = drop(act(dense(y, self.conv1, self.dtype)))
+        y = drop(dense(y, self.conv2, self.dtype))
         return layer_norm(self.norm2, x + y)
 
 
@@ -244,7 +289,7 @@ class Encoder(nn.Module):
             EncoderLayer(d_model, **kw) for _ in range(e_layers))
         self.norm = layer_norm_module(d_model)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, generator)
         return layer_norm(self.norm, x)

@@ -31,8 +31,9 @@ class DNNWrapper(nn.Module):
         super().__init__()
         self.backbone = build_dnn(cfg, g)
 
-    def forward(self, x, padding_mask=None, gating_value=None):
-        logits = self.backbone(x, padding_mask)
+    def forward(self, x, padding_mask=None, gating_value=None,
+                generator: Optional[torch.Generator] = None):
+        logits = self.backbone(x, padding_mask, generator)
         return logits, ModelInfo(preds=logits,
                                  loss=torch.zeros(1, device=logits.device))
 
@@ -40,7 +41,8 @@ class DNNWrapper(nn.Module):
 def build_model(cfg: Config, device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None) -> nn.Module:
     """The model `cfg.model` in eval mode on `device` (default the card),
-    its weights drawn from `generator` (default seed 0)."""
+    its weights drawn from `generator` (default seed 0). Training calls
+    `.train()` on it and passes its forward a dropout generator."""
     dev = resolve_device(device)
     g = torch.Generator().manual_seed(0) if generator is None else generator
     if cfg.model == "InterpGN":

@@ -12,7 +12,11 @@
   'bilinear' (linear + bilinear form) or 'attention' (scalar attention over
   the predicates with a learned positional embedding);
 - model loss = lambda_reg * mean|W| + lambda_div * sum over banks of the
-  diversity loss.
+  diversity loss;
+- in training, dropout at `cfg.dropout` on the classifier's input (three
+  independent masks for 'bilinear'); `clamp_sbm_weights` is the
+  non-negative projection of the classifier after an optimizer step
+  (`pos_weight`).
 
 The predicates stay float32; `classify` casts them to the compute dtype.
 `cfg.fuse_short_banks` (the grouped-bank kernel K3) is not ported, so every
@@ -22,14 +26,15 @@ bank takes its own K1 launch.
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from sie_tpu_torch.config import Config
 from sie_tpu_torch.models.info import ModelInfo
-from sie_tpu_torch.models.layers import dense, linear, normal_, uniform_
+from sie_tpu_torch.models.layers import (dense, dropout, linear, normal_,
+                                         uniform_)
 from sie_tpu_torch.ops.shapelet import (diversity_loss, instance_norm, rbf,
                                         shapelet_stride, sliding_distance,
                                         ste_max, ste_min)
@@ -148,18 +153,23 @@ class ShapeBottleneckModel(nn.Module):
             ds.append(d_min.reshape(b, -1))
         return torch.cat(ps, dim=-1), torch.cat(ds, dim=-1)
 
-    def classify(self, p: torch.Tensor) -> torch.Tensor:
+    def classify(self, p: torch.Tensor,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.cfg.compute_dtype
         pc = p.to(dt)
+        drop = lambda z: dropout(z, self.cfg.dropout, generator, self.training)
         if self.cfg.sbm_cls == "linear":
-            out = dense(pc, self.output_layer, dt)
+            out = dense(drop(pc), self.output_layer, dt)
         elif self.cfg.sbm_cls == "bilinear":
-            lin = dense(pc, self.output_layer, dt)
+            # three independent masks, as in the JAX package: one mask for
+            # both bilinear arguments would keep the p_i^2 terms correlated
+            lin = dense(drop(pc), self.output_layer, dt)
             w = self.bilinear_w.to(dt).float()
-            bil = torch.einsum("bi,kij,bj->bk", pc.float(), w, pc.float())
+            bil = torch.einsum("bi,kij,bj->bk", drop(pc).float(), w,
+                               drop(pc).float())
             out = lin + bil
         else:
-            out = dense(self.attention(pc), self.output_layer, dt)
+            out = dense(drop(self.attention(pc)), self.output_layer, dt)
         return out.float()
 
     def model_loss(self) -> torch.Tensor:
@@ -170,8 +180,20 @@ class ShapeBottleneckModel(nn.Module):
                                                for b in self.banks)
         return loss
 
-    def forward(self, x, padding_mask=None, gating_value=None):
+    def forward(self, x, padding_mask=None, gating_value=None,
+                generator: Optional[torch.Generator] = None):
         p, d = self.predicates(x)
-        out = self.classify(p)
+        out = self.classify(p, generator)
         return out, ModelInfo(d=d, p=p, shapelet_preds=out, preds=out,
                               loss=self.model_loss()[None])
+
+
+def clamp_sbm_weights(module: nn.Module) -> None:
+    """Clamps every `output_layer.weight` in `module` to >= 0 in place: the
+    `pos_weight` projection after an optimizer step (the JAX package's
+    `clamp_sbm_weights` on `output_layer/kernel`)."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name == "output_layer.weight" or \
+                    name.endswith(".output_layer.weight"):
+                p.clamp_(min=0.0)

@@ -1,82 +1,280 @@
-"""Kernel K5: the fused full softmax attention forward.
+"""Kernels K5 and K6: the fused full softmax attention, forward and
+backward, with the Pallas kernels' attention dropout.
 
-`fused_attention` is the wrapper: a CPU tensor goes to the plain version
-`attention_plain`, a CUDA tensor to the hand-written kernel in
-`csrc/attention_fwd.cu` (which replaces the Pallas kernel `_fwd_kernel` of
-sie_tpu/ops/pallas/attention_pallas.py; the source says what bounds it and
-how it is laid out). There is no other route.
+`fused_attention` is the entry: the autograd function `FusedAttention`,
+whose forward is K5 and whose backward is K6 (`attention_bwd`). For CPU
+tensors they run the plain versions `attention_plain` and
+`attention_bwd_plain`; for CUDA tensors the hand-written kernels in
+`csrc/attention_fwd.cu` and `csrc/attention_bwd.cu` (which replace the
+Pallas kernels `_fwd_kernel` and `_bwd_kernel` of
+sie_tpu/ops/pallas/attention_pallas.py; the sources say what bounds them
+and how they are laid out). There is no other route.
 
-Only `rate == 0` is ported: attention dropout (the Pallas kernel's murmur3
-counter hash) arrives with the training slice and its backward kernel.
+Dropout follows the Pallas kernels: a keep mask from a murmur3 counter hash
+of (seed, bh, global query row, global key column) (`dropout_keep`), the
+same bits in the forward and the backward, the kernels and the plain
+versions, and in the JAX package for the same int32 seed.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple, Union
 
 import torch
 
 from sie_tpu_torch.ops import build
 
 _DTYPES = (torch.bfloat16, torch.float32)
+_M32 = 0xFFFFFFFF
+
+Seed = Union[int, torch.Tensor]
 
 
-def _check_rate(rate: float) -> None:
-    if rate != 0.0:
-        raise ValueError(f"attention dropout (rate={rate}) is not ported yet; "
-                         f"only rate=0 is supported")
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) and c < 2^32, in 16-bit
+    halves so that no int64 product overflows."""
+    lo = (x & 0xFFFF) * c
+    hi = ((x >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
 
 
-def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float, rate: float = 0.0) -> torch.Tensor:
-    """softmax(scale * Q K^T) V with the Pallas kernel's roundings: f32
-    scores, rounded to bf16 before the scale when the inputs are bf16, f32
-    softmax, probabilities cast to v's dtype, f32 accumulation of P V."""
-    _check_rate(rate)
+def _keep_threshold(rate: float) -> int:
+    """A hash at or above this keeps its element: P(keep) = 1 - rate."""
+    return min(int(rate * 4294967296.0), 4294967295)
+
+
+def dropout_keep(seed: Seed, bh, rows, cols, rate: float) -> torch.Tensor:
+    """The keep mask (True = kept) of the Pallas kernels' `_dropout_mask`
+    (attention_pallas.py:73-94), bit for bit: key = seed * 0x9E3779B9 ^
+    bh * 0x85EBCA6B; x = (row * 0x27D4EB2F + col) ^ key; three murmur3
+    finaliser rounds; keep = x >= min(rate * 2^32, 2^32 - 1). uint32
+    arithmetic is done in int64, masked to 32 bits after every step.
+    `bh` is the index into the folded (B * H) axis, b * H + h; `rows` and
+    `cols` are global query and key indices; the arguments broadcast."""
+    dev = next((t.device for t in (rows, cols, bh) if torch.is_tensor(t)),
+               None)
+    seed, bh, rows, cols = (torch.as_tensor(z, device=dev).to(torch.int64)
+                            & _M32 for z in (seed, bh, rows, cols))
+    key = _mul32(seed, 0x9E3779B9) ^ _mul32(bh, 0x85EBCA6B)
+    x = ((_mul32(rows, 0x27D4EB2F) + cols) & _M32) ^ key
+    x = _mul32(x ^ (x >> 16), 0x85EBCA6B)
+    x = _mul32(x ^ (x >> 13), 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return x >= _keep_threshold(rate)
+
+
+def _keep(seed: Seed, bh: int, t: int, rate: float,
+          device: torch.device) -> torch.Tensor:
+    """(BH, T, T) keep mask of one attention call."""
+    ar = torch.arange(t, device=device)
+    return dropout_keep(seed, torch.arange(bh, device=device)[:, None, None],
+                        ar[:, None], ar[None, :], rate)
+
+
+def _probs(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """softmax(scale * Q K^T) in f32 with `_score_block`'s rounding: f32
+    scores, rounded to bf16 before the scale when the inputs are bf16."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if q.dtype == torch.bfloat16:
         s = s.to(torch.bfloat16).float()
-    a = torch.softmax(s * scale, dim=-1)
+    return torch.softmax(s * scale, dim=-1)
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, rate: float = 0.0,
+                    seed: Seed = 0) -> torch.Tensor:
+    """softmax(scale * Q K^T) V with the Pallas kernel's roundings and
+    dropout: f32 softmax, then where(keep, a / (1 - rate), 0), cast to v's
+    dtype, f32 accumulation of P V."""
+    a = _probs(q, k, scale)
+    if rate > 0.0:
+        keep = _keep(seed, q.shape[0], q.shape[1], rate, q.device)
+        a = torch.where(keep, a * (1.0 / (1.0 - rate)), 0.0)
     out = torch.matmul(a.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
 
 
-def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float, rate: float = 0.0) -> torch.Tensor:
-    """q, k, v (BH, T, dk), all bf16 or all float32 -> (BH, T, dk) of the
-    same dtype: exact softmax(scale * Q K^T) V."""
-    _check_rate(rate)
-    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"q, k, v must share one (BH, T, dk) shape; got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q, k, v must all be bf16 or all float32; got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("K5 takes contiguous q, k, v")
-    devices = {q.device, k.device, v.device}
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, scale: float, rate: float = 0.0,
+                        seed: Seed = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV) of `attention_plain`, as the Pallas `_bwd_kernel`
+    computes them (not autograd of the plain forward, whose roundings
+    differ): a = softmax; ad = keep ? a/(1-rate) : 0; dV = ad^T dO with ad
+    in dO's dtype; dA = keep ? dO V^T/(1-rate) : 0; dS = (dA a - a
+    rowsum(dA a)) scale, rounded to q's dtype; dQ = dS K; dK = dS^T Q."""
+    a = _probs(q, k, scale)
+    d32 = do.float()
+    da = torch.matmul(d32, v.float().transpose(-1, -2))
+    ad = a
+    if rate > 0.0:
+        keep = _keep(seed, q.shape[0], q.shape[1], rate, q.device)
+        inv = 1.0 / (1.0 - rate)
+        ad = torch.where(keep, a * inv, 0.0)
+        da = torch.where(keep, da * inv, 0.0)
+    dv = torch.matmul(ad.to(do.dtype).float().transpose(-1, -2), d32)
+    tmp = da * a
+    ds = (tmp - a * tmp.sum(dim=-1, keepdim=True)) * scale
+    ds = ds.to(q.dtype).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           what: str, *more: torch.Tensor) -> bool:
+    """Validates (BH, T, dk) inputs; True when they lie on a CUDA device,
+    False when all lie on the CPU."""
+    ts = (q, k, v) + more
+    if q.dim() != 3 or any(t.shape != q.shape for t in ts):
+        raise ValueError(f"{what}: q, k, v{', ...' if more else ''} must "
+                         f"share one (BH, T, dk) shape; got "
+                         f"{[tuple(t.shape) for t in ts]}")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ts):
+        raise ValueError(f"{what}: inputs must all be bf16 or all float32; "
+                         f"got {[str(t.dtype) for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{what} takes contiguous inputs")
+    devices = {t.device for t in ts}
     if devices == {torch.device("cpu")}:
-        return attention_plain(q, k, v, scale)
+        return False
     if len(devices) != 1 or q.device.type != "cuda":
-        raise ValueError(f"q, k, v must all be on one CUDA device or all on "
-                         f"the CPU; got {sorted(map(str, devices))}")
-    bh, t, dk = q.shape
+        raise ValueError(f"{what}: inputs must all be on one CUDA device or "
+                         f"all on the CPU; got {sorted(map(str, devices))}")
+    bh, _, dk = q.shape
     if not 1 <= dk <= 128:
-        raise ValueError(f"K5 takes 1 <= dk <= 128; got dk={dk}")
+        raise ValueError(f"{what} takes 1 <= dk <= 128; got dk={dk}")
     if bh > 65535:
-        raise ValueError(f"K5 launches one grid row per (batch, head); "
+        raise ValueError(f"{what} launches one grid row per (batch, head); "
                          f"BH={bh} exceeds 65535")
+    return True
+
+
+def _check_rate(rate: float) -> None:
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"attention dropout rate must be in [0, 1); got "
+                         f"{rate}")
+
+
+def _dropout_args(rate: float, seed: Seed, device: torch.device):
+    """(dropout flag, seed tensor or None, keep threshold, 1/(1-rate)) for a
+    kernel's C entry; the seed goes to the card as one int32."""
+    if rate == 0.0:
+        return 0, None, 0, 1.0
+    if torch.is_tensor(seed):
+        if seed.numel() != 1 or seed.dtype != torch.int32:
+            raise ValueError(f"the dropout seed must be one int32; got "
+                             f"{seed.dtype} of shape {tuple(seed.shape)}")
+        seed_t = seed.to(device).contiguous()
+    else:
+        seed_t = torch.tensor([seed], dtype=torch.int32, device=device)
+    return 1, seed_t, _keep_threshold(rate), 1.0 / (1.0 - rate)
+
+
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float, rate: float = 0.0, seed: Seed = 0,
+                  want_lse: bool = False
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launches K5 on CUDA tensors that `fused_attention` has checked;
+    returns (out, its row log-sum-exp (BH, T) f32 when want_lse, else
+    None)."""
+    bh, t, dk = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((bh, t), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
+    drop, seed_t, thresh, inv = _dropout_args(rate, seed, q.device)
     lib = build.load("attention_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 out.data_ptr(), bh, t, dk, float(scale),
-                                 int(q.dtype == torch.bfloat16), stream)
+        code = lib.attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            None if seed_t is None else seed_t.data_ptr(), bh, t, dk,
+            float(scale), drop, thresh, inv, int(q.dtype == torch.bfloat16),
+            stream)
     build.check(code, "attention_fwd")
     fused_attention.launches += 1
-    return out
+    return out, lse
 
 
-fused_attention.launches = 0   # kernel launches in this process
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: Optional[torch.Tensor], do: torch.Tensor,
+                  lse: Optional[torch.Tensor], scale: float,
+                  rate: float = 0.0, seed: Seed = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel K6: (dQ, dK, dV) of `fused_attention` for the output gradient
+    do, from the forward's output o and row log-sum-exp lse (BH, T) f32,
+    which only the kernel reads. CPU tensors go to `attention_bwd_plain`."""
+    _check_rate(rate)
+    if not _check(q, k, v, "K6", do):
+        return attention_bwd_plain(q, k, v, do, scale, rate, seed)
+    bh, t, dk = q.shape
+    if o is None or lse is None or o.shape != q.shape or \
+            o.dtype != q.dtype or not o.is_contiguous() or \
+            tuple(lse.shape) != (bh, t) or lse.dtype != torch.float32 or \
+            not lse.is_contiguous() or {o.device, lse.device} != {q.device}:
+        raise ValueError("K6 needs the forward's output o (like q) and its "
+                         "contiguous f32 row log-sum-exp lse (BH, T) on the "
+                         "same card")
+    dq, dkk, dv = (torch.empty_like(z) for z in (q, k, v))
+    if q.numel() == 0:
+        return dq, dkk, dv
+    delta = torch.empty((bh, t), dtype=torch.float32, device=q.device)
+    drop, seed_t, thresh, inv = _dropout_args(rate, seed, q.device)
+    lib = build.load("attention_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dkk.data_ptr(), dv.data_ptr(),
+            None if seed_t is None else seed_t.data_ptr(), bh, t, dk,
+            float(scale), drop, thresh, inv, int(q.dtype == torch.bfloat16),
+            stream)
+    build.check(code, "attention_bwd")
+    attention_bwd.launches += 1
+    return dq, dkk, dv
+
+
+attention_bwd.launches = 0   # K6 launches in this process
+
+
+class FusedAttention(torch.autograd.Function):
+    """out = fused_attention(q, k, v, scale, rate, seed); forward K5,
+    backward K6 (or their plain versions for CPU tensors). The forward
+    writes K5's row log-sum-exp only when a gradient is wanted."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, rate, seed):
+        ctx.scale, ctx.rate, ctx.seed = scale, rate, seed
+        if q.device.type == "cpu":
+            out, lse = attention_plain(q, k, v, scale, rate, seed), None
+        else:
+            out, lse = attention_fwd(q, k, v, scale, rate, seed,
+                                     want_lse=any(ctx.needs_input_grad[:3]))
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, out, g.contiguous(), lse,
+                                   ctx.scale, ctx.rate, ctx.seed)
+        return dq, dk, dv, None, None, None
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, rate: float = 0.0,
+                    seed: Seed = 0) -> torch.Tensor:
+    """q, k, v (BH, T, dk), all bf16 or all float32 -> (BH, T, dk) of the
+    same dtype: softmax(scale * Q K^T) V with attention dropout at `rate`
+    (the hash keyed on `seed`, an int or one int32 tensor). Differentiable
+    in q, k and v."""
+    _check_rate(rate)
+    _check(q, k, v, "K5")
+    return FusedAttention.apply(q, k, v, float(scale), float(rate), seed)
+
+
+fused_attention.launches = 0   # K5 launches in this process

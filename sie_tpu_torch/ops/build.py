@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled on its own by
 `nvcc` for `sm_90a` into `sie_tpu_torch/build/` (listed in .gitignore). The
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded. Every C entry returns
+library's file name carries a hash of its source, of the headers in
+`csrc/` and of the flags, so an edited source is rebuilt and a stale library
+is never loaded. Every C entry returns
 `cudaGetLastError()` after its launch; `check` turns a non-zero code into
 an exception.
 """
@@ -27,15 +28,30 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # C signatures: each entry takes device pointers, ints, floats and the
 # stream, and returns a cudaError_t as int
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                  ctypes.c_float)
 SIGNATURES = {
     "shapelet_l1_fwd": {
         # x, s, out, B, C, T, n, L, squared, stream
         "shapelet_l1_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
+    "shapelet_l1_bwd": {
+        # x, s, g, workspace, grad_s, B, C, T, n, L, batch_chunk, squared,
+        # stream
+        "shapelet_l1_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
+    },
     "attention_fwd": {
-        # q, k, v, o, BH, T, dk, scale, is_bf16, stream
-        "attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+        # q, k, v, o, lse, seed, BH, T, dk, scale, dropout, thresh,
+        # inv_keep, is_bf16, stream
+        "attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _U, _F,
+                          _I, _P],
+    },
+    "attention_bwd": {
+        # q, k, v, o, dout, lse, delta, dq, dk, dv, seed, BH, T, dk, scale,
+        # dropout, thresh, inv_keep, is_bf16, stream
+        "attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _F, _I, _U, _F, _I, _P],
     },
 }
 
@@ -54,8 +70,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256(" ".join(FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

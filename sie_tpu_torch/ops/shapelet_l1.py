@@ -1,10 +1,17 @@
-"""Kernel K1: the L1 / squared sliding shapelet distance forward.
+"""Kernels K1 and K2: the L1 / squared sliding shapelet distance, forward
+and backward.
 
-`l1_sliding_distance` is the wrapper: a CPU tensor goes to the plain
-version `l1_sliding_distance_plain`, a CUDA tensor to the hand-written
-kernel in `csrc/shapelet_l1_fwd.cu` (which replaces the Pallas kernel
-`_fwd_kernel` of sie_tpu/ops/pallas/shapelet_pallas.py; the source says what
-bounds it and how it is laid out). There is no other route.
+`l1_sliding_distance` is the entry: the autograd function `L1Distance`,
+whose forward is K1 and whose backward with respect to the bank is K2
+(`l1_sliding_distance_bwd`). Each wrapper sends a CPU tensor to its plain
+version (`l1_sliding_distance_plain`, `l1_sliding_distance_bwd_plain`) and
+a CUDA tensor to its hand-written kernel, `csrc/shapelet_l1_fwd.cu` and
+`csrc/shapelet_l1_bwd.cu` (which replace the Pallas kernels `_fwd_kernel`
+and `_bwd_kernel` of sie_tpu/ops/pallas/shapelet_pallas.py; the sources say
+what bounds them and how they are laid out). There is no other route.
+
+The gradient with respect to x is None: the JAX package returns zeros, and
+the input is always instance-normalised data with no parameters upstream.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ import torch
 from sie_tpu_torch.ops import build
 
 METRICS = ("euclidean", "sqeuclidean")
+_BLOCKS = 2048   # K2 splits the batch until its grid has about this many blocks
 
 
 def l1_sliding_distance_plain(x: torch.Tensor, s: torch.Tensor,
@@ -33,31 +41,90 @@ def l1_sliding_distance_plain(x: torch.Tensor, s: torch.Tensor,
     return acc / l
 
 
+def l1_sliding_distance_bwd_plain(x: torch.Tensor, s: torch.Tensor,
+                                  g: torch.Tensor,
+                                  metric: str = "euclidean") -> torch.Tensor:
+    """The gradient of `l1_sliding_distance_plain` with respect to s, for
+    the output gradient g (B, n, C, W): a loop over taps like the JAX scan
+    rule `_l1_bwd_rule`, with the Pallas kernel's select: an exact tie
+    s == x adds -g (the scan's sign would add 0)."""
+    _check_metric(metric)
+    x, s, g = x.float(), s.float(), g.float()
+    l = s.shape[2]
+    w = g.shape[3]
+    out = torch.empty_like(s)
+    for li in range(l):
+        xl = x[:, None, :, li:li + w]          # (B, 1, C, W)
+        sl = s[None, :, :, li, None]           # (1, n, C, 1)
+        t = torch.where(sl > xl, g, -g) if metric == "euclidean" else g * (sl - xl)
+        out[:, :, li] = t.sum(dim=(0, 3))
+    return out * ((2.0 if metric == "sqeuclidean" else 1.0) / l)
+
+
+class L1Distance(torch.autograd.Function):
+    """d = l1_sliding_distance(x, s, metric); the backward gives s its
+    gradient through K2 (or its plain version) and x none."""
+
+    @staticmethod
+    def forward(ctx, x, s, metric):
+        ctx.metric = metric
+        ctx.save_for_backward(x, s)
+        if x.device.type == "cpu":
+            return l1_sliding_distance_plain(x, s, metric)
+        return _k1(x, s, metric)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        grad_s = None
+        if ctx.needs_input_grad[1]:
+            grad_s = l1_sliding_distance_bwd(x, s, g.contiguous(), ctx.metric)
+        return None, grad_s, None
+
+
+def _check_inputs(x: torch.Tensor, s: torch.Tensor, what: str) -> None:
+    if x.dim() != 3 or s.dim() != 3 or x.shape[1] != s.shape[1]:
+        raise ValueError(f"x must be (B, C, T) and s (n, C, L) with the same "
+                         f"C; got {tuple(x.shape)} and {tuple(s.shape)}")
+    t, l = x.shape[2], s.shape[2]
+    if not 1 <= l <= t:
+        raise ValueError(f"shapelet length {l} must be in [1, T={t}]")
+    if not (x.is_contiguous() and s.is_contiguous()):
+        raise ValueError(f"{what} takes contiguous x and s")
+
+
+def _on_card(what: str, *ts: torch.Tensor) -> bool:
+    """False when every tensor lies on the CPU; True when all lie on one
+    CUDA device and are float32; raises otherwise."""
+    devices = {t.device for t in ts}
+    if devices == {torch.device("cpu")}:
+        return False
+    if len(devices) != 1 or ts[0].device.type != "cuda":
+        raise ValueError(f"{what}: inputs must all be on one CUDA device or "
+                         f"all on the CPU; got {sorted(map(str, devices))}")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise ValueError(f"{what} takes float32; got "
+                         f"{[str(t.dtype) for t in ts]}")
+    if ts[0].shape[1] > 65535:
+        raise ValueError(f"{what} launches one grid row per channel; "
+                         f"C={ts[0].shape[1]} exceeds 65535")
+    return True
+
+
 def l1_sliding_distance(x: torch.Tensor, s: torch.Tensor,
                         metric: str = "euclidean") -> torch.Tensor:
     """x (B, C, T), s (n, C, L) float32 -> d (B, n, C, T - L + 1) float32,
     d = mean over taps of |x - s| ('euclidean') or (x - s)^2
-    ('sqeuclidean'), stride 1."""
+    ('sqeuclidean'), stride 1. Differentiable in s."""
     _check_metric(metric)
-    if x.dim() != 3 or s.dim() != 3 or x.shape[1] != s.shape[1]:
-        raise ValueError(f"x must be (B, C, T) and s (n, C, L) with the same "
-                         f"C; got {tuple(x.shape)} and {tuple(s.shape)}")
+    _check_inputs(x, s, "K1")
+    _on_card("K1", x, s)
+    return L1Distance.apply(x, s, metric)
+
+
+def _k1(x: torch.Tensor, s: torch.Tensor, metric: str) -> torch.Tensor:
     b, c, t = x.shape
     n, _, l = s.shape
-    if not 1 <= l <= t:
-        raise ValueError(f"shapelet length {l} must be in [1, T={t}]")
-    if not (x.is_contiguous() and s.is_contiguous()):
-        raise ValueError("K1 takes contiguous x and s")
-    if x.device.type == "cpu" and s.device.type == "cpu":
-        return l1_sliding_distance_plain(x, s, metric)
-    if x.device.type != "cuda" or s.device != x.device:
-        raise ValueError(f"x and s must both be on one CUDA device or both "
-                         f"on the CPU; got {x.device} and {s.device}")
-    if x.dtype != torch.float32 or s.dtype != torch.float32:
-        raise ValueError(f"K1 takes float32; got {x.dtype} and {s.dtype}")
-    if c > 65535:
-        raise ValueError(f"K1 launches one grid row per channel; C={c} "
-                         f"exceeds 65535")
     out = torch.empty((b, n, c, t - l + 1), dtype=torch.float32,
                       device=x.device)
     if out.numel() == 0:
@@ -73,9 +140,55 @@ def l1_sliding_distance(x: torch.Tensor, s: torch.Tensor,
     return out
 
 
-l1_sliding_distance.launches = 0   # kernel launches in this process
+l1_sliding_distance.launches = 0   # K1 launches in this process
+
+
+def _batch_chunk(b: int, c: int, n: int, l: int) -> int:
+    """Batch rows per K2 block: the batch is split into chunks until the
+    grid (C x tap tiles x shapelet chunks x batch chunks) has about
+    `_BLOCKS` blocks; each chunk adds one partial-sum slice."""
+    per_chunk = c * -(-l // 256) * -(-n // 16)
+    parts = max(1, min(b, -(-_BLOCKS // per_chunk)))
+    return -(-b // parts)
+
+
+def l1_sliding_distance_bwd(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor,
+                            metric: str = "euclidean") -> torch.Tensor:
+    """Kernel K2: the gradient (n, C, L) float32 of `l1_sliding_distance`
+    with respect to s, for x (B, C, T), s (n, C, L) and the output gradient
+    g (B, n, C, T - L + 1), all contiguous."""
+    _check_metric(metric)
+    _check_inputs(x, s, "K2")
+    b, c, t = x.shape
+    n, _, l = s.shape
+    if tuple(g.shape) != (b, n, c, t - l + 1) or not g.is_contiguous():
+        raise ValueError(f"K2 takes a contiguous g of shape "
+                         f"{(b, n, c, t - l + 1)}; got {tuple(g.shape)}")
+    if not _on_card("K2", x, s, g):
+        return l1_sliding_distance_bwd_plain(x, s, g, metric)
+    out = torch.empty_like(s)
+    if b == 0:
+        return out.zero_()
+    if out.numel() == 0:
+        return out
+    chunk = _batch_chunk(b, c, n, l)
+    ws = torch.empty((-(-b // chunk), n, c, l), dtype=torch.float32,
+                     device=x.device)
+    lib = build.load("shapelet_l1_bwd")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.shapelet_l1_bwd(x.data_ptr(), s.data_ptr(), g.data_ptr(),
+                                   ws.data_ptr(), out.data_ptr(), b, c, t, n,
+                                   l, chunk, int(metric == "sqeuclidean"),
+                                   stream)
+    build.check(code, "shapelet_l1_bwd")
+    l1_sliding_distance_bwd.launches += 1
+    return out
+
+
+l1_sliding_distance_bwd.launches = 0   # K2 launches in this process
 
 
 def _check_metric(metric: str) -> None:
     if metric not in METRICS:
-        raise ValueError(f"K1 computes {METRICS}; got {metric!r}")
+        raise ValueError(f"K1/K2 compute {METRICS}; got {metric!r}")

@@ -1,0 +1,1 @@
+"""Training for sie_tpu_torch (counterpart of sie_tpu/train)."""

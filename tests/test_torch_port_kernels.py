@@ -10,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from sie_tpu_torch.ops.attention import attention_plain, fused_attention
+from sie_tpu_torch.ops.attention import (attention_bwd, attention_bwd_plain,
+                                         attention_plain, fused_attention)
 from sie_tpu_torch.ops.shapelet_l1 import (l1_sliding_distance,
+                                           l1_sliding_distance_bwd,
+                                           l1_sliding_distance_bwd_plain,
                                            l1_sliding_distance_plain)
 
 pytestmark = pytest.mark.cuda
@@ -56,6 +59,65 @@ def test_k5_matches_plain(card, dtype, t, dk):
     # bf16: output rounding and the online softmax's rounding order
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "sqeuclidean"])
+@pytest.mark.parametrize("b,n,l", [(2, 2, 7), (5, 10, 300), (3, 21, 5),
+                                   (64, 3, 600)])
+def test_k2_matches_plain(card, metric, b, n, l):
+    x, s, g = (a.to(card) for a in _normal(8, (b, 5, 600), (n, 5, l),
+                                           (b, n, 5, 601 - l)))
+    before = l1_sliding_distance_bwd.launches
+    got = l1_sliding_distance_bwd(x, s, g, metric)
+    torch.cuda.synchronize()
+    assert l1_sliding_distance_bwd.launches == before + 1
+    want = l1_sliding_distance_bwd_plain(x, s, g, metric)
+    # f32 sums of up to b * W terms in another order
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+    again = l1_sliding_distance_bwd(x, s, g, metric)
+    assert torch.equal(got, again)   # deterministic: no atomics
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,dk", [(40, 16), (130, 64), (300, 8), (70, 128)])
+def test_k5_with_dropout_and_k6_match_plain(card, dtype, t, dk, rate):
+    q, k, v, do = (a.to(card, dtype) for a in _normal(4, *[(4, t, dk)] * 4))
+    scale, seed = 1.0 / np.sqrt(dk), 77
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    qg, kg, vg = (z.clone().requires_grad_() for z in (q, k, v))
+    before = fused_attention.launches, attention_bwd.launches
+    out = fused_attention(qg, kg, vg, scale, rate, seed)
+    want = attention_plain(q, k, v, scale, rate, seed)
+    assert float((out.float() - want.float()).abs().max()) <= tol
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches, attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for got, w in zip((qg.grad, kg.grad, vg.grad),
+                      attention_bwd_plain(q, k, v, do, scale, rate, seed)):
+        assert got.dtype == dtype
+        lim = tol * max(1.0, float(w.float().abs().max()))
+        assert float((got.float() - w.float()).abs().max()) <= lim
+
+
+def test_gradients_exist_on_the_card_and_equal_the_plain_path(card):
+    """The serving slice filled kernel outputs through ctypes, so autograd
+    saw no graph; the bank and the attention inputs now get gradients."""
+    x, s = (a.to(card) for a in _normal(5, (3, 4, 90), (2, 4, 11)))
+    s.requires_grad_()
+    l1_sliding_distance(x, s).square().sum().backward()
+    s_cpu = s.detach().cpu().requires_grad_()
+    l1_sliding_distance(x.cpu(), s_cpu).square().sum().backward()
+    assert s.grad is not None
+    assert float((s.grad.cpu() - s_cpu.grad).abs().max()) <= 1e-4
+    q = _normal(6, (2, 50, 16))[0]
+    qc, qd = q.clone().requires_grad_(), q.to(card).requires_grad_()
+    fused_attention(qd, qd, qd, 0.25).square().sum().backward()
+    fused_attention(qc, qc, qc, 0.25).square().sum().backward()
+    assert qd.grad is not None
+    assert float((qd.grad.cpu() - qc.grad).abs().max()) <= 1e-4
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):

@@ -205,7 +205,7 @@ def test_port_imports_no_jax():
     """The port imports neither jax nor the JAX package (checked in a fresh
     interpreter, since this test process has both loaded)."""
     code = ("import sys, sie_tpu_torch, sie_tpu_torch.serve, "
-            "sie_tpu_torch.ops.build; "
+            "sie_tpu_torch.ops.build, sie_tpu_torch.train.trainer; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'sie_tpu')); "
             "assert not bad, bad")
