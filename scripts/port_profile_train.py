@@ -1,10 +1,13 @@
 """Where a training step's time goes in sie_tpu_torch, on one CUDA card.
 
-    python scripts/port_profile_train.py [--steps 10] [--no-profile] [--out DIR]
+    python scripts/port_profile_train.py [--config flagship|fused|eigenworms]
+        [--steps 10] [--no-profile] [--out DIR]
 
-Builds the flagship InterpGN (bench.py's configuration, weights from seed
-0) under `Trainer` on the card with 256 random rows held there, warms up
-with 3 steps, then times `--steps` steps of 64 rows with the host clock
+Builds the configuration's InterpGN (weights from seed 0) under `Trainer`
+on the card: `flagship` is bench.py's (B=64), `fused` the same with
+`fuse_short_banks`, `eigenworms` chip_smoke.py's EigenWorms-shaped model
+(T=17984, float32, B=8). Holds four batches of random rows on the card,
+warms up with 3 steps, then times `--steps` steps with the host clock
 (each ending in a synchronisation) and prints their times and median.
 Unless `--no-profile`, it then profiles two more steps with torch.profiler
 and prints the device busy time, the idle share of the profiled window and
@@ -23,36 +26,42 @@ import time
 import numpy as np
 import torch
 
-ROWS, BATCH, WARMUP = 256, 64, 3
+WARMUP = 3
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default="flagship",
+                    choices=("flagship", "fused", "eigenworms"))
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--no-profile", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    from chip_smoke import train_config
+    from chip_smoke import long_config, train_config
     from sie_tpu_torch.train.trainer import Trainer
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    cfg = train_config()
+    cfg = {"flagship": train_config,
+           "fused": lambda: train_config(fuse_short_banks=True),
+           "eigenworms": long_config}[args.config]()
+    batch = cfg.batch_size
+    rows = 4 * batch
     rng = np.random.default_rng(0)
     ds = type("Rows", (), dict(
-        x=rng.normal(size=(ROWS, cfg.seq_len, cfg.enc_in)).astype(np.float32),
-        y=rng.integers(0, cfg.num_class, ROWS).astype(np.int32),
-        padding_mask=np.ones((ROWS, cfg.seq_len), np.float32)))()
-    trainer = Trainer(cfg, steps_per_epoch=ROWS // BATCH, device="cuda",
+        x=rng.normal(size=(rows, cfg.seq_len, cfg.enc_in)).astype(np.float32),
+        y=rng.integers(0, cfg.num_class, rows).astype(np.int32),
+        padding_mask=np.ones((rows, cfg.seq_len), np.float32)))()
+    trainer = Trainer(cfg, steps_per_epoch=4, device="cuda",
                       generator=torch.Generator().manual_seed(0))
     dev = trainer.device_data("train", ds)
-    w = np.ones((BATCH,), np.float32)
-    idx = lambda: rng.integers(0, ROWS, BATCH)
+    w = np.ones((batch,), np.float32)
+    idx = lambda: rng.integers(0, rows, batch)
 
     for _ in range(WARMUP):
         trainer.train_step_indexed(dev, idx(), w, 1.0)
@@ -64,8 +73,9 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     med = float(np.median(times))
-    print("train step of 64 rows, ms: " + ", ".join(f"{t:.3f}" for t in times)
-          + f"; median {med:.3f} ({1e3 * BATCH / med:.1f} samples/s)")
+    print(f"{args.config} train step of {batch} rows, ms: "
+          + ", ".join(f"{t:.3f}" for t in times)
+          + f"; median {med:.3f} ({1e3 * batch / med:.1f} samples/s)")
     if args.no_profile:
         return
 
@@ -91,7 +101,8 @@ def main(argv=None) -> None:
                        max_name_column_width=60))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.out, "train_trace.json"))
+        prof.export_chrome_trace(os.path.join(
+            args.out, f"train_trace_{args.config}.json"))
 
 
 if __name__ == "__main__":

@@ -144,7 +144,9 @@ class Config:
     moe_capacity_factor: float = 1.25
     moe_top_k: int = 1
     moe_aux_weight: float = 0.01
-    fuse_short_banks: bool = False
+    fuse_short_banks: bool = False     # stride-1 'euclidean' shapelet banks
+    # in one grouped launch (K3 forward, K4 backward) instead of one K1/K2
+    # launch each; the same distances and gradients, bit for bit
     checkpoint_dir: str = "./checkpoints"
     result_dir: str = "./result"
     cache_dir: str = "./cache"

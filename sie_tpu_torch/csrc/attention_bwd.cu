@@ -5,8 +5,16 @@
 //
 // Replaces the Pallas kernel `_bwd_kernel` of
 // sie_tpu/ops/pallas/attention_pallas.py (launched by `_attn_bwd_impl`,
-// rule `_bwd_rule`). Per query row, with a = softmax of the scaled, masked
-// scores (bf16 inputs: raw scores rounded to bf16 before the scale, as in
+// rule `_bwd_rule`), and at T > 4096 its kv-blocked backward
+// (`_attn_bwd_blocked_impl` :308): pass 3 below is `_dq_kv_kernel` (K8a,
+// :202), dQ over key blocks from the saved LSE, and pass 2 is
+// `_dkv_kv_kernel` (K8b, :236), dK and dV over query blocks; both take
+// delta = rowsum(dO * O), as those kernels do. Nothing here is sized by T:
+// shared memory holds fixed tiles and every offset is a 64-bit product; the
+// caller keeps BH * T within an int.
+//
+// Per query row, with a = softmax of the scaled, masked scores (bf16
+// inputs: raw scores rounded to bf16 before the scale, as in
 // `_score_block`) and keep the dropout mask of the forward:
 //   ad = keep ? a / (1 - rate) : 0;          dV = ad^T dO  (ad in dO's type)
 //   dA = keep ? (dO V^T) / (1 - rate) : 0;
@@ -75,7 +83,7 @@ template <typename E>
 __global__ void attn_bwd_delta(const E* __restrict__ o,
                                const E* __restrict__ dout,
                                float* __restrict__ delta, int rows, int dk) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;   // whole warps return together
   const size_t off = (size_t)row * dk;

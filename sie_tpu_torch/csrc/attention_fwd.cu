@@ -4,7 +4,13 @@
 //
 // Replaces the Pallas kernel `_fwd_kernel` of
 // sie_tpu/ops/pallas/attention_pallas.py (launched by `_attn_fwd_impl`,
-// entry `fused_attention`).
+// entry `fused_attention`), and at T > 4096 its kv-blocked variant
+// `_fwd_kv_kernel` (K7, attention_pallas.py:163, launched by
+// `_attn_fwd_blocked_impl` :279): this kernel already streams key tiles
+// with an online softmax, drops after the row-sum update as K7 does, and
+// writes the row log-sum-exp that K7 emits for its backward. Nothing here is
+// sized by T: shared memory holds fixed 64-row tiles, the grid is (T / 64,
+// BH), and every offset into q, k, v, o and lse is a 64-bit product.
 //
 // Numerics follow that kernel's `_score_block`: Q K^T accumulates in f32;
 // with bf16 inputs the raw scores are rounded to bf16 before the scale;

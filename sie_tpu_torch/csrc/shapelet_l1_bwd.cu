@@ -36,15 +36,14 @@
 // its share of G, and the shares are summed in a fixed order at the end. A
 // thread reads each x value once per window (neighbouring threads on
 // neighbouring taps: no bank conflicts) and g four windows at a time as a
-// broadcast float4 that serves all its taps.
+// broadcast float4 that serves all its taps. The block's body is
+// `l1_bwd_block` in shapelet_common.cuh, which K4 runs too.
 
-#include <cuda_runtime.h>
+#include "shapelet_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 64;
-constexpr int WC = 256;              // windows staged per pass
-constexpr int NS_MAX = 16;           // shapelet rows per block at most
+using namespace shapelet;
 
 template <int NS, int LPT, bool SQ>
 __global__ void __launch_bounds__(THREADS)
@@ -53,116 +52,21 @@ l1_bwd_partial(const float* __restrict__ x, const float* __restrict__ s,
                int C, int T, int n, int L, int W, int tiles, int chunks,
                int bchunk) {
   __shared__ __align__(16) float gs[NS * WC];
-  __shared__ float xs[WC + THREADS * LPT + 4];
-  __shared__ float gw[NS][THREADS / 32];   // per-warp shares of G
-
+  __shared__ float xs[bwd_xs_floats(LPT)];
+  __shared__ float gw[NS * (THREADS / 32)];   // per-warp shares of G
   int bid = blockIdx.x;
   const int tile = bid % tiles;
   bid /= tiles;
   const int chunk = bid % chunks;
-  const int bc = bid / chunks;
-  const int c = blockIdx.y;
-  const int n0 = chunk * NS;
-  const int l0 = tile * THREADS * LPT;
-  const int tid = threadIdx.x;
-  const int b_end = min(B, (bc + 1) * bchunk);
-
-  // acc: sum g * [s > x] (L1) or sum g * x (sq); gsum: this thread's
-  // share of G = sum g, one per shapelet row
-  float sv[NS][LPT], acc[NS][LPT], gsum[NS];
-#pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    gsum[j] = 0.f;
-#pragma unroll
-    for (int k = 0; k < LPT; ++k) {
-      const int l = l0 + tid + k * THREADS;
-      sv[j][k] = (n0 + j < n && l < L) ? s[((size_t)(n0 + j) * C + c) * L + l]
-                                       : 0.f;
-      acc[j][k] = 0.f;
-    }
-  }
-
-  for (int b = bc * bchunk; b < b_end; ++b) {
-    const float* xrow = x + ((size_t)b * C + c) * T;
-    for (int w0 = 0; w0 < W; w0 += WC) {
-      const int wc = min(WC, W - w0);
-      const int wc4 = (wc + 3) & ~3;
-      __syncthreads();   // the previous pass is done with xs and gs
-      for (int i = tid; i < wc4 + THREADS * LPT; i += THREADS) {
-        const int t = w0 + l0 + i;
-        xs[i] = t < T ? xrow[t] : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const bool row = n0 + j < n;
-        const float* grow = g + (((size_t)b * n + n0 + j) * C + c) * W + w0;
-        for (int w = tid; w < WC; w += THREADS) {
-          const float v = (row && w < wc) ? grow[w] : 0.f;
-          gs[j * WC + w] = v;
-          gsum[j] += v;
-        }
-      }
-      __syncthreads();
-
-      // windows past W carry g = 0 and add nothing
-      for (int w = 0; w < wc4; w += 4) {
-        float xv[LPT][4];
-#pragma unroll
-        for (int k = 0; k < LPT; ++k)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) xv[k][q] = xs[w + q + tid + k * THREADS];
-#pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          const float4 gv = *reinterpret_cast<const float4*>(&gs[j * WC + w]);
-          const float g4[4] = {gv.x, gv.y, gv.z, gv.w};
-#pragma unroll
-          for (int k = 0; k < LPT; ++k)
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-              acc[j][k] = fmaf(g4[q],
-                               SQ ? xv[k][q]
-                                  : (sv[j][k] > xv[k][q] ? 1.f : 0.f),
-                               acc[j][k]);
-        }
-      }
-    }
-  }
-
-  // G of each row: warp sums, then the two warps' sums in order
-#pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    float v = gsum[j];
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (tid % 32 == 0) gw[j][tid / 32] = v;
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    if (n0 + j >= n) break;
-    float G = 0.f;
-#pragma unroll
-    for (int i = 0; i < THREADS / 32; ++i) G += gw[j][i];
-#pragma unroll
-    for (int k = 0; k < LPT; ++k) {
-      const int l = l0 + tid + k * THREADS;
-      if (l < L)
-        ws[(((size_t)bc * n + n0 + j) * C + c) * L + l] =
-            SQ ? sv[j][k] * G - acc[j][k] : 2.f * acc[j][k] - G;
-    }
-  }
+  l1_bwd_block<NS, LPT, SQ>(x, s, g, ws, B, C, T, n, L, W, tile, chunk,
+                            bid / chunks, bchunk, blockIdx.y, gs, xs, gw);
 }
 
-// out[i] = scale * sum over the batch chunks p, in order, of ws[p][i]
 __global__ void l1_bwd_reduce(const float* __restrict__ ws,
                               float* __restrict__ out, int count, int parts,
                               float scale) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float acc = 0.f;
-  for (int p = 0; p < parts; ++p) acc += ws[(size_t)p * count + i];
-  out[i] = acc * scale;
+  if (i < count) l1_bwd_reduce_one(ws, out, i, count, parts, scale);
 }
 
 template <int NS, int LPT>
@@ -186,9 +90,7 @@ template <int NS>
 void launch_ns(const float* x, const float* s, const float* g, float* ws,
                int B, int C, int T, int n, int L, int bchunk, bool sq,
                cudaStream_t stream) {
-  // taps per thread: enough for L up to 256 in one tile, else 4 per tile
-  const int lpt = (L + THREADS - 1) / THREADS;
-  switch (lpt < 4 ? lpt : 4) {
+  switch (bwd_lpt(L)) {
     case 1: launch_partial<NS, 1>(x, s, g, ws, B, C, T, n, L, bchunk, sq, stream); break;
     case 2: launch_partial<NS, 2>(x, s, g, ws, B, C, T, n, L, bchunk, sq, stream); break;
     case 3: launch_partial<NS, 3>(x, s, g, ws, B, C, T, n, L, bchunk, sq, stream); break;
@@ -214,9 +116,7 @@ extern "C" int shapelet_l1_bwd(const void* x, const void* s, const void* g,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool sq = squared != 0;
   // balanced chunks of at most 16 rows, rounded up to an even count
-  const int chunks = (n + NS_MAX - 1) / NS_MAX;
-  const int ns = (((n + chunks - 1) / chunks) + 1) & ~1;
-  switch (ns) {
+  switch (n < 1 ? 0 : bwd_rows(n)) {
 #define K2_CASE(N) \
     case N: launch_ns<N>(xp, sp, gp, wp, B, C, T, n, L, batch_chunk, sq, st); break;
     K2_CASE(2) K2_CASE(4) K2_CASE(6) K2_CASE(8) K2_CASE(10) K2_CASE(12)

@@ -22,22 +22,14 @@
 // loop issues about one shared-memory load for every six FP32 instructions.
 // Taps are summed in order, like the JAX scan. Shapelet banks of more than
 // 16 rows are split into equal chunks (the grid's chunk index); the rows of
-// a last, shorter chunk are zero-filled and never stored.
+// a last, shorter chunk are zero-filled and never stored. The block's body
+// is `l1_fwd_block` in shapelet_common.cuh, which K3 runs too.
 
-#include <cuda_runtime.h>
+#include "shapelet_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 64;
-constexpr int WPT = 4;               // windows per thread
-constexpr int WT = THREADS * WPT;    // windows per block
-constexpr int LC = 256;              // taps staged per pass
-constexpr int NS_MAX = 16;           // shapelets per block at most
-
-template <bool SQ>
-__device__ __forceinline__ float tap(float acc, float d) {
-  return SQ ? fmaf(d, d, acc) : acc + fabsf(d);
-}
+using namespace shapelet;
 
 template <int NS, bool SQ>
 __global__ void __launch_bounds__(THREADS)
@@ -46,80 +38,12 @@ l1_fwd_kernel(const float* __restrict__ x, const float* __restrict__ s,
               int tiles, int chunks) {
   __shared__ float xs[WT + LC];
   __shared__ __align__(16) float ss[NS * LC];
-
   int bid = blockIdx.x;
   const int tile = bid % tiles;
   bid /= tiles;
   const int chunk = bid % chunks;
-  const int b = bid / chunks;
-  const int c = blockIdx.y;
-  const int n0 = chunk * NS;
-  const int w0 = tile * WT;
-  const int tid = threadIdx.x;
-  const float* xrow = x + ((size_t)b * C + c) * T;
-
-  float acc[NS][WPT];
-#pragma unroll
-  for (int j = 0; j < NS; ++j)
-#pragma unroll
-    for (int k = 0; k < WPT; ++k) acc[j][k] = 0.f;
-
-  for (int l0 = 0; l0 < L; l0 += LC) {
-    const int lc = min(LC, L - l0);
-    __syncthreads();   // the previous pass is done with xs and ss
-    for (int i = tid; i < WT + lc - 1; i += THREADS) {
-      const int t = w0 + l0 + i;
-      xs[i] = t < T ? xrow[t] : 0.f;
-    }
-    for (int i = tid; i < NS * LC; i += THREADS) {
-      const int j = i / LC, l = i % LC;
-      ss[i] = (n0 + j < n && l < lc)
-                  ? s[((size_t)(n0 + j) * C + c) * L + l0 + l] : 0.f;
-    }
-    __syncthreads();
-
-    const int l4 = lc & ~3;
-    for (int l = 0; l < l4; l += 4) {
-      float xv[WPT][4];
-#pragma unroll
-      for (int k = 0; k < WPT; ++k)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) xv[k][q] = xs[tid + k * THREADS + l + q];
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const float4 sv = *reinterpret_cast<const float4*>(&ss[j * LC + l]);
-        const float s4[4] = {sv.x, sv.y, sv.z, sv.w};
-#pragma unroll
-        for (int k = 0; k < WPT; ++k)
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            acc[j][k] = tap<SQ>(acc[j][k], xv[k][q] - s4[q]);
-      }
-    }
-    for (int l = l4; l < lc; ++l) {   // the last (lc % 4) taps
-      float xv[WPT];
-#pragma unroll
-      for (int k = 0; k < WPT; ++k) xv[k] = xs[tid + k * THREADS + l];
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const float sv = ss[j * LC + l];
-#pragma unroll
-        for (int k = 0; k < WPT; ++k) acc[j][k] = tap<SQ>(acc[j][k], xv[k] - sv);
-      }
-    }
-  }
-
-  const float inv = 1.f / (float)L;
-#pragma unroll
-  for (int j = 0; j < NS; ++j) {
-    if (n0 + j >= n) break;
-    float* orow = out + (((size_t)b * n + n0 + j) * C + c) * W;
-#pragma unroll
-    for (int k = 0; k < WPT; ++k) {
-      const int w = w0 + tid + k * THREADS;
-      if (w < W) orow[w] = acc[j][k] * inv;
-    }
-  }
+  l1_fwd_block<NS, SQ>(x, s, out, C, T, n, L, W, tile, chunk, bid / chunks,
+                       blockIdx.y, xs, ss);
 }
 
 template <int NS>
@@ -148,10 +72,8 @@ extern "C" int shapelet_l1_fwd(const void* x, const void* s, void* out,
   const float* sp = static_cast<const float*>(s);
   float* op = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int chunks = (n + NS_MAX - 1) / NS_MAX;
-  const int ns = (n + chunks - 1) / chunks;   // balanced chunks of <= 16
   const bool sq = squared != 0;
-  switch (ns) {
+  switch (n < 1 ? 0 : fwd_rows(n)) {   // balanced chunks of <= 16 rows
 #define K1_CASE(N) \
     case N: launch<N>(xp, sp, op, B, C, T, n, L, sq, st); break;
     K1_CASE(1) K1_CASE(2) K1_CASE(3) K1_CASE(4) K1_CASE(5) K1_CASE(6)

@@ -185,7 +185,9 @@ class FullAttentionLayer(nn.Module):
     runs kernels K5 and K6 (dropout by their hash, seeded per call from the
     generator); the other branch is plain `torch.matmul` with dropout on
     the probabilities, as the JAX package leaves it to XLA. The gate is the
-    JAX package's."""
+    JAX package's; with `fused_max_len=0` a sequence longer than 4096 takes
+    the fused branch too, where the JAX package runs its kv-blocked kernels
+    (K7, K8a, K8b) and this port the same K5 and K6."""
 
     def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype,
                  g: torch.Generator, use_fused: bool = False,

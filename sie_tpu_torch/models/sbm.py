@@ -19,8 +19,10 @@
   (`pos_weight`).
 
 The predicates stay float32; `classify` casts them to the compute dtype.
-`cfg.fuse_short_banks` (the grouped-bank kernel K3) is not ported, so every
-bank takes its own K1 launch.
+Under `cfg.fuse_short_banks`, with the metric resolved to 'euclidean' and
+at least two stride-1 banks, those banks take one grouped launch (kernels
+K3 forward and K4 backward), the others one K1 launch each, as in the JAX
+package; the distances are the same either way.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from sie_tpu_torch.models.layers import (dense, dropout, linear, normal_,
 from sie_tpu_torch.ops.shapelet import (diversity_loss, instance_norm, rbf,
                                         shapelet_stride, sliding_distance,
                                         ste_max, ste_min)
+from sie_tpu_torch.ops.shapelet_l1 import l1_sliding_distance_grouped
 
 
 def bank_lengths(cfg: Config) -> Tuple[int, ...]:
@@ -128,13 +131,32 @@ class ShapeBottleneckModel(nn.Module):
             metric = "euclidean"
         return metric
 
+    def _bank_distances(self, xn: torch.Tensor) -> List[torch.Tensor]:
+        """Per-bank (B, n, C, W) distances of xn (B, C, T). Under
+        `fuse_short_banks` with the 'euclidean' metric and at least two
+        stride-1 banks, those banks go through one grouped launch in
+        ascending-L order, mapped back to bank order; every other bank
+        through `sliding_distance`. The gate does not depend on the
+        device."""
+        metric = self._metric()
+        per_bank = {}
+        fuse = []
+        if self.cfg.fuse_short_banks and metric == "euclidean":
+            fuse = sorted((i for i, st in enumerate(self.strides) if st == 1),
+                          key=lambda i: self.lengths[i])
+        if len(fuse) >= 2:
+            outs = l1_sliding_distance_grouped(
+                xn, tuple(self.banks[i] for i in fuse))
+            per_bank.update(zip(fuse, outs))
+        return [per_bank[i] if i in per_bank else
+                sliding_distance(xn, bank, self.strides[i], metric)
+                for i, bank in enumerate(self.banks)]
+
     def predicates(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, T, C) -> (p, d): each (B, total) float32."""
         xn = instance_norm(x.transpose(1, 2).float()).contiguous()
-        metric = self._metric()
         ps, ds = [], []
-        for i, bank in enumerate(self.banks):
-            d_full = sliding_distance(xn, bank, self.strides[i], metric)
+        for i, d_full in enumerate(self._bank_distances(xn)):
             b = d_full.shape[0]
             d_min = d_full.amin(dim=-1)
             # Without a gradient the straight-through reductions are their

@@ -14,6 +14,25 @@ Dropout follows the Pallas kernels: a keep mask from a murmur3 counter hash
 of (seed, bh, global query row, global key column) (`dropout_keep`), the
 same bits in the forward and the backward, the kernels and the plain
 versions, and in the JAX package for the same int32 seed.
+
+Long sequences. The JAX package sends T > 4096 (or any T with `block_kv`)
+to three kv-blocked Pallas kernels of the same function:
+`_fwd_kv_kernel` (K7, attention_pallas.py:163), an online softmax over key
+blocks that also writes the row log-sum-exp; `_dq_kv_kernel` (K8a, :202),
+dQ over key blocks from that LSE; and `_dkv_kv_kernel` (K8b, :236), dK and
+dV over query blocks; both recompute delta = rowsum(dO * O). The kernels
+here already have that structure at every T: K5 walks 64-key tiles with an
+online softmax and writes the row LSE when a gradient is wanted (K7's
+contract: dropout after the row-sum update, keyed on global (row, column)),
+and K6 runs a delta pass, a dK/dV pass over query tiles (K8b) and a dQ pass
+over key tiles (K8a) from that LSE. Nothing in them is sized by T (shared
+memory holds fixed tiles, the grid is (T / 64, BH)), so K5 and K6 are the
+port's K7 and K8a/K8b too; there is no second variant and no block-size
+argument. At long T the (BH, T, T) plain versions cannot be held, so
+`attention_plain_chunked` and `attention_bwd_plain_chunked` compute the same
+values over chunks of query rows (exact: the softmax is over keys), with the
+global rows and columns and the index of the first (batch, head) row in the
+hash, so that a slice of heads can be checked against a full launch.
 """
 
 from __future__ import annotations
@@ -63,12 +82,16 @@ def dropout_keep(seed: Seed, bh, rows, cols, rate: float) -> torch.Tensor:
     return x >= _keep_threshold(rate)
 
 
-def _keep(seed: Seed, bh: int, t: int, rate: float,
-          device: torch.device) -> torch.Tensor:
-    """(BH, T, T) keep mask of one attention call."""
-    ar = torch.arange(t, device=device)
-    return dropout_keep(seed, torch.arange(bh, device=device)[:, None, None],
-                        ar[:, None], ar[None, :], rate)
+def _keep(seed: Seed, bh: int, t: int, rate: float, device: torch.device,
+          rows: Optional[Tuple[int, int]] = None,
+          bh0: int = 0) -> torch.Tensor:
+    """(BH, rows, T) keep mask of one attention call: query rows
+    [r0, r1) (all T by default) of (batch, head) rows bh0 ... bh0 + bh - 1."""
+    r0, r1 = rows if rows is not None else (0, t)
+    return dropout_keep(
+        seed, torch.arange(bh0, bh0 + bh, device=device)[:, None, None],
+        torch.arange(r0, r1, device=device)[:, None],
+        torch.arange(t, device=device)[None, :], rate)
 
 
 def _probs(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
@@ -121,6 +144,61 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def attention_plain_chunked(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, scale: float, rate: float = 0.0,
+                            seed: Seed = 0, bh0: int = 0,
+                            chunk: int = 1024) -> torch.Tensor:
+    """`attention_plain` over chunks of `chunk` query rows, holding (BH,
+    chunk, T) scores at a time; q, k, v are (batch, head) rows bh0 ...
+    bh0 + BH - 1 of a launch, which the dropout hash keys on."""
+    bh, t, _ = q.shape
+    out = torch.empty_like(q)
+    for r0 in range(0, t, chunk):
+        r1 = min(t, r0 + chunk)
+        a = _probs(q[:, r0:r1], k, scale)
+        if rate > 0.0:
+            keep = _keep(seed, bh, t, rate, q.device, (r0, r1), bh0)
+            a = torch.where(keep, a * (1.0 / (1.0 - rate)), 0.0)
+        out[:, r0:r1] = torch.matmul(a.to(v.dtype).float(),
+                                     v.float()).to(q.dtype)
+    return out
+
+
+def attention_bwd_plain_chunked(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, do: torch.Tensor,
+                                scale: float, rate: float = 0.0,
+                                seed: Seed = 0, bh0: int = 0,
+                                chunk: int = 1024
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """`attention_bwd_plain` over chunks of `chunk` query rows: dQ of a
+    chunk from its rows alone, dK and dV summed over the chunks in f32;
+    (batch, head) rows as in `attention_plain_chunked`."""
+    bh, t, _ = q.shape
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    k32, v32 = k.float(), v.float()
+    for r0 in range(0, t, chunk):
+        r1 = min(t, r0 + chunk)
+        a = _probs(q[:, r0:r1], k, scale)
+        d32 = do[:, r0:r1].float()
+        da = torch.matmul(d32, v32.transpose(-1, -2))
+        ad = a
+        if rate > 0.0:
+            keep = _keep(seed, bh, t, rate, q.device, (r0, r1), bh0)
+            inv = 1.0 / (1.0 - rate)
+            ad = torch.where(keep, a * inv, 0.0)
+            da = torch.where(keep, da * inv, 0.0)
+        dv += torch.matmul(ad.to(do.dtype).float().transpose(-1, -2), d32)
+        tmp = da * a
+        ds = (tmp - a * tmp.sum(dim=-1, keepdim=True)) * scale
+        ds = ds.to(q.dtype).float()
+        dq[:, r0:r1] = torch.matmul(ds, k32)
+        dk += torch.matmul(ds.transpose(-1, -2), q[:, r0:r1].float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            what: str, *more: torch.Tensor) -> bool:
     """Validates (BH, T, dk) inputs; True when they lie on a CUDA device,
@@ -141,12 +219,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"{what}: inputs must all be on one CUDA device or "
                          f"all on the CPU; got {sorted(map(str, devices))}")
-    bh, _, dk = q.shape
+    bh, t, dk = q.shape
     if not 1 <= dk <= 128:
         raise ValueError(f"{what} takes 1 <= dk <= 128; got dk={dk}")
     if bh > 65535:
         raise ValueError(f"{what} launches one grid row per (batch, head); "
                          f"BH={bh} exceeds 65535")
+    if bh * t > 2 ** 31 - 1:
+        raise ValueError(f"{what} indexes the BH * T rows with 32-bit ints; "
+                         f"BH * T = {bh * t}")
     return True
 
 

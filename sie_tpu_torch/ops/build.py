@@ -30,6 +30,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # stream, and returns a cudaError_t as int
 _P, _I, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                   ctypes.c_float)
+# host arrays, one entry per bank: device pointers, ints
+_PA, _IA = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "shapelet_l1_fwd": {
         # x, s, out, B, C, T, n, L, squared, stream
@@ -40,6 +42,17 @@ SIGNATURES = {
         # stream
         "shapelet_l1_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _P],
+    },
+    "shapelet_l1_grouped_fwd": {
+        # x, B, C, T, banks, s[], out[], n[], L[], stream
+        "shapelet_l1_grouped_fwd": [_P, _I, _I, _I, _I, _PA, _PA, _IA, _IA,
+                                    _P],
+    },
+    "shapelet_l1_grouped_bwd": {
+        # x, B, C, T, banks, s[], g[], grad[], workspace, n[], L[],
+        # batch_chunk[], stream
+        "shapelet_l1_grouped_bwd": [_P, _I, _I, _I, _I, _PA, _PA, _PA, _P,
+                                    _IA, _IA, _IA, _P],
     },
     "attention_fwd": {
         # q, k, v, o, lse, seed, BH, T, dk, scale, dropout, thresh,

@@ -1,5 +1,6 @@
-"""Kernels K1 and K2: the L1 / squared sliding shapelet distance, forward
-and backward.
+"""Kernels K1 to K4: the L1 / squared sliding shapelet distance, forward
+and backward, one bank at a time (K1, K2) or several stride-1 banks in one
+launch (K3, K4).
 
 `l1_sliding_distance` is the entry: the autograd function `L1Distance`,
 whose forward is K1 and whose backward with respect to the bank is K2
@@ -10,11 +11,25 @@ a CUDA tensor to its hand-written kernel, `csrc/shapelet_l1_fwd.cu` and
 and `_bwd_kernel` of sie_tpu/ops/pallas/shapelet_pallas.py; the sources say
 what bounds them and how they are laid out). There is no other route.
 
+`l1_sliding_distance_grouped` is the same for a tuple of banks sorted by
+ascending length, 'euclidean' only, as `fuse_short_banks` uses it: the
+autograd function `GroupedL1Distance`, forward K3
+(`csrc/shapelet_l1_grouped_fwd.cu`) and backward K4
+(`l1_sliding_distance_grouped_bwd`, `csrc/shapelet_l1_grouped_bwd.cu`),
+which replace `_fwd_kernel_grouped` and `_bwd_kernel_grouped` of
+shapelet_pallas.py. They run K1's and K2's per-block code
+(`csrc/shapelet_common.cuh`) over one grid for all banks, so their results
+are the per-bank kernels' bit for bit; the plain versions are the per-bank
+plain versions.
+
 The gradient with respect to x is None: the JAX package returns zeros, and
 the input is always instance-normalised data with no parameters upstream.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
 
 import torch
 
@@ -22,6 +37,7 @@ from sie_tpu_torch.ops import build
 
 METRICS = ("euclidean", "sqeuclidean")
 _BLOCKS = 2048   # K2 splits the batch until its grid has about this many blocks
+MAX_GROUPED_BANKS = 8   # banks in one K3/K4 launch (its argument table)
 
 
 def l1_sliding_distance_plain(x: torch.Tensor, s: torch.Tensor,
@@ -192,3 +208,148 @@ l1_sliding_distance_bwd.launches = 0   # K2 launches in this process
 def _check_metric(metric: str) -> None:
     if metric not in METRICS:
         raise ValueError(f"K1/K2 compute {METRICS}; got {metric!r}")
+
+
+# --------------------------------------------------------------------------
+# several stride-1 'euclidean' banks in one launch: K3 and K4
+# --------------------------------------------------------------------------
+
+def l1_sliding_distance_grouped_plain(
+        x: torch.Tensor, banks: Sequence[torch.Tensor]
+) -> Tuple[torch.Tensor, ...]:
+    """The plain version of K3: `l1_sliding_distance_plain` of each bank."""
+    return tuple(l1_sliding_distance_plain(x, s) for s in banks)
+
+
+def l1_sliding_distance_grouped_bwd_plain(
+        x: torch.Tensor, banks: Sequence[torch.Tensor],
+        gs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """The plain version of K4: `l1_sliding_distance_bwd_plain` of each bank
+    for its output gradient (an exact tie adds -g)."""
+    return tuple(l1_sliding_distance_bwd_plain(x, s, g)
+                 for s, g in zip(banks, gs))
+
+
+class GroupedL1Distance(torch.autograd.Function):
+    """ds = l1_sliding_distance_grouped(x, banks); the backward gives every
+    bank its gradient through K4 (or its plain version) and x none."""
+
+    @staticmethod
+    def forward(ctx, x, *banks):
+        ctx.save_for_backward(x, *banks)
+        if x.device.type == "cpu":
+            return l1_sliding_distance_grouped_plain(x, banks)
+        return _k3(x, banks)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        x, *banks = ctx.saved_tensors
+        if not any(ctx.needs_input_grad[1:]):
+            return (None,) * (1 + len(banks))
+        grads = l1_sliding_distance_grouped_bwd(
+            x, banks, [g.contiguous() for g in gs])
+        return (None, *(g if need else None for g, need in
+                        zip(grads, ctx.needs_input_grad[1:])))
+
+
+def _check_grouped(x: torch.Tensor, banks: Sequence[torch.Tensor],
+                   what: str) -> None:
+    if not 2 <= len(banks) <= MAX_GROUPED_BANKS:
+        raise ValueError(f"{what} takes 2 to {MAX_GROUPED_BANKS} banks; got "
+                         f"{len(banks)}")
+    lengths = [s.shape[-1] for s in banks]
+    if lengths != sorted(lengths):
+        raise ValueError(f"{what} takes banks sorted by ascending length; "
+                         f"got lengths {lengths}")
+    for s in banks:
+        _check_inputs(x, s, what)
+        if s.shape[0] < 1:
+            raise ValueError(f"{what} takes banks of at least one shapelet")
+
+
+def l1_sliding_distance_grouped(
+        x: torch.Tensor, banks: Sequence[torch.Tensor]
+) -> Tuple[torch.Tensor, ...]:
+    """x (B, C, T) float32 and 2 to 8 banks (n_g, C, L_g) float32 sorted by
+    ascending L -> one d_g (B, n_g, C, T - L_g + 1) float32 per bank, d_g =
+    mean over taps of |x - s_g|, stride 1 (the 'euclidean' metric).
+    Differentiable in every bank."""
+    banks = tuple(banks)
+    _check_grouped(x, banks, "K3")
+    _on_card("K3", x, *banks)
+    return GroupedL1Distance.apply(x, *banks)
+
+
+def _ptrs(ts: Sequence[torch.Tensor]):
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+
+def _ints(vals: Sequence[int]):
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+def _k3(x: torch.Tensor, banks: Sequence[torch.Tensor]
+        ) -> Tuple[torch.Tensor, ...]:
+    b, c, t = x.shape
+    outs = tuple(torch.empty((b, s.shape[0], c, t - s.shape[2] + 1),
+                             dtype=torch.float32, device=x.device)
+                 for s in banks)
+    if b == 0 or c == 0:
+        return outs
+    lib = build.load("shapelet_l1_grouped_fwd")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.shapelet_l1_grouped_fwd(
+            x.data_ptr(), b, c, t, len(banks), _ptrs(banks), _ptrs(outs),
+            _ints([s.shape[0] for s in banks]),
+            _ints([s.shape[2] for s in banks]), stream)
+    build.check(code, "shapelet_l1_grouped_fwd")
+    l1_sliding_distance_grouped.launches += 1
+    return outs
+
+
+l1_sliding_distance_grouped.launches = 0   # K3 launches in this process
+
+
+def l1_sliding_distance_grouped_bwd(
+        x: torch.Tensor, banks: Sequence[torch.Tensor],
+        gs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Kernel K4: the gradient (n_g, C, L_g) float32 of
+    `l1_sliding_distance_grouped` with respect to each bank, for x (B, C, T)
+    and the output gradients g_g (B, n_g, C, T - L_g + 1), all contiguous.
+    One call is one K4 launch (a partial-sum launch and a reduce launch)."""
+    banks, gs = tuple(banks), tuple(gs)
+    _check_grouped(x, banks, "K4")
+    b, c, t = x.shape
+    if len(gs) != len(banks):
+        raise ValueError(f"K4 takes one output gradient per bank; got "
+                         f"{len(gs)} for {len(banks)} banks")
+    for s, g in zip(banks, gs):
+        want = (b, s.shape[0], c, t - s.shape[2] + 1)
+        if tuple(g.shape) != want or not g.is_contiguous():
+            raise ValueError(f"K4 takes a contiguous g of shape {want}; got "
+                             f"{tuple(g.shape)}")
+    if not _on_card("K4", x, *banks, *gs):
+        return l1_sliding_distance_grouped_bwd_plain(x, banks, gs)
+    outs = tuple(torch.empty_like(s) for s in banks)
+    if b == 0 or c == 0:
+        return tuple(o.zero_() for o in outs)
+    # each bank's batch chunk is K2's for that bank alone: the same partial
+    # sums, so the same roundings
+    chunks = [_batch_chunk(b, c, s.shape[0], s.shape[2]) for s in banks]
+    ws = torch.empty(sum(-(-b // ch) * s.numel()
+                         for ch, s in zip(chunks, banks)),
+                     dtype=torch.float32, device=x.device)
+    lib = build.load("shapelet_l1_grouped_bwd")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.shapelet_l1_grouped_bwd(
+            x.data_ptr(), b, c, t, len(banks), _ptrs(banks), _ptrs(gs),
+            _ptrs(outs), ws.data_ptr(), _ints([s.shape[0] for s in banks]),
+            _ints([s.shape[2] for s in banks]), _ints(chunks), stream)
+    build.check(code, "shapelet_l1_grouped_bwd")
+    l1_sliding_distance_grouped_bwd.launches += 1
+    return outs
+
+
+l1_sliding_distance_grouped_bwd.launches = 0   # K4 launches in this process

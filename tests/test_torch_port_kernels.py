@@ -11,10 +11,15 @@ import pytest
 import torch
 
 from sie_tpu_torch.ops.attention import (attention_bwd, attention_bwd_plain,
-                                         attention_plain, fused_attention)
+                                         attention_bwd_plain_chunked,
+                                         attention_fwd, attention_plain,
+                                         attention_plain_chunked,
+                                         fused_attention)
 from sie_tpu_torch.ops.shapelet_l1 import (l1_sliding_distance,
                                            l1_sliding_distance_bwd,
                                            l1_sliding_distance_bwd_plain,
+                                           l1_sliding_distance_grouped,
+                                           l1_sliding_distance_grouped_bwd,
                                            l1_sliding_distance_plain)
 
 pytestmark = pytest.mark.cuda
@@ -100,6 +105,68 @@ def test_k5_with_dropout_and_k6_match_plain(card, dtype, t, dk, rate):
         assert got.dtype == dtype
         lim = tol * max(1.0, float(w.float().abs().max()))
         assert float((got.float() - w.float()).abs().max()) <= lim
+
+
+GROUPED_CASES = {   # (B, C, T, ((n, L) of each bank, ascending L))
+    "jax_test": (3, 7, 60, ((4, 5), (3, 11), (2, 23))),
+    "flagship_like": (5, 3, 300, ((10, 15), (10, 30), (10, 60), (10, 90),
+                                  (10, 150), (10, 240))),
+    "equal_lengths_and_17_rows": (2, 4, 80, ((17, 9), (3, 9), (1, 70))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GROUPED_CASES))
+def test_k3_and_k4_equal_k1_and_k2_bit_for_bit(card, case):
+    """The grouped kernels run K1's and K2's per-block code over one grid,
+    with K2's batch chunk per bank: the same values, bit for bit."""
+    b, c, t, spec = GROUPED_CASES[case]
+    x, *banks = _normal(12, (b, c, t), *[(n, c, l) for n, l in spec])
+    gs = _normal(13, *[(b, n, c, t - l + 1) for n, l in spec])
+    x, banks, gs = x.to(card), [s.to(card) for s in banks], \
+        [g.to(card) for g in gs]
+    before = (l1_sliding_distance_grouped.launches,
+              l1_sliding_distance_grouped_bwd.launches)
+    outs = l1_sliding_distance_grouped(x, banks)
+    grads = l1_sliding_distance_grouped_bwd(x, banks, gs)
+    torch.cuda.synchronize()
+    assert (l1_sliding_distance_grouped.launches,
+            l1_sliding_distance_grouped_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for s, g, d, gr in zip(banks, gs, outs, grads):
+        assert torch.equal(d, l1_sliding_distance(x, s))
+        assert torch.equal(gr, l1_sliding_distance_bwd(x, s, g))
+    again = l1_sliding_distance_grouped_bwd(x, banks, gs)
+    assert all(torch.equal(a, z) for a, z in zip(grads, again))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_and_k6_past_4096_match_the_chunked_plain_versions(card, dtype,
+                                                              rate):
+    """T = 5000: the length at which the JAX package switches to its
+    kv-blocked kernels (K7, K8a, K8b); rows and columns past 2^12 in the
+    dropout hash."""
+    t, dk = 5000, 64
+    q, k, v, do = (a.to(card, dtype) for a in _normal(14, *[(2, t, dk)] * 4))
+    scale, seed = 1.0 / np.sqrt(dk), 99
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    out, lse = attention_fwd(q, k, v, scale, rate, seed, want_lse=True)
+    want = attention_plain_chunked(q, k, v, scale, rate, seed)
+    # x max|want|: over 5000 keys a typical |o| is ~0.02, about the absolute
+    # limit of the short tests; in bf16 this is 2.5 or more rounding steps
+    # of the largest output
+    lim = tol * float(want.float().abs().max())
+    assert float((out.float() - want.float()).abs().max()) <= lim
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if dtype == torch.bfloat16:
+        s = s.to(torch.bfloat16).float()
+    assert float((lse - torch.logsumexp(s * scale, dim=-1)).abs().max()) \
+        <= 1e-3
+    got = attention_bwd(q, k, v, out, do, lse, scale, rate, seed)
+    want = attention_bwd_plain_chunked(q, k, v, do, scale, rate, seed)
+    for a, w in zip(got, want):
+        lim = tol * float(w.float().abs().max())   # as chip_smoke.py's
+        assert float((a.float() - w.float()).abs().max()) <= lim
 
 
 def test_gradients_exist_on_the_card_and_equal_the_plain_path(card):
