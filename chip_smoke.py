@@ -23,6 +23,9 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
   7. K2 (shapelet-distance backward) against its plain version at B=64 on
      each of the six banks, both metrics, random output gradients, and
      against itself (deterministic); kernel and plain times and the bound;
+     the library time, the bank gradient through torch.cdist(p=1), timed
+     per bank in a child process (a fault there cannot reach this one's
+     CUDA context), kept only if all six banks run;
   8. K6 (attention backward) against its plain version at BH=512, T=845,
      dk=64 in bf16 and f32 and at a ragged T=300, rates 0 and 0.1; kernel,
      plain and scaled_dot_product_attention-backward times and the bound;
@@ -63,14 +66,19 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
 
 Times are CUDA-event times after warm-up (kernels) or host-clock times of
 work that ends in a synchronisation (requests, steps). Bounds use the
-published H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32, 989 TFLOP/s bf16.
-It needs no network and imports nothing of JAX.
+published H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32, 989 TFLOP/s bf16,
+495 TFLOP/s TF32. An f32 attention product is bound by the smaller of the
+FP32-FMA time and that of three TF32 products (3xTF32, the f32 kernels'
+arithmetic); both figures are printed. It needs no network and imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -81,6 +89,7 @@ import torch
 PEAK_BYTES = 3.35e12           # B/s
 PEAK_FP32 = 67e12              # FLOP/s, CUDA cores
 PEAK_BF16 = 989e12             # FLOP/s, tensor cores, dense
+PEAK_TF32 = 495e12             # FLOP/s, tensor cores, dense
 
 K1_TOL = 1e-4   # f32, summation order (multiply by 1/L vs divide by L)
 K5_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}   # bf16: output
@@ -126,6 +135,21 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
                                        else "operations")
 
 
+def attention_bound(nbytes: float, flops: float, dtype):
+    """(ms, "bytes" or "operations", text) of an attention kernel's work:
+    bf16 at the bf16 tensor-core peak; f32 the smaller of the FP32-FMA
+    bound and the 3xTF32 one (each product as three TF32 products), the
+    text naming it beside the other figure."""
+    if dtype == torch.bfloat16:
+        ms, by = bound_ms(nbytes, flops, PEAK_BF16)
+        return ms, by, f"{by}, bf16"
+    fma = bound_ms(nbytes, flops, PEAK_FP32)
+    tf32 = bound_ms(nbytes, 3 * flops, PEAK_TF32)
+    if tf32[0] <= fma[0]:
+        return (*tf32, f"{tf32[1]}, 3xTF32; FP32-FMA {fma[0]:.4f}")
+    return (*fma, f"{fma[1]}, FP32-FMA; 3xTF32 {tf32[0]:.4f}")
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -139,16 +163,41 @@ def phase_device() -> str:
     return smi
 
 
+def ptxas_entries(log: str) -> list:
+    """(kernel<template arguments>, registers, spill stores, spill loads)
+    of each entry function in an `nvcc -Xptxas -v` report."""
+    rows, name, spill = [], None, ("?", "?")
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            k = re.search(r"\d((?:attn|shapelet)_[a-z0-9_]+?)I(.*?)EEv", name)
+            if k:
+                args = re.findall(r"L[ib](\d+)E", k.group(2))
+                name = f"{k.group(1)}<{', '.join(args) or k.group(2)}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = m.groups()
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spill))
+            name = None
+    return rows
+
+
 def phase_build() -> None:
     from sie_tpu_torch.ops import build
     t0 = time.perf_counter()
     build.build()
     print(f"[build] {time.perf_counter() - t0:.3f} s for "
           f"{', '.join(build.SIGNATURES)}")
-    for name, log in build.PTXAS_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+    for src, log in build.PTXAS_LOG.items():
+        for name, regs, stores, loads in ptxas_entries(log):
+            print(f"[build] {src}: {name}: {regs} registers, spill stores "
+                  f"{stores} B, loads {loads} B")
 
 
 def phase_k1() -> dict:
@@ -243,10 +292,9 @@ def phase_k5() -> dict:
             q4, k4, v4, scale=scale), reps=20)
         nbytes = 4 * bh * t * dk * q.element_size()
         flops = 4 * bh * t * t * dk
-        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
-        bms, by = bound_ms(nbytes, flops, peak)
+        bms, by, btxt = attention_bound(nbytes, flops, dtype)
         print(f"[K5] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, sdpa "
-              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), max abs err "
+              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({btxt}), max abs err "
               f"{e:.3e}")
         if main is None:   # the flagship serving shape
             main = {"name": "K5 attention_fwd", "route": "cuda",
@@ -440,19 +488,88 @@ def phase_k2() -> dict:
             tot[key] += val
         del s, g
     _, by = bound_ms(tot["bytes"], tot["flops"], PEAK_FP32)
-    # No library time: the one PyTorch call for this gradient, the bank's
-    # gradient through torch.cdist(p=1), buffers (C, B*W, n, L) floats,
-    # 2.7e9 to 9.0e9 of them here, and its backward stopped the card with an
-    # illegal memory access at L=43 (H100 80GB HBM3, torch 2.11.0+cu128).
+    del x
+    lib = k2_library_ms()
     print(f"[K2] six banks: kernel {tot['ms']:.4f} ms, plain "
           f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms ({by}), "
-          f"max abs err {err:.3e} ({rel:.3e} x max|want|); no library time "
-          f"(cdist backward fails at these shapes)")
+          f"max abs err {err:.3e} ({rel:.3e} x max|want|); library "
+          f"{'(not all banks ran)' if lib is None else f'{lib:.4f} ms'}")
     return {"name": "K2 shapelet_l1_bwd", "route": "cuda",
             "source": "sie_tpu_torch/csrc/shapelet_l1_bwd.cu",
             "replaces": "sie_tpu/ops/pallas/shapelet_pallas.py:162",
             "max_abs_err": err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": tot["bound_ms"], "bound_by": by, "library_ms": None}
+            "bound_ms": tot["bound_ms"], "bound_by": by, "library_ms": lib}
+
+
+K2_LIB_FLAG = "--k2-library"   # argument of the child process below
+K2_LIB_BUDGET = 240            # s, all child processes together
+
+
+def k2_library_child(first: int) -> None:
+    """The child process of `k2_library_ms`: times the one PyTorch call for
+    K2's function, the bank gradient through torch.cdist(p=1) (backward
+    only, as the SDPA backward is timed), on banks first, first + 1, ... at
+    phase_k2's shapes; one flushed line a bank, with its max abs difference
+    from K2. A fault ends the process at its bank."""
+    from sie_tpu_torch.config import Config
+    from sie_tpu_torch.models.sbm import bank_lengths
+    from sie_tpu_torch.ops.shapelet_l1 import l1_sliding_distance_bwd
+    b, c, t, n = 64, 122, 845, 10
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((b, c, t), generator=gen, device="cuda")
+    for i, l in enumerate(bank_lengths(Config())):
+        if i < first:
+            continue
+        w = t - l + 1
+        s = torch.randn((n, c, l), generator=gen, device="cuda")
+        g = torch.randn((b, n, c, w), generator=gen, device="cuda")
+        sg = s.detach().requires_grad_()
+        xu = x.unfold(-1, l, 1).transpose(0, 1).reshape(c, b * w, l)
+        d = torch.cdist(xu, sg.transpose(0, 1), p=1)          # (C, B*W, n)
+        gd = (g / l).permute(2, 0, 3, 1).reshape(c, b * w, n)
+        run = lambda: torch.autograd.grad(d, sg, gd, retain_graph=True)[0]
+        ms = events_ms(run, reps=2)
+        e = float((run() - l1_sliding_distance_bwd(x, s, g)).abs().max())
+        print(f"{K2_LIB_FLAG} {i} {l} {ms} {e}", flush=True)
+        del d, xu, run
+
+
+def k2_library_ms():
+    """K2's library time summed over the six banks, each timed in a child
+    process so that a fault cannot reach this process's CUDA context; a
+    child that faults is followed by one from the next bank, within
+    K2_LIB_BUDGET seconds for all. None unless every bank ran; every
+    bank's time or fault is printed."""
+    from sie_tpu_torch.config import Config
+    from sie_tpu_torch.models.sbm import bank_lengths
+    lengths = bank_lengths(Config())
+    torch.cuda.empty_cache()   # the children need the card's memory
+    times, first = {}, 0
+    deadline = time.monotonic() + K2_LIB_BUDGET
+    while first < len(lengths):
+        cmd = [sys.executable, os.path.abspath(__file__), K2_LIB_FLAG,
+               str(first)]
+        try:
+            r = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=max(1.0, deadline - time.monotonic()))
+            errs = [ln for ln in r.stderr.splitlines() if "Error:" in ln]
+            out, why = r.stdout, (errs or [f"exit code {r.returncode}"])[0]
+        except subprocess.TimeoutExpired as exc:
+            out = exc.stdout or ""
+            out = out.decode() if isinstance(out, bytes) else out
+            why = f"the {K2_LIB_BUDGET} s for all banks ran out"
+        for line in out.splitlines():
+            if line.startswith(K2_LIB_FLAG):
+                _, i, l, ms, e = line.split()
+                times[int(i)] = float(ms)
+                print(f"[K2] library, bank L={l}: cdist(p=1) backward "
+                      f"{float(ms):.4f} ms, max |diff| from K2 {float(e):.3e}")
+        first = max([first - 1, *times]) + 1
+        if first < len(lengths):
+            print(f"[K2] library, bank L={lengths[first]}: no time: "
+                  f"{why[:160]}")
+            first += 1
+    return sum(times.values()) if len(times) == len(lengths) else None
 
 
 def phase_k6() -> dict:
@@ -504,11 +621,11 @@ def phase_k6() -> dict:
         esz = q.element_size()
         nbytes = 8 * bh * t * dk * esz + 4 * bh * t
         flops = 10 * bh * t * t * dk
-        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
-        bms, by = bound_ms(nbytes, flops, peak)
+        bms, by, btxt = attention_bound(nbytes, flops, dtype)
         print(f"[K6] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-              f"sdpa backward {lib_ms} ms, bound {bms:.4f} ms ({by}), max err "
-              f"dq/dk/dv {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} x max|want|")
+              f"sdpa backward {lib_ms} ms, bound {bms:.4f} ms ({btxt}), max "
+              f"err dq/dk/dv {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} x "
+              f"max|want|")
         if dtype == torch.bfloat16:
             err_main = max(err_main, max(abs_errs))
         if main is None:   # the flagship training shape, bf16, rate 0
@@ -872,7 +989,6 @@ def phase_long_attention() -> tuple:
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, do = (torch.randn((bh, t, dk), generator=gen, device="cuda")
                        .to(dtype) for _ in range(4))
-        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
         esz = q.element_size()
         for rate in (0.0, RATE):
             tag = f"BH={bh} T={t} dk={dk} {str(dtype)[6:]} rate {rate}"
@@ -951,18 +1067,19 @@ def phase_long_attention() -> tuple:
             del q4, k4, v4
             # bytes: each input read once, each output written once
             io, lse_b = bh * t * dk * esz, 4 * bh * t
-            b5 = bound_ms(4 * io + lse_b, 4 * bh * t * t * dk, peak)
-            b8a = bound_ms(6 * io + lse_b, 6 * bh * t * t * dk, peak)
-            b8b = bound_ms(7 * io + lse_b, 8 * bh * t * t * dk, peak)
-            b6 = bound_ms(8 * io + lse_b, 10 * bh * t * t * dk, peak)
+            b5 = attention_bound(4 * io + lse_b, 4 * bh * t * t * dk, dtype)
+            b8a = attention_bound(6 * io + lse_b, 6 * bh * t * t * dk, dtype)
+            b8b = attention_bound(7 * io + lse_b, 8 * bh * t * t * dk, dtype)
+            b6 = attention_bound(8 * io + lse_b, 10 * bh * t * t * dk, dtype)
             print(f"[long] {str(dtype)[6:]} rate 0: K5 {ms5:.4f} ms (plain "
                   f"{plain5:.3f}, sdpa {lib5}, bound {b5[0]:.4f} ms "
-                  f"{b5[1]}); K6 {ms6:.4f} ms (plain {plain6:.3f}, sdpa "
-                  f"backward {lib6}, bound {b6[0]:.4f} ms {b6[1]}); "
+                  f"({b5[2]})); K6 {ms6:.4f} ms (plain {plain6:.3f}, sdpa "
+                  f"backward {lib6}, bound {b6[0]:.4f} ms ({b6[2]})); "
                   f"profiler per K6 call: dQ pass (K8a) "
-                  f"{passes['attn_bwd_dq']:.4f} ms (bound {b8a[0]:.4f}), "
-                  f"dK/dV pass (K8b) {passes['attn_bwd_dkv']:.4f} ms (bound "
-                  f"{b8b[0]:.4f}), delta pass "
+                  f"{passes['attn_bwd_dq']:.4f} ms (bound {b8a[0]:.4f}: "
+                  f"{b8a[2]}), dK/dV pass (K8b) "
+                  f"{passes['attn_bwd_dkv']:.4f} ms (bound {b8b[0]:.4f}: "
+                  f"{b8b[2]}), delta pass "
                   f"{passes['attn_bwd_delta']:.4f} ms")
             rows[dtype] = dict(ms5=ms5, ms8a=passes["attn_bwd_dq"],
                                ms8b=passes["attn_bwd_dkv"], plain5=plain5,
@@ -1058,4 +1175,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [K2_LIB_FLAG]:
+        k2_library_child(int(sys.argv[2]))
+    else:
+        main()

@@ -4,11 +4,14 @@ CUDA card, for A/B runs of two trees in one call:
 - `shapelet`: K1 and K2 summed over the six banks (B=64, C=122, T=845,
   n=10, L = 43 ... 676, 'euclidean') and, where the tree has them, K3 and
   K4 (the six banks in one launch);
-- `attention`: the fused-attention forward K5 at BH=512, T=845, dk=64, bf16
-  and float32 (`--rate` adds attention dropout, in a tree that has it).
+- `attention`: the fused-attention forward K5 (with the row log-sum-exp, as
+  training runs it) and its backward K6 (from that forward's output) at
+  BH=512, T=845, dk=64, bf16 and float32 (`--rate` adds attention dropout,
+  in a tree that has it); with `--long`, at the EigenWorms-shaped model's
+  BH=64, T=17984, dk=64 in float32 only (K7, and K8a + K8b in K6).
 
     python scripts/port_profile_kernels.py [--tree DIR] [--reps 20]
-        [--kernels shapelet,attention] [--rate R]
+        [--kernels shapelet,attention] [--rate R] [--long]
 
 `--tree` imports `sie_tpu_torch` from another checkout (e.g. the parent
 commit unpacked under archive_check/), so that two versions can be timed in
@@ -46,15 +49,21 @@ def shapelet_runs(torch, gen):
     return runs
 
 
-def attention_runs(torch, gen, rate):
-    from sie_tpu_torch.ops.attention import fused_attention
+def attention_runs(torch, gen, rate, long):
+    from sie_tpu_torch.ops.attention import attention_bwd, attention_fwd
     extra = (rate, 77) if rate else ()
+    shape, dtypes = (((64, 17984, 64), (torch.float32,)) if long else
+                     ((512, 845, 64), (torch.bfloat16, torch.float32)))
     runs = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = (torch.randn((512, 845, 64), generator=gen, device="cuda")
-                   .to(dtype) for _ in range(3))
-        runs[f"K5 {str(dtype)[6:]} rate {rate}"] = \
-            lambda q=q, k=k, v=v: fused_attention(q, k, v, 0.125, *extra)
+    for dtype in dtypes:
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(4))
+        o, lse = attention_fwd(q, k, v, 0.125, *extra, want_lse=True)
+        tag = f"{str(dtype)[6:]} {'x'.join(map(str, shape))} rate {rate}"
+        runs[f"K5 {tag}"] = lambda q=q, k=k, v=v: attention_fwd(
+            q, k, v, 0.125, *extra, want_lse=True)
+        runs[f"K6 {tag}"] = lambda q=q, k=k, v=v, do=do, o=o, lse=lse: \
+            attention_bwd(q, k, v, o, do, lse, 0.125, *extra)
     return runs
 
 
@@ -65,6 +74,7 @@ def main(argv=None) -> None:
     ap.add_argument("--kernels", default="shapelet,attention")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rate", type=float, default=0.0)
+    ap.add_argument("--long", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -80,7 +90,7 @@ def main(argv=None) -> None:
         if group == "shapelet":
             runs.update(shapelet_runs(torch, gen))
         elif group == "attention":
-            runs.update(attention_runs(torch, gen, args.rate))
+            runs.update(attention_runs(torch, gen, args.rate, args.long))
         else:
             raise SystemExit(f"unknown kernel group {group!r}")
     start = torch.cuda.Event(enable_timing=True)

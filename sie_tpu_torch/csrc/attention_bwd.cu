@@ -31,8 +31,11 @@
 // FLOP (five T x T x dk products); at the flagship (BH=512, T=845, dk=64)
 // that is 2.3e11 FLOP, 0.24 ms at the bf16 tensor-core peak, against
 // ~0.4 GB of inputs and outputs (0.12 ms at 3.35 TB/s): bound by
-// operations. This design recomputes the scores and dO V^T in both of its
-// passes, so it runs seven products, not five.
+// operations. In f32 every product is three TF32 products (attention_
+// common.cuh), so the bound is 3 * 2.3e11 FLOP at 495 TFLOP/s, 1.42 ms
+// (3.5 ms at the FP32-FMA rate); at BH=64, T=17984: 80.3 ms. This design
+// recomputes the scores and dO V^T in both of its passes, so it runs seven
+// products, not five.
 //
 // Design (FlashAttention-2's backward, deterministic, no atomics): three
 // launches on one stream.
@@ -41,17 +44,24 @@
 //      64-query tiles, Q and dO staged in shared memory two tiles deep by
 //      cp.async, lse and delta beside them. Each warp computes its 16 x 64
 //      transposed score tile S^T = K_w Q^T and dP^T = V_w dO^T with
-//      mma.sync m16n8k16 (bf16 in, f32 out), turns them into P^T and dS^T
-//      in registers, and accumulates dV_w += P_drop^T dO and
-//      dK_w += dS^T Q in registers: the accumulator layout of two score
-//      tiles is the A operand of the next product, as in K5.
+//      mma.sync (bf16 in, f32 out), turns them into P^T and dS^T in
+//      registers, and accumulates dV_w += P_drop^T dO and dK_w += dS^T Q
+//      in registers: the accumulator layout of the score tiles is the A
+//      operand of the next product, as in K5.
 //   3. dQ: a block owns 64 query rows and walks the key tiles, K and V
 //      staged two deep; each warp computes S = Q_w K^T and dP = dO_w V^T
 //      and accumulates dQ_w += dS K.
 // Each output element is written by one thread, summed in a fixed order.
-// f32 inputs take FP32-FMA kernels of the same two passes (tensor cores
-// would compute in TF32): four threads per row split dk and reduce each
-// dot product with two shuffles, over 32-row tiles in shared memory.
+// f32 inputs take the same two passes with f32 tiles (row stride dk + 4
+// words; 105 KB of shared memory at dk = 64) and every product as three
+// mma.sync m16n8k8 TF32 products of split operands, accumulated in f32, as
+// in K5's f32 path: K_w, V_w (pass 2) and Q_w, dO_w (pass 3) are split per
+// k-step from their staged tiles, the B operands as they are read, P and
+// dS after they are formed; the second products read their k-steps in
+// K5's permuted order, and each tile's dV, dK or dQ is summed in its own
+// accumulator and added to the running one in f32, as in K5. The FP32-FMA
+// passes this replaces (3.0-3.6x their FP32 bound) read one shared word per
+// FMA; here one word a lane feeds one and a half 16x8x8 TF32 products.
 
 #include "attention_common.cuh"
 
@@ -59,8 +69,8 @@ namespace {
 
 using namespace attn;
 
-constexpr int NWARP = 4;     // bf16 kernels: warps per block
-constexpr int BT = 64;       // bf16 kernels: rows per block and per tile
+constexpr int NWARP = 4;     // warps per block
+constexpr int BT = 64;       // rows per block and per tile
 
 struct Args {
   const void *q, *k, *v, *o, *dout;
@@ -395,21 +405,20 @@ attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------- f32 path
-constexpr int FR = 64;          // rows (keys or queries) per block
-constexpr int FT = 32;          // rows of the other side per staged tile
-constexpr int FTHREADS = 4 * FR;
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x;
+// ---------------------------------------------------- pass 2, f32: dK, dV
+// The bf16 pass's arrangement with 3xTF32 products (attention_common.cuh):
+// K_w's and V_w's A fragments are read and split per k-step, Q's and dO's B
+// fragments split as they are read, P and dS split after they are formed;
+// the query index of each 8-query k-step of dV and dK is read in the
+// permuted order, so st / dp tiles are the A operands without shuffles.
+template <int DKP>
+constexpr size_t dkv_f32_smem_bytes() {
+  // K, V, then Q and dO of two buffers; then lse2 and delta of two buffers
+  return sizeof(float) * 6 * BT * (DKP + 4) + sizeof(float) * 4 * BT;
 }
 
-// dK, dV: four threads per key split dk; query tiles of FT rows in shared
-// memory
 template <int DKP, bool DROP>
-__global__ void __launch_bounds__(FTHREADS)
+__global__ void __launch_bounds__(NWARP * 32)
 attn_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
@@ -417,145 +426,296 @@ attn_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ dv_out, int T, int dk, float scale,
                  const int* __restrict__ seedp, uint32_t thresh,
                  float inv_keep) {
-  constexpr int DS = DKP / 4;
-  __shared__ float Qs[FT][DKP];
-  __shared__ float dOs[FT][DKP];
-  __shared__ float ls[FT], ds_[FT];
-  const int part = threadIdx.x & 3;
-  const int key = blockIdx.x * FR + (threadIdx.x >> 2);
+  constexpr int LDF = DKP + 4;
+  constexpr int TILE = BT * LDF;
+  constexpr int KD = DKP / 8;     // k-steps over dk
+  constexpr int NS = BT / 8;      // 8-query column tiles of S^T
+  constexpr int ND = DKP / 8;     // 8-wide column tiles of dK, dV
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + TILE;
+  float* QD = Vs + TILE;          // Q, dO of buffer 0, then of buffer 1
+  float* LD = QD + 4 * TILE;      // lse2, delta x 2
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, i2 = (lane % 4) * 2;
+  const float sl2 = scale * LOG2E;
   const int bh = blockIdx.y;
   const size_t base = (size_t)bh * T * dk;
+  const int kv0 = blockIdx.x * BT;
+  const int ntiles = (T + BT - 1) / BT;
   uint32_t dkey = 0;
   if (DROP) dkey = dropout_key(*seedp, bh);
 
-  float kr[DS], vr[DS], ak[DS], av[DS];
+  // lse in log2 units and delta of query tile j into buffer j % 2; rows
+  // past T get lse2 = +inf, so their probabilities are exactly 0
+  auto stage_rows = [&](int j) {
+    float* dst = LD + (j % 2) * 2 * BT;
+    for (int i = threadIdx.x; i < BT; i += blockDim.x) {
+      const int t = j * BT + i;
+      dst[i] = t < T ? lse[(size_t)bh * T + t] * LOG2E : INFINITY;
+      dst[BT + i] = t < T ? delta[(size_t)bh * T + t] : 0.f;
+    }
+  };
+
+  load_tile_f32<DKP>(Ks, k + base, kv0, T, dk);
+  load_tile_f32<DKP>(Vs, v + base, kv0, T, dk);
+  cp_async_commit();
+  load_tile_f32<DKP>(QD, q + base, 0, T, dk);
+  load_tile_f32<DKP>(QD + TILE, dout + base, 0, T, dk);
+  stage_rows(0);
+  cp_async_commit();
+
+  float acck[ND][4], accv[ND][4];
 #pragma unroll
-  for (int i = 0; i < DS; ++i) {
-    const int d = part + 4 * i;
-    const bool ok = key < T && d < dk;
-    kr[i] = ok ? k[base + (size_t)key * dk + d] : 0.f;
-    vr[i] = ok ? v[base + (size_t)key * dk + d] : 0.f;
-    ak[i] = av[i] = 0.f;
+  for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acck[dn][e] = accv[dn][e] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    if (j + 1 < ntiles) {
+      float* nxt = QD + ((j + 1) % 2) * 2 * TILE;
+      load_tile_f32<DKP>(nxt, q + base, (j + 1) * BT, T, dk);
+      load_tile_f32<DKP>(nxt + TILE, dout + base, (j + 1) * BT, T, dk);
+      stage_rows(j + 1);
+    }
+    cp_async_commit();
+    cp_async_wait_one();   // K, V and query tile j have landed
+    __syncthreads();
+    const float* Qs = QD + (j % 2) * 2 * TILE;
+    const float* dOs = Qs + TILE;
+    const float* lse2 = LD + (j % 2) * 2 * BT;
+    const float* dlt = lse2 + BT;
+    const int q0 = j * BT;
+
+    // S^T = K_w Q^T and dP^T = V_w dO^T (rows: this warp's 16 keys)
+    float st[NS][4], dp[NS][4];
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      SplitA ka, va;
+      load_a_f32<LDF>(ka, Ks, warp * 16, kk * 8);
+      load_a_f32<LDF>(va, Vs, warp * 16, kk * 8);
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+        mma_bt_f32<LDF>(st[nt], ka, Qs, nt, kk * 8);
+        mma_bt_f32<LDF>(dp[nt], va, dOs, nt, kk * 8);
+      }
+    }
+
+    // P^T, its dropped form (into st), and dS^T (into dp)
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kv0 + warp * 16 + g + 8 * (e / 2);
+        const int qi = nt * 8 + i2 + (e & 1);
+        const float x = key < T ? st[nt][e] * sl2 : NEG;
+        const float p = exp2f(x - lse2[qi]);
+        float da = dp[nt][e];
+        float pd = p;
+        if (DROP) {
+          const bool keep = dropout_keep(dkey, q0 + qi, key, thresh);
+          pd = keep ? p * inv_keep : 0.f;
+          da = keep ? da * inv_keep : 0.f;
+        }
+        st[nt][e] = pd;
+        dp[nt][e] = p * (da - dlt[qi]) * scale;
+      }
+
+    // dV_w += P_drop^T dO, then dK_w += dS^T Q, over this query tile; query
+    // step kk reads rows of dO and Q in the permuted order. Each tile's
+    // product is summed in `part` and added in f32, as K5 adds P V
+    float part[ND][4];
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[dn][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      SplitA pa;
+      acc_a_f32(pa, st[kk]);
+#pragma unroll
+      for (int dn = 0; dn < ND; ++dn) mma_b_f32<LDF>(part[dn], pa, dOs, kk, dn);
+    }
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        accv[dn][e] += part[dn][e];
+        part[dn][e] = 0.f;
+      }
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      SplitA sa;
+      acc_a_f32(sa, dp[kk]);
+#pragma unroll
+      for (int dn = 0; dn < ND; ++dn) mma_b_f32<LDF>(part[dn], sa, Qs, kk, dn);
+    }
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acck[dn][e] += part[dn][e];
+    __syncthreads();   // every warp is done with this buffer before refill
   }
 
-  for (int q0 = 0; q0 < T; q0 += FT) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < FT * DKP; i += FTHREADS) {
-      const int rr = i / DKP, cc = i % DKP;
-      const int t = q0 + rr;
-      const bool ok = t < T && cc < dk;
-      Qs[rr][cc] = ok ? q[base + (size_t)t * dk + cc] : 0.f;
-      dOs[rr][cc] = ok ? dout[base + (size_t)t * dk + cc] : 0.f;
-    }
-    for (int i = threadIdx.x; i < FT; i += FTHREADS) {
-      const int t = q0 + i;
-      ls[i] = t < T ? lse[(size_t)bh * T + t] : INFINITY;
-      ds_[i] = t < T ? delta[(size_t)bh * T + t] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < FT; ++r) {
-      float s = 0.f, dpv = 0.f;
 #pragma unroll
-      for (int i = 0; i < DS; ++i) {
-        s = fmaf(kr[i], Qs[r][part + 4 * i], s);
-        dpv = fmaf(vr[i], dOs[r][part + 4 * i], dpv);
-      }
-      s = quad_sum(s);
-      dpv = quad_sum(dpv);
-      const float p = key < T ? expf(s * scale - ls[r]) : 0.f;
-      float pd = p, da = dpv;
-      if (DROP) {
-        const bool keep = dropout_keep(dkey, q0 + r, key, thresh);
-        pd = keep ? p * inv_keep : 0.f;
-        da = keep ? da * inv_keep : 0.f;
-      }
-      const float dsv = p * (da - ds_[r]) * scale;
+  for (int h = 0; h < 2; ++h) {
+    const int key = kv0 + warp * 16 + g + 8 * h;
+    if (key >= T) continue;
+    const size_t off = base + (size_t)key * dk;
 #pragma unroll
-      for (int i = 0; i < DS; ++i) {
-        av[i] = fmaf(pd, dOs[r][part + 4 * i], av[i]);
-        ak[i] = fmaf(dsv, Qs[r][part + 4 * i], ak[i]);
-      }
-    }
-  }
-  if (key < T) {
+    for (int dn = 0; dn < ND; ++dn)
 #pragma unroll
-    for (int i = 0; i < DS; ++i) {
-      const int d = part + 4 * i;
-      if (d < dk) {
-        dk_out[base + (size_t)key * dk + d] = ak[i];
-        dv_out[base + (size_t)key * dk + d] = av[i];
+      for (int e = 0; e < 2; ++e) {
+        const int col = dn * 8 + i2 + e;
+        if (col < dk) {
+          dk_out[off + col] = acck[dn][2 * h + e];
+          dv_out[off + col] = accv[dn][2 * h + e];
+        }
       }
-    }
   }
 }
 
-// dQ: four threads per query row split dk; key tiles of FT rows
+// -------------------------------------------------------- pass 3, f32: dQ
+// Q_w's and dO_w's split A fragments are read per k-step from the staged
+// tiles (held in registers they would take 128 at dk = 64); dS tiles are
+// the A operand of dQ += dS K with K's rows read in the permuted order.
+template <int DKP>
+constexpr size_t dq_f32_smem_bytes() {
+  return sizeof(float) * 6 * BT * (DKP + 4);   // Q, dO, two K and V tiles
+}
+
 template <int DKP, bool DROP>
-__global__ void __launch_bounds__(FTHREADS)
+__global__ void __launch_bounds__(NWARP * 32)
 attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dq_out,
                 int T, int dk, float scale, const int* __restrict__ seedp,
                 uint32_t thresh, float inv_keep) {
-  constexpr int DS = DKP / 4;
-  __shared__ float Ks[FT][DKP];
-  __shared__ float Vs[FT][DKP];
-  const int part = threadIdx.x & 3;
-  const int row = blockIdx.x * FR + (threadIdx.x >> 2);
+  constexpr int LDF = DKP + 4;
+  constexpr int TILE = BT * LDF;
+  constexpr int KD = DKP / 8;
+  constexpr int NS = BT / 8;      // 8-key column tiles of S
+  constexpr int ND = DKP / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = Qs + TILE;
+  float* KVs = dOs + TILE;        // K, V of buffer 0, then of buffer 1
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, i2 = (lane % 4) * 2;
+  const float sl2 = scale * LOG2E;
   const int bh = blockIdx.y;
   const size_t base = (size_t)bh * T * dk;
+  const int q0 = blockIdx.x * BT;
+  const int ntiles = (T + BT - 1) / BT;
   uint32_t dkey = 0;
   if (DROP) dkey = dropout_key(*seedp, bh);
 
-  float qr[DS], dor[DS], acc[DS];
+  load_tile_f32<DKP>(Qs, q + base, q0, T, dk);
+  load_tile_f32<DKP>(dOs, dout + base, q0, T, dk);
+  cp_async_commit();
+  load_tile_f32<DKP>(KVs, k + base, 0, T, dk);
+  load_tile_f32<DKP>(KVs + TILE, v + base, 0, T, dk);
+  cp_async_commit();
+  // rows g and g + 8 of this warp: lse in log2 units and delta
+  float lse2[2], dlt[2];
 #pragma unroll
-  for (int i = 0; i < DS; ++i) {
-    const int d = part + 4 * i;
-    const bool ok = row < T && d < dk;
-    qr[i] = ok ? q[base + (size_t)row * dk + d] : 0.f;
-    dor[i] = ok ? dout[base + (size_t)row * dk + d] : 0.f;
-    acc[i] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + warp * 16 + g + 8 * h;
+    lse2[h] = row < T ? lse[(size_t)bh * T + row] * LOG2E : 0.f;
+    dlt[h] = row < T ? delta[(size_t)bh * T + row] : 0.f;
   }
-  const float lr = row < T ? lse[(size_t)bh * T + row] : 0.f;
-  const float dl = row < T ? delta[(size_t)bh * T + row] : 0.f;
 
-  for (int k0 = 0; k0 < T; k0 += FT) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < FT * DKP; i += FTHREADS) {
-      const int rr = i / DKP, cc = i % DKP;
-      const int t = k0 + rr;
-      const bool ok = t < T && cc < dk;
-      Ks[rr][cc] = ok ? k[base + (size_t)t * dk + cc] : 0.f;
-      Vs[rr][cc] = ok ? v[base + (size_t)t * dk + cc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < FT; ++j) {
-      float s = 0.f, dpv = 0.f;
+  float acc[ND][4];
 #pragma unroll
-      for (int i = 0; i < DS; ++i) {
-        s = fmaf(qr[i], Ks[j][part + 4 * i], s);
-        dpv = fmaf(dor[i], Vs[j][part + 4 * i], dpv);
+  for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    if (j + 1 < ntiles) {
+      float* nxt = KVs + ((j + 1) % 2) * 2 * TILE;
+      load_tile_f32<DKP>(nxt, k + base, (j + 1) * BT, T, dk);
+      load_tile_f32<DKP>(nxt + TILE, v + base, (j + 1) * BT, T, dk);
+    }
+    cp_async_commit();
+    cp_async_wait_one();   // Q, dO and key tile j have landed
+    __syncthreads();
+    const float* Ks = KVs + (j % 2) * 2 * TILE;
+    const float* Vs = Ks + TILE;
+    const int k0 = j * BT;
+
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      SplitA qa, oa;
+      load_a_f32<LDF>(qa, Qs, warp * 16, kk * 8);
+      load_a_f32<LDF>(oa, dOs, warp * 16, kk * 8);
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+        mma_bt_f32<LDF>(s[nt], qa, Ks, nt, kk * 8);
+        mma_bt_f32<LDF>(dp[nt], oa, Vs, nt, kk * 8);
       }
-      s = quad_sum(s);
-      dpv = quad_sum(dpv);
-      const float p = k0 + j < T ? expf(s * scale - lr) : 0.f;
-      float da = dpv;
-      if (DROP)
-        da = dropout_keep(dkey, row, k0 + j, thresh) ? da * inv_keep : 0.f;
-      const float dsv = p * (da - dl) * scale;
-#pragma unroll
-      for (int i = 0; i < DS; ++i) acc[i] = fmaf(dsv, Ks[j][part + 4 * i], acc[i]);
     }
+
+    // dS into dp
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2;
+        const int col = k0 + nt * 8 + i2 + (e & 1);
+        const float x = col < T ? s[nt][e] * sl2 : NEG;
+        const float p = exp2f(x - lse2[h]);
+        float da = dp[nt][e];
+        if (DROP) {
+          const int row = q0 + warp * 16 + g + 8 * h;
+          da = dropout_keep(dkey, row, col, thresh) ? da * inv_keep : 0.f;
+        }
+        dp[nt][e] = p * (da - dlt[h]) * scale;
+      }
+
+    // dQ_w += dS K: key step kk reads K's rows in the permuted order; the
+    // tile's product is summed in `part` and added in f32
+    float part[ND][4];
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[dn][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      SplitA a;
+      acc_a_f32(a, dp[kk]);
+#pragma unroll
+      for (int dn = 0; dn < ND; ++dn) mma_b_f32<LDF>(part[dn], a, Ks, kk, dn);
+    }
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dn][e] += part[dn][e];
+    __syncthreads();
   }
-  if (row < T) {
+
 #pragma unroll
-    for (int i = 0; i < DS; ++i) {
-      const int d = part + 4 * i;
-      if (d < dk) dq_out[base + (size_t)row * dk + d] = acc[i];
-    }
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + warp * 16 + g + 8 * h;
+    if (row >= T) continue;
+    float* orow = dq_out + base + (size_t)row * dk;
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = dn * 8 + i2 + e;
+        if (col < dk) orow[col] = acc[dn][2 * h + e];
+      }
   }
 }
 
@@ -605,18 +765,27 @@ template <int DKP, bool DROP>
 int launch_f32(const Args& a) {
   int err = launch_delta<float>(a);
   if (err) return err;
-  const dim3 grid((a.T + FR - 1) / FR, a.BH);
+  const dim3 grid((a.T + BT - 1) / BT, a.BH);
+  const size_t b1 = dkv_f32_smem_bytes<DKP>(), b2 = dq_f32_smem_bytes<DKP>();
+  cudaError_t e = cudaFuncSetAttribute(
+      attn_bwd_dkv_f32<DKP, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b1);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(attn_bwd_dq_f32<DKP, DROP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)b2);
+  if (e != cudaSuccess) return (int)e;
   const float *q = static_cast<const float*>(a.q),
               *k = static_cast<const float*>(a.k),
               *v = static_cast<const float*>(a.v),
               *dout = static_cast<const float*>(a.dout);
-  attn_bwd_dkv_f32<DKP, DROP><<<grid, FTHREADS, 0, a.stream>>>(
+  attn_bwd_dkv_f32<DKP, DROP><<<grid, NWARP * 32, b1, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.grad_k),
       static_cast<float*>(a.grad_v), a.T, a.dk, a.scale, a.seed, a.thresh,
       a.inv_keep);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  attn_bwd_dq_f32<DKP, DROP><<<grid, FTHREADS, 0, a.stream>>>(
+  attn_bwd_dq_f32<DKP, DROP><<<grid, NWARP * 32, b2, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.grad_q), a.T, a.dk,
       a.scale, a.seed, a.thresh, a.inv_keep);
   return (int)cudaGetLastError();

@@ -33,12 +33,16 @@
 // exact probabilities from it. The serving path passes none, and runs an
 // instantiation without dropout or log-sum-exp code.
 //
-// What bounds it on an H100: at the flagship shape (BH=512, T=845, dk=64)
-// the two products are 4*BH*T^2*dk = 9.4e10 FLOP against ~0.2 GB of q, k,
-// v and output, so it is bound by the tensor cores' arithmetic. The TPU
-// kernel held one whole 845-key score row per query block in VMEM; on
-// Hopper a 64 x 896 f32 score tile alone exceeds a block's 227 KB of shared
-// memory, so this kernel walks 64-key tiles with an online softmax.
+// What bounds it on an H100: the two products are 4*BH*T^2*dk FLOP against
+// 4*BH*T*dk elements of q, k, v and output, so it is bound by arithmetic.
+// At the flagship shape (BH=512, T=845, dk=64) that is 9.4e10 FLOP: 0.095
+// ms at the bf16 tensor-core peak (989 TFLOP/s). In f32 each product is
+// three TF32 products (below), so the bound is 3 * 9.4e10 FLOP at the TF32
+// peak (495 TFLOP/s), 0.567 ms, under the FP32-FMA bound of 1.40 ms; at
+// BH=64, T=17984 (the EigenWorms-shaped model) 32.1 ms against 79.1 ms.
+// The TPU kernel held one whole 845-key score row per query block in VMEM;
+// on Hopper a 64 x 896 f32 score tile alone exceeds a block's 227 KB of
+// shared memory, so this kernel walks 64-key tiles with an online softmax.
 //
 // Design, bf16 (the FlashAttention-2 arrangement): a block of 4 warps owns
 // 64 query rows, each warp 16 of them. The block stages Q once and each
@@ -54,10 +58,23 @@
 // go from the softmax to the tensor cores without leaving registers; V
 // fragments come from ldmatrix.trans.
 //
-// Design, f32: tensor cores would give TF32, not f32, so the f32 kernel
-// uses FP32 FMAs: four threads per query row split dk, reduce each score
-// with two shuffles, and run the same online softmax over 32-key tiles held
-// in shared memory.
+// Design, f32 (3xTF32): the same arrangement, tiles and pipeline, with f32
+// tiles (row stride dk + 4 words, 87 KB of shared memory at dk = 64) and
+// every product taken as three mma.sync m16n8k8 TF32 products, big*big +
+// big*small + small*big of each operand's split (attention_common.cuh),
+// accumulated in f32: f32 accuracy on the tensor cores. Q's split
+// fragments are made once per warp and held in registers (64 at dk = 64;
+// read per k-step from the staged tile at dk = 128), K's and V's are split
+// as they are read, P after the softmax. The scores stay f32 (no rounding
+// before the scale). The accumulator of an 8-key score tile becomes P V's A
+// operand by reading that k-step's keys in a permuted order (and V's rows
+// in the same order; attention_common.cuh), with no shuffles. Each key
+// tile's P V is summed in its own accumulator and added to the output in
+// f32 (acc * alpha + pv), so no chain of tensor-core sums spans more than
+// one tile. The FP32-FMA kernel this replaces read one shared word per FMA
+// and was held at the shared-memory rate (4.8x its FP32 bound); here one
+// f32 word a lane feeds one and a half TF32 products of 16x8x8, so the
+// tensor cores, and not shared memory, set the pace.
 
 #include "attention_common.cuh"
 
@@ -65,11 +82,12 @@ namespace {
 
 using namespace attn;
 
-// ---------------------------------------------------------------- bf16 path
+// ------------------------------------------------- tiles of both paths
 constexpr int BQ = 64;      // query rows per block
 constexpr int BK = 64;      // keys per tile
 constexpr int NWARP = 4;    // warps per block, 16 query rows each
 
+// ---------------------------------------------------------------- bf16 path
 template <int DKP>
 constexpr size_t bf16_smem_bytes() {
   return sizeof(bf16) * 5 * 64 * (DKP + 8);   // Q, and two K and V tiles
@@ -236,81 +254,174 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ----------------------------------------------------------------- f32 path
-constexpr int FQ = 64;         // query rows per block
-constexpr int FK = 32;         // keys per tile
-constexpr int FTHREADS = 4 * FQ;
+template <int DKP>
+constexpr size_t f32_smem_bytes() {
+  return sizeof(float) * 5 * 64 * (DKP + 4);  // Q, and two K and V tiles
+}
 
 template <int DKP, bool DROP, bool LSE>
-__global__ void __launch_bounds__(FTHREADS)
+__global__ void __launch_bounds__(NWARP * 32)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o,
              float* __restrict__ lse, int T, int dk, float scale,
              const int* __restrict__ seedp, uint32_t thresh, float inv_keep) {
-  constexpr int DS = DKP / 4;           // dims per thread: part + 4 * i
-  __shared__ float Ks[FK][DKP];
-  __shared__ float Vs[FK][DKP];
-  const int part = threadIdx.x & 3;
-  const int row = blockIdx.x * FQ + (threadIdx.x >> 2);
+  constexpr int LDF = DKP + 4;
+  constexpr int TILE = 64 * LDF;
+  constexpr int KD = DKP / 8;     // k-steps of Q K^T
+  constexpr int NS = BK / 8;      // 8-key column tiles of the scores
+  constexpr int ND = DKP / 8;     // 8-wide column tiles of the output
+  // this warp's split Q fragments stay in registers up to dk = 64 (64 of
+  // them there); at 128 they are read from the staged Q tile per k-step
+  constexpr bool QREG = DKP <= 64;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* KVs = Qs + TILE;         // K, V of buffer 0, then K, V of buffer 1
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, i2 = (lane % 4) * 2;
+  const float sl2 = scale * LOG2E;
+
   const size_t base = (size_t)blockIdx.y * T * dk;
+  const int q0 = blockIdx.x * BQ;
+  const int ntiles = (T + BK - 1) / BK;
   uint32_t dkey = 0;
   if (DROP) dkey = dropout_key(*seedp, blockIdx.y);
+  load_tile_f32<DKP>(Qs, q + base, q0, T, dk);
+  cp_async_commit();
+  load_tile_f32<DKP>(KVs, k + base, 0, T, dk);
+  load_tile_f32<DKP>(KVs + TILE, v + base, 0, T, dk);
+  cp_async_commit();
+  cp_async_wait_one();   // Q has landed
+  __syncthreads();
 
-  float qr[DS], acc[DS];
+  SplitA qf[QREG ? KD : 1];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int i = 0; i < DS; ++i) {
-    const int d = part + 4 * i;
-    qr[i] = (row < T && d < dk) ? q[base + (size_t)row * dk + d] : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < T; k0 += FK) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < FK * DKP; i += FTHREADS) {
-      const int rr = i / DKP, cc = i % DKP;
-      const int t = k0 + rr;
-      const bool ok = t < T && cc < dk;
-      Ks[rr][cc] = ok ? k[base + (size_t)t * dk + cc] : 0.f;
-      Vs[rr][cc] = ok ? v[base + (size_t)t * dk + cc] : 0.f;
-    }
-    __syncthreads();
-
-    float sc[FK];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < FK; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < DS; ++i) dot = fmaf(qr[i], Ks[j][part + 4 * i], dot);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      sc[j] = (k0 + j < T) ? dot * scale : NEG;
-      mx = fmaxf(mx, sc[j]);
-    }
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < DS; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int j = 0; j < FK; ++j) {
-      float p = expf(sc[j] - m_new);
-      l += p;
-      if (DROP) p = dropout_keep(dkey, row, k0 + j, thresh) ? p * inv_keep : 0.f;
-#pragma unroll
-      for (int i = 0; i < DS; ++i) acc[i] = fmaf(p, Vs[j][part + 4 * i], acc[i]);
-    }
-    m = m_new;
+    for (int kk = 0; kk < KD; ++kk) load_a_f32<LDF>(qf[kk], Qs, warp * 16, kk * 8);
   }
 
-  if (row < T) {
+  float acc[ND][4];
 #pragma unroll
-    for (int i = 0; i < DS; ++i) {
-      const int d = part + 4 * i;
-      if (d < dk) o[base + (size_t)row * dk + d] = acc[i] / l;
+  for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+  // online-softmax state of rows g and g + 8; l is this lane's share
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < ntiles; ++j) {
+    if (j + 1 < ntiles) {
+      float* nxt = KVs + ((j + 1) % 2) * 2 * TILE;
+      load_tile_f32<DKP>(nxt, k + base, (j + 1) * BK, T, dk);
+      load_tile_f32<DKP>(nxt + TILE, v + base, (j + 1) * BK, T, dk);
     }
-    if (LSE && part == 0)
-      lse[(size_t)blockIdx.y * T + row] = m + logf(l);
+    cp_async_commit();
+    cp_async_wait_one();   // tile j has landed
+    __syncthreads();
+    const float* Ks = KVs + (j % 2) * 2 * TILE;
+    const float* Vs = Ks + TILE;
+    const int k0 = j * BK;
+
+    // scores: B = K^T, so B fragments are rows of K
+    float s[NS][4];
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      SplitA a;
+      if constexpr (QREG) a = qf[kk];
+      else load_a_f32<LDF>(a, Qs, warp * 16, kk * 8);
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) mma_bt_f32<LDF>(s[nt], a, Ks, nt, kk * 8);
+    }
+
+    // f32 scores, scaled into log2 units; keys past T masked
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + nt * 8 + i2 + (e & 1);
+        const float x = col < T ? s[nt][e] * sl2 : NEG;
+        s[nt][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      alpha[h] = exp2f(m[h] - m_new);   // 0 on the first tile
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[nt][e] - m[e / 2]);
+        s[nt][e] = p;
+        l[e / 2] += p;
+      }
+    if (DROP) {   // after the row sum: it is over the undropped probabilities
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = q0 + warp * 16 + g + 8 * (e / 2);
+          const int col = k0 + nt * 8 + i2 + (e & 1);
+          s[nt][e] = dropout_keep(dkey, row, col, thresh)
+                         ? s[nt][e] * inv_keep : 0.f;
+        }
+    }
+
+    // P V: score tile kk, split, is the A operand of key step kk in the
+    // permuted order; V rows are read in the same order. The tile's product
+    // is summed in its own accumulator and added to acc in f32: chained
+    // tensor-core sums into C are not rounded to nearest, and one chain
+    // over the 281 tiles of T = 17984 drifted past the f32 limit (error
+    // 1.1e-5 at max|want| 0.094 on an H100)
+    float pv[ND][4];
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[dn][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      SplitA a;
+      acc_a_f32(a, s[kk]);
+#pragma unroll
+      for (int dn = 0; dn < ND; ++dn) mma_b_f32<LDF>(pv[dn], a, Vs, kk, dn);
+    }
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[dn][e] = fmaf(acc[dn][e], alpha[e / 2], pv[dn][e]);
+    __syncthreads();   // every warp is done with this buffer before refill
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + warp * 16 + g + 8 * h;
+    if (row >= T) continue;
+    const float inv = 1.f / l[h];
+    float* orow = o + base + (size_t)row * dk;
+#pragma unroll
+    for (int dn = 0; dn < ND; ++dn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = dn * 8 + i2 + e;
+        if (col < dk) orow[col] = acc[dn][2 * h + e] * inv;
+      }
+    if (LSE && i2 == 0)
+      lse[(size_t)blockIdx.y * T + row] = (m[h] + log2f(l[h])) * LN2;
   }
 }
 
@@ -343,8 +454,13 @@ int launch_bf16(const Args& a) {
 
 template <int DKP, bool DROP, bool LSE>
 int launch_f32(const Args& a) {
-  const dim3 grid((a.T + FQ - 1) / FQ, a.BH);
-  attn_fwd_f32<DKP, DROP, LSE><<<grid, FTHREADS, 0, a.stream>>>(
+  const size_t bytes = f32_smem_bytes<DKP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_f32<DKP, DROP, LSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.T + BQ - 1) / BQ, a.BH);
+  attn_fwd_f32<DKP, DROP, LSE><<<grid, NWARP * 32, bytes, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.T,
       a.dk, a.scale, a.seed, a.thresh, a.inv_keep);

@@ -86,7 +86,11 @@ def test_k2_matches_plain(card, metric, b, n, l):
 
 @pytest.mark.parametrize("rate", [0.0, 0.25])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t,dk", [(40, 16), (130, 64), (300, 8), (70, 128)])
+# ragged key and query tiles at every padded width: dk 48 is zero-filled to
+# 64 by cp.async, dk 30 is staged without it
+@pytest.mark.parametrize("t,dk", [(40, 16), (130, 64), (300, 8), (70, 128),
+                                  (70, 32), (200, 32), (200, 128), (70, 30),
+                                  (200, 48)])
 def test_k5_with_dropout_and_k6_match_plain(card, dtype, t, dk, rate):
     q, k, v, do = (a.to(card, dtype) for a in _normal(4, *[(4, t, dk)] * 4))
     scale, seed = 1.0 / np.sqrt(dk), 77
@@ -105,6 +109,27 @@ def test_k5_with_dropout_and_k6_match_plain(card, dtype, t, dk, rate):
         assert got.dtype == dtype
         lim = tol * max(1.0, float(w.float().abs().max()))
         assert float((got.float() - w.float()).abs().max()) <= lim
+
+
+def test_k5_and_k6_f32_dropout_hash_through_the_outputs(card):
+    """Rate 0.1 at T = 130: the f32 kernels read each 8-key step in a
+    permuted order, and the hash must still see the true key column; a
+    mismatched keep bit moves an output by ~|p v| / 0.9, far above 1e-4.
+    The backward is deterministic: a second call equals the first."""
+    t, dk, rate, seed = 130, 64, 0.1, 2024
+    q, k, v, do = (a.to(card) for a in _normal(16, *[(4, t, dk)] * 4))
+    scale = 1.0 / np.sqrt(dk)
+    out, lse = attention_fwd(q, k, v, scale, rate, seed, want_lse=True)
+    want = attention_plain(q, k, v, scale, rate, seed)
+    assert float((out - want).abs().max()) <= 1e-4
+    assert float((out - attention_plain(q, k, v, scale, rate, seed + 1))
+                 .abs().max()) > 1e-2   # the hash is live
+    got = attention_bwd(q, k, v, out, do, lse, scale, rate, seed)
+    for a, w in zip(got, attention_bwd_plain(q, k, v, do, scale, rate, seed)):
+        lim = 1e-4 * max(1.0, float(w.abs().max()))
+        assert float((a - w).abs().max()) <= lim
+    again = attention_bwd(q, k, v, out, do, lse, scale, rate, seed)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 GROUPED_CASES = {   # (B, C, T, ((n, L) of each bank, ascending L))
