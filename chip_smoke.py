@@ -5,6 +5,10 @@
 Phases, in order; any failure exits non-zero without the final `ok` line:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds every kernel source of the package, in parallel;
+     ptxas's registers and spills of each instantiation beside its SASS
+     counts of HGMMA (wgmma) and HMMA (mma.sync) instructions
+     (`cuobjdump -sass`); fails unless each of the 32 bf16 attention
+     instantiations has HGMMA and no HMMA;
   3. K1 (shapelet distance) against its plain version at the flagship
      shapes: B=64, C=122, T=845, n=10, each of the six banks, both metrics;
      kernel, plain and torch.cdist times and the bound;
@@ -64,7 +68,9 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
  14. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
      timed training steps of each kernel's path), then the device line.
 
-Times are CUDA-event times after warm-up (kernels) or host-clock times of
+The K5 and K6 phases (4, 6, 8, 12) run under a time limit that ends the
+process, so that a kernel that hangs fails the run instead of holding the
+card. Times are CUDA-event times after warm-up (kernels) or host-clock times of
 work that ends in a synchronisation (requests, steps). Bounds use the
 published H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32, 989 TFLOP/s bf16,
 495 TFLOP/s TF32. An f32 attention product is bound by the smaller of the
@@ -79,8 +85,10 @@ import copy
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -112,6 +120,28 @@ LONG_HEADS = 2     # heads held against the chunked plain versions
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+class time_limit:
+    """Ends the process with code 1, and no `ok` line, if the block runs
+    past `seconds`: a kernel that hangs blocks this thread inside the
+    driver, where no Python exception reaches it."""
+
+    def __init__(self, seconds: float, what: str):
+        self.seconds, self.what = seconds, what
+
+    def _expire(self) -> None:
+        print(f"chip_smoke FAILED: {self.what} ran past {self.seconds} s",
+              file=sys.stderr, flush=True)
+        os._exit(1)
+
+    def __enter__(self):
+        self.timer = threading.Timer(self.seconds, self._expire)
+        self.timer.daemon = True
+        self.timer.start()
+
+    def __exit__(self, *exc):
+        self.timer.cancel()
 
 
 def events_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -163,6 +193,15 @@ def phase_device() -> str:
     return smi
 
 
+def kernel_name(mangled: str) -> str:
+    """kernel<template arguments> of a mangled entry name, else the name."""
+    k = re.search(r"\d((?:attn|shapelet)_[a-z0-9_]+?)I(.*?)EEv", mangled)
+    if not k:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E", k.group(2))
+    return f"{k.group(1)}<{', '.join(args) or k.group(2)}>"
+
+
 def ptxas_entries(log: str) -> list:
     """(kernel<template arguments>, registers, spill stores, spill loads)
     of each entry function in an `nvcc -Xptxas -v` report."""
@@ -170,11 +209,7 @@ def ptxas_entries(log: str) -> list:
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            name = m.group(1)
-            k = re.search(r"\d((?:attn|shapelet)_[a-z0-9_]+?)I(.*?)EEv", name)
-            if k:
-                args = re.findall(r"L[ib](\d+)E", k.group(2))
-                name = f"{k.group(1)}<{', '.join(args) or k.group(2)}>"
+            name = kernel_name(m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -188,16 +223,59 @@ def ptxas_entries(log: str) -> list:
     return rows
 
 
+# the bf16 attention kernels, which must run their products on wgmma
+WGMMA_KERNELS = ("attn_fwd_bf16", "attn_bwd_dq_bf16", "attn_bwd_dkv_bf16")
+
+
+def sass_counts(lib: str) -> dict:
+    """{kernel<template arguments>: (HGMMA, HMMA)}: the warpgroup (wgmma)
+    and warp-level (mma.sync) tensor-core instructions of each function in
+    a built library, from `cuobjdump -sass`."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            counts[name] = [0, 0]
+        elif name is not None:
+            op = re.search(r"\b(HGMMA|HMMA)\.", line)
+            if op:
+                counts[name][op.group(1) == "HMMA"] += 1
+    return {k: tuple(v) for k, v in counts.items()}
+
+
 def phase_build() -> None:
     from sie_tpu_torch.ops import build
     t0 = time.perf_counter()
     build.build()
     print(f"[build] {time.perf_counter() - t0:.3f} s for "
           f"{', '.join(build.SIGNATURES)}")
+    sass = {}
+    for src in ("attention_fwd", "attention_bwd"):
+        sass.update(sass_counts(build._lib_path(src)))
     for src, log in build.PTXAS_LOG.items():
         for name, regs, stores, loads in ptxas_entries(log):
+            ops = sass.get(name)
+            extra = "" if ops is None else f"; SASS HGMMA {ops[0]}, HMMA {ops[1]}"
             print(f"[build] {src}: {name}: {regs} registers, spill stores "
-                  f"{stores} B, loads {loads} B")
+                  f"{stores} B, loads {loads} B{extra}")
+    for src in ("attention_fwd", "attention_bwd"):   # e.g. serialized wgmma
+        for line in build.PTXAS_LOG.get(src, "").splitlines():
+            if "arning" in line:
+                print(f"[build] {src}: ptxas: {line.strip()}")
+    wg = {k: v for k, v in sass.items() if k.startswith(WGMMA_KERNELS)}
+    # 2 widths x 2 loaders (TMA, cp.async) x (4 forward, 2 + 2 backward)
+    if len(wg) != 32:
+        fail(f"bf16 attention instantiations in the SASS: {sorted(wg)}")
+    off = {k: v for k, v in wg.items() if v[0] == 0 or v[1] != 0}
+    if off:
+        fail(f"bf16 attention kernels without wgmma, or with mma.sync: {off}")
+    print(f"[build] bf16 attention: all {len(wg)} instantiations run wgmma "
+          f"(HGMMA {min(v[0] for v in wg.values())}-"
+          f"{max(v[0] for v in wg.values())} each), no HMMA")
 
 
 def phase_k1() -> dict:
@@ -1144,16 +1222,20 @@ def main() -> None:
     phase_device()
     phase_build()
     k1 = phase_k1()
-    k5 = phase_k5()
+    with time_limit(300, "the K5 phase"):
+        k5 = phase_k5()
     served = phase_serve()
-    phase_k5_dropout()
+    with time_limit(300, "the K5 dropout phase"):
+        phase_k5_dropout()
     k2 = phase_k2()
-    k6 = phase_k6()
+    with time_limit(300, "the K6 phase"):
+        k6 = phase_k6()
     launches = phase_train()
     k3, k4 = phase_k3_k4()
     fused = phase_fused(served)
     del served
-    k7, k8a, k8b = phase_long_attention()
+    with time_limit(600, "the long-sequence K5/K6 phase"):
+        k7, k8a, k8b = phase_long_attention()
     long_launches = phase_train_long()
     # each row's launches: the timed training steps of its own path
     paths = ((k1, launches, "K1"), (k2, launches, "K2"),

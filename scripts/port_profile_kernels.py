@@ -6,12 +6,14 @@ CUDA card, for A/B runs of two trees in one call:
   K4 (the six banks in one launch);
 - `attention`: the fused-attention forward K5 (with the row log-sum-exp, as
   training runs it) and its backward K6 (from that forward's output) at
-  BH=512, T=845, dk=64, bf16 and float32 (`--rate` adds attention dropout,
-  in a tree that has it); with `--long`, at the EigenWorms-shaped model's
-  BH=64, T=17984, dk=64 in float32 only (K7, and K8a + K8b in K6).
+  BH=512, T=845, dk=64 (`--rate` adds attention dropout, in a tree that
+  has it); with `--long`, at the EigenWorms-shaped model's BH=64, T=17984,
+  dk=64 (K7, and K8a + K8b in K6). `--dtypes` picks bf16, float32 or both
+  (default: both at the flagship shape, float32 with `--long`).
 
     python scripts/port_profile_kernels.py [--tree DIR] [--reps 20]
         [--kernels shapelet,attention] [--rate R] [--long]
+        [--dtypes bfloat16,float32]
 
 `--tree` imports `sie_tpu_torch` from another checkout (e.g. the parent
 commit unpacked under archive_check/), so that two versions can be timed in
@@ -49,11 +51,13 @@ def shapelet_runs(torch, gen):
     return runs
 
 
-def attention_runs(torch, gen, rate, long):
+def attention_runs(torch, gen, rate, long, dtypes):
     from sie_tpu_torch.ops.attention import attention_bwd, attention_fwd
     extra = (rate, 77) if rate else ()
-    shape, dtypes = (((64, 17984, 64), (torch.float32,)) if long else
-                     ((512, 845, 64), (torch.bfloat16, torch.float32)))
+    shape = (64, 17984, 64) if long else (512, 845, 64)
+    if dtypes is None:
+        dtypes = ("float32",) if long else ("bfloat16", "float32")
+    dtypes = [getattr(torch, d) for d in dtypes]
     runs = {}
     for dtype in dtypes:
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
@@ -75,6 +79,7 @@ def main(argv=None) -> None:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rate", type=float, default=0.0)
     ap.add_argument("--long", action="store_true")
+    ap.add_argument("--dtypes", type=lambda v: v.split(","), default=None)
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -90,7 +95,8 @@ def main(argv=None) -> None:
         if group == "shapelet":
             runs.update(shapelet_runs(torch, gen))
         elif group == "attention":
-            runs.update(attention_runs(torch, gen, args.rate, args.long))
+            runs.update(attention_runs(torch, gen, args.rate, args.long,
+                                        args.dtypes))
         else:
             raise SystemExit(f"unknown kernel group {group!r}")
     start = torch.cuda.Event(enable_timing=True)

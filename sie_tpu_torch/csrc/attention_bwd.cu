@@ -40,20 +40,30 @@
 // Design (FlashAttention-2's backward, deterministic, no atomics): three
 // launches on one stream.
 //   1. delta[r] = sum_d dO[r, d] O[r, d] in f32, one warp per row.
-//   2. dK, dV: a block of 4 warps owns 64 keys (16 per warp) and walks all
-//      64-query tiles, Q and dO staged in shared memory two tiles deep by
-//      cp.async, lse and delta beside them. Each warp computes its 16 x 64
-//      transposed score tile S^T = K_w Q^T and dP^T = V_w dO^T with
-//      mma.sync (bf16 in, f32 out), turns them into P^T and dS^T in
-//      registers, and accumulates dV_w += P_drop^T dO and dK_w += dS^T Q
-//      in registers: the accumulator layout of the score tiles is the A
-//      operand of the next product, as in K5.
+//   2. dK, dV: a block is one warpgroup (4 warps) and owns 64 keys (16 per
+//      warp); K and V stay in shared memory for the whole walk over the
+//      64-query tiles, Q and dO staged two tiles deep, lse and delta beside
+//      them; all tiles swizzled and loaded as in K5 (one thread by TMA, or
+//      all threads element by element where TMA cannot take the shape).
+//      S^T = K Q^T and dP^T = V dO^T are 64 x 64 wgmma tiles (A = K or V,
+//      B = Q or dO, all K-major in shared memory), in two groups: P^T is
+//      formed while dP^T runs. P_drop^T, from registers, is the A operand
+//      of dV += P_drop^T dO, and dS^T is formed while that runs and is the
+//      A operand of dK += dS^T Q; their B tiles are the same dO and Q tiles
+//      read MN-major.
 //   3. dQ: a block owns 64 query rows and walks the key tiles, K and V
-//      staged two deep; each warp computes S = Q_w K^T and dP = dO_w V^T
-//      and accumulates dQ_w += dS K.
+//      staged two deep; S = Q K^T and dP = dO V^T by wgmma from shared
+//      memory (P formed while dP runs), dQ += dS K with dS from registers
+//      and K read MN-major.
+// A wgmma reads each B tile once for all 64 rows of the warpgroup; what
+// sets the pace is then the per-thread instruction count, as in K5, hence
+// the same TMA loader and paired rounding (at the flagship shape on an H100
+// 80GB HBM3 at 700 W: 1.56 ms with a cp.async loader, 1.03 with TMA, 0.93
+// with paired rounding).
 // Each output element is written by one thread, summed in a fixed order.
-// f32 inputs take the same two passes with f32 tiles (row stride dk + 4
-// words; 105 KB of shared memory at dk = 64) and every product as three
+// f32 inputs take the same two passes in the mma.sync arrangement (4 warps
+// of 16 rows) with f32 tiles (row stride dk + 4 words; 105 KB of shared
+// memory at dk = 64) and every product as three
 // mma.sync m16n8k8 TF32 products of split operands, accumulated in f32, as
 // in K5's f32 path: K_w, V_w (pass 2) and Q_w, dO_w (pass 3) are split per
 // k-step from their staged tiles, the B operands as they are read, P and
@@ -69,7 +79,7 @@ namespace {
 
 using namespace attn;
 
-constexpr int NWARP = 4;     // warps per block
+constexpr int NWARP = 4;     // warps per f32 block
 constexpr int BT = 64;       // rows per block and per tile
 
 struct Args {
@@ -108,26 +118,32 @@ __global__ void attn_bwd_delta(const E* __restrict__ o,
 // --------------------------------------------------- pass 2, bf16: dK, dV
 template <int DKP>
 constexpr size_t dkv_smem_bytes() {
-  // K, V, then Q and dO of two buffers; then lse2 and delta of two buffers
-  return sizeof(bf16) * 6 * BT * (DKP + 8) + sizeof(float) * 4 * BT;
+  // K, V, then Q and dO of two buffers, 1024 bytes of slack to align the
+  // tiles; then lse2 and delta of two buffers
+  return sizeof(bf16) * 6 * sw_tile_elems<DKP>() + 1024 +
+         sizeof(float) * 4 * BT;
 }
 
-template <int DKP, bool DROP>
-__global__ void __launch_bounds__(NWARP * 32)
+// TMA: the tiles are staged by TMA (`tma_fits`), else by all threads
+template <int DKP, bool DROP, bool TMA>
+__global__ void __launch_bounds__(128)
 attn_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, bf16* __restrict__ dk_out,
                   bf16* __restrict__ dv_out, int T, int dk, float scale,
                   const int* __restrict__ seedp, uint32_t thresh,
-                  float inv_keep) {
-  constexpr int LDH = DKP + 8;
-  constexpr int TILE = BT * LDH;
-  constexpr int KD = DKP / 16;    // k-steps over dk
-  constexpr int NS = BT / 8;      // 8-query column tiles of S^T
-  constexpr int ND = DKP / 8;     // 8-wide column tiles of dK, dV
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
+                  float inv_keep, const __grid_constant__ CUtensorMap mq,
+                  const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv,
+                  const __grid_constant__ CUtensorMap mo) {
+  constexpr int TILE = sw_tile_elems<DKP>();
+  constexpr uint32_t TB = sw_tile_bytes<DKP>();
+  constexpr int NS = BT / 8;      // 8-query column chunks of S^T
+  constexpr int ND = DKP / 8;     // 8-wide column chunks of dK, dV
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[3];   // TMA: K/V, Q/dO buffers 0, 1
+  bf16* Ks = reinterpret_cast<bf16*>(sw_align(smem_raw));
   bf16* Vs = Ks + TILE;
   bf16* QD = Vs + TILE;           // Q, dO of buffer 0, then of buffer 1
   float* LD = reinterpret_cast<float*>(QD + 4 * TILE);  // lse2, delta x 2
@@ -151,14 +167,39 @@ attn_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       dst[BT + i] = t < T ? delta[(size_t)bh * T + t] : 0.f;
     }
   };
+  // Q and dO of query tile j into buffer j % 2; its k-th fill completes
+  // phase k of barrier 1 + j % 2
+  auto stage_tile = [&](int j) {
+    bf16* dst = QD + (j % 2) * 2 * TILE;
+    if constexpr (TMA) {
+      if (threadIdx.x == 0) {
+        uint64_t* bar = &bars[1 + j % 2];
+        mbar_expect(bar, 2 * TB);
+        tma_tile<DKP>(dst, mq, bar, j * BT, bh);
+        tma_tile<DKP>(dst + TILE, mo, bar, j * BT, bh);
+      }
+    } else {
+      load_tile_sw<DKP>(dst, q + base, j * BT, T, dk);
+      load_tile_sw<DKP>(dst + TILE, dout + base, j * BT, T, dk);
+    }
+  };
 
-  load_tile<DKP>(Ks, k + base, kv0, T, dk);
-  load_tile<DKP>(Vs, v + base, kv0, T, dk);
-  cp_async_commit();
-  load_tile<DKP>(QD, q + base, 0, T, dk);
-  load_tile<DKP>(QD + TILE, dout + base, 0, T, dk);
+  // K and V stay for the whole walk; with query tile 0 at once
+  if constexpr (TMA) {
+    mbar_init_all(bars, 3);
+    if (threadIdx.x == 0) {
+      mbar_expect(&bars[0], 2 * TB);
+      tma_tile<DKP>(Ks, mk, &bars[0], kv0, bh);
+      tma_tile<DKP>(Vs, mv, &bars[0], kv0, bh);
+    }
+  } else {
+    load_tile_sw<DKP>(Ks, k + base, kv0, T, dk);
+    load_tile_sw<DKP>(Vs, v + base, kv0, T, dk);
+  }
+  stage_tile(0);
   stage_rows(0);
-  cp_async_commit();
+  if constexpr (TMA) mbar_wait(&bars[0], 0);
+  else tiles_ready();
 
   float acck[ND][4], accv[ND][4];
 #pragma unroll
@@ -168,80 +209,102 @@ attn_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int j = 0; j < ntiles; ++j) {
     if (j + 1 < ntiles) {
-      bf16* nxt = QD + ((j + 1) % 2) * 2 * TILE;
-      load_tile<DKP>(nxt, q + base, (j + 1) * BT, T, dk);
-      load_tile<DKP>(nxt + TILE, dout + base, (j + 1) * BT, T, dk);
+      stage_tile(j + 1);
       stage_rows(j + 1);
     }
-    cp_async_commit();
-    cp_async_wait_one();   // K, V and query tile j have landed
-    __syncthreads();
+    if constexpr (TMA) mbar_wait(&bars[1 + j % 2], (j / 2) & 1);
+    // the tiles this block wrote; lse2 and delta of tile j
+    tiles_ready();
     const bf16* Qs = QD + (j % 2) * 2 * TILE;
     const bf16* dOs = Qs + TILE;
     const float* lse2 = LD + (j % 2) * 2 * BT;
     const float* dlt = lse2 + BT;
     const int q0 = j * BT;
 
-    // S^T = K_w Q^T and dP^T = V_w dO^T (rows: this warp's 16 keys)
+    // S^T = K Q^T and dP^T = V dO^T (rows: this warpgroup's 64 keys), A
+    // and B staged K-major, in two wgmma groups: P^T is formed while the
+    // tensor cores run dP^T, and dS^T while they run dV
     float st[NS][4], dp[NS][4];
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a<LDH>(ka, Ks, warp * 16, kk);
-      load_a<LDH>(va, Vs, warp * 16, kk);
-#pragma unroll
-      for (int nt = 0; nt < NS; nt += 2) {
-        uint32_t b[4];
-        load_bt<LDH>(b, Qs, nt, kk);
-        mma_bf16(st[nt], ka, b[0], b[1]);
-        mma_bf16(st[nt + 1], ka, b[2], b[3]);
-        load_bt<LDH>(b, dOs, nt, kk);
-        mma_bf16(dp[nt], va, b[0], b[1]);
-        mma_bf16(dp[nt + 1], va, b[2], b[3]);
-      }
-    }
+    fence_regs<4 * NS>(&st[0][0]);
+    fence_regs<4 * NS>(&dp[0][0]);
+    wgmma_fence();
+    mma_abt<DKP>(&st[0][0], Ks, Qs);
+    wgmma_commit();
+    mma_abt<DKP>(&dp[0][0], Vs, dOs);
+    wgmma_commit();
+    wgmma_wait_one();   // S^T is complete
+    fence_regs<4 * NS>(&st[0][0]);
 
-    // P^T, its dropped form (into st), and dS^T (into dp)
+    // P^T (keys past T, in a ragged last block only, get 0; query rows
+    // past T get 0 from lse2 = +inf), then its dropped form, packed: the A
+    // operand of dV += P_drop^T dO (dO read MN-major); element 4 nt + e's
+    // keep bit is bit 4 nt + e of `keep`
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) round_bf16_pair(st[nt][e], st[nt][e + 1]);
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        st[nt][e] = fast_exp2(fmaf(st[nt][e], sl2,
+                                   -lse2[nt * 8 + i2 + (e & 1)]));
+    if (kv0 + 64 > T) {
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (kv0 + warp * 16 + g + 8 * (e / 2) >= T) st[nt][e] = 0.f;
+    }
+    float pd[NS][4];
+    uint32_t keep = 0;
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = kv0 + warp * 16 + g + 8 * (e / 2);
-        const int qi = nt * 8 + i2 + (e & 1);
-        const float x = key < T ? round_bf16(st[nt][e]) * sl2 : NEG;
-        const float p = exp2f(x - lse2[qi]);
-        float da = dp[nt][e];
-        float pd = p;
+        pd[nt][e] = st[nt][e];
         if (DROP) {
-          const bool keep = dropout_keep(dkey, q0 + qi, key, thresh);
-          pd = keep ? p * inv_keep : 0.f;
-          da = keep ? da * inv_keep : 0.f;
+          const int key = kv0 + warp * 16 + g + 8 * (e / 2);
+          const bool kb =
+              dropout_keep(dkey, q0 + nt * 8 + i2 + (e & 1), key, thresh);
+          keep |= (uint32_t)kb << (4 * nt + e);
+          pd[nt][e] = kb ? st[nt][e] * inv_keep : 0.f;
         }
-        st[nt][e] = pd;
-        dp[nt][e] = p * (da - dlt[qi]) * scale;
       }
+    uint32_t pa[BT / 16][4], sa[BT / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) pack_a(pa[kk], pd[2 * kk], pd[2 * kk + 1]);
+    fence_regs<4 * ND>(&accv[0][0]);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < DKP / 64; ++p) mma_ab(&accv[8 * p][0], pa, dOs, p);
+    wgmma_commit();
+    wgmma_wait_one();   // dP^T is complete
+    fence_regs<4 * NS>(&dp[0][0]);
 
-    // dV_w += P_drop^T dO and dK_w += dS^T Q, both over this query tile
+    // dS^T, packed: the A operand of dK += dS^T Q (Q read MN-major)
 #pragma unroll
-    for (int kk = 0; kk < BT / 16; ++kk) {
-      uint32_t pa[4], sa[4];
-      pack_a(pa, st[2 * kk], st[2 * kk + 1]);
-      pack_a(sa, dp[2 * kk], dp[2 * kk + 1]);
+    for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
-      for (int dn = 0; dn < ND; dn += 2) {
-        uint32_t b[4];
-        load_b<LDH>(b, dOs, dn, kk);
-        mma_bf16(accv[dn], pa, b[0], b[1]);
-        mma_bf16(accv[dn + 1], pa, b[2], b[3]);
-        load_b<LDH>(b, Qs, dn, kk);
-        mma_bf16(acck[dn], sa, b[0], b[1]);
-        mma_bf16(acck[dn + 1], sa, b[2], b[3]);
+      for (int e = 0; e < 4; ++e) {
+        float da = dp[nt][e];
+        if (DROP) da = (keep >> (4 * nt + e)) & 1u ? da * inv_keep : 0.f;
+        dp[nt][e] = st[nt][e] * (da - dlt[nt * 8 + i2 + (e & 1)]) * scale;
       }
-    }
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) pack_a(sa[kk], dp[2 * kk], dp[2 * kk + 1]);
+    fence_regs<4 * ND>(&acck[0][0]);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < DKP / 64; ++p) mma_ab(&acck[8 * p][0], sa, Qs, p);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<4 * ND>(&accv[0][0]);
+    fence_regs<4 * ND>(&acck[0][0]);
     __syncthreads();   // every warp is done with this buffer before refill
   }
 
@@ -266,24 +329,30 @@ attn_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ------------------------------------------------------- pass 3, bf16: dQ
 template <int DKP>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(bf16) * 6 * BT * (DKP + 8);   // Q, dO, two K and V tiles
+  // Q, dO, two K and V tiles; 1024 bytes of slack to align them
+  return sizeof(bf16) * 6 * sw_tile_elems<DKP>() + 1024;
 }
 
-template <int DKP, bool DROP>
-__global__ void __launch_bounds__(NWARP * 32)
+// TMA: the tiles are staged by TMA (`tma_fits`), else by all threads
+template <int DKP, bool DROP, bool TMA>
+__global__ void __launch_bounds__(128)
 attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, bf16* __restrict__ dq_out,
                  int T, int dk, float scale, const int* __restrict__ seedp,
-                 uint32_t thresh, float inv_keep) {
-  constexpr int LDH = DKP + 8;
-  constexpr int TILE = BT * LDH;
-  constexpr int KD = DKP / 16;
-  constexpr int NS = BT / 8;      // 8-key column tiles of S
+                 uint32_t thresh, float inv_keep,
+                 const __grid_constant__ CUtensorMap mq,
+                 const __grid_constant__ CUtensorMap mk,
+                 const __grid_constant__ CUtensorMap mv,
+                 const __grid_constant__ CUtensorMap mo) {
+  constexpr int TILE = sw_tile_elems<DKP>();
+  constexpr uint32_t TB = sw_tile_bytes<DKP>();
+  constexpr int NS = BT / 8;      // 8-key column chunks of S
   constexpr int ND = DKP / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[3];   // TMA: Q/dO, K/V buffers 0, 1
+  bf16* Qs = reinterpret_cast<bf16*>(sw_align(smem_raw));
   bf16* dOs = Qs + TILE;
   bf16* KVs = dOs + TILE;         // K, V of buffer 0, then of buffer 1
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -296,21 +365,38 @@ attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint32_t dkey = 0;
   if (DROP) dkey = dropout_key(*seedp, bh);
 
-  load_tile<DKP>(Qs, q + base, q0, T, dk);
-  load_tile<DKP>(dOs, dout + base, q0, T, dk);
-  cp_async_commit();
-  load_tile<DKP>(KVs, k + base, 0, T, dk);
-  load_tile<DKP>(KVs + TILE, v + base, 0, T, dk);
-  cp_async_commit();
-  cp_async_wait_one();   // Q and dO have landed
-  __syncthreads();
+  // K and V of key tile j into buffer j % 2; its k-th fill completes
+  // phase k of barrier 1 + j % 2
+  auto stage_tile = [&](int j) {
+    bf16* dst = KVs + (j % 2) * 2 * TILE;
+    if constexpr (TMA) {
+      if (threadIdx.x == 0) {
+        uint64_t* bar = &bars[1 + j % 2];
+        mbar_expect(bar, 2 * TB);
+        tma_tile<DKP>(dst, mk, bar, j * BT, bh);
+        tma_tile<DKP>(dst + TILE, mv, bar, j * BT, bh);
+      }
+    } else {
+      load_tile_sw<DKP>(dst, k + base, j * BT, T, dk);
+      load_tile_sw<DKP>(dst + TILE, v + base, j * BT, T, dk);
+    }
+  };
 
-  uint32_t qf[KD][4], of[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    load_a<LDH>(qf[kk], Qs, warp * 16, kk);
-    load_a<LDH>(of[kk], dOs, warp * 16, kk);
+  // Q, dO and the first K/V tile at once
+  if constexpr (TMA) {
+    mbar_init_all(bars, 3);
+    if (threadIdx.x == 0) {
+      mbar_expect(&bars[0], 2 * TB);
+      tma_tile<DKP>(Qs, mq, &bars[0], q0, bh);
+      tma_tile<DKP>(dOs, mo, &bars[0], q0, bh);
+    }
+  } else {
+    load_tile_sw<DKP>(Qs, q + base, q0, T, dk);
+    load_tile_sw<DKP>(dOs, dout + base, q0, T, dk);
   }
+  stage_tile(0);
+  if constexpr (TMA) mbar_wait(&bars[0], 0);
+  else tiles_ready();
   // rows g and g + 8 of this warp: lse in log2 units and delta
   float lse2[2], dlt[2];
 #pragma unroll
@@ -327,66 +413,74 @@ attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
 
   for (int j = 0; j < ntiles; ++j) {
-    if (j + 1 < ntiles) {
-      bf16* nxt = KVs + ((j + 1) % 2) * 2 * TILE;
-      load_tile<DKP>(nxt, k + base, (j + 1) * BT, T, dk);
-      load_tile<DKP>(nxt + TILE, v + base, (j + 1) * BT, T, dk);
-    }
-    cp_async_commit();
-    cp_async_wait_one();   // key tile j has landed
-    __syncthreads();
+    if (j + 1 < ntiles) stage_tile(j + 1);
+    if constexpr (TMA) mbar_wait(&bars[1 + j % 2], (j / 2) & 1);
+    else tiles_ready();   // tile j + 1 is staged for the next iteration
     const bf16* Ks = KVs + (j % 2) * 2 * TILE;
     const bf16* Vs = Ks + TILE;
     const int k0 = j * BT;
 
+    // S = Q K^T and dP = dO V^T, staged K-major, in two wgmma groups: P
+    // is formed while the tensor cores run dP
     float s[NS][4], dp[NS][4];
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NS; nt += 2)
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t b[4];
-        load_bt<LDH>(b, Ks, nt, kk);
-        mma_bf16(s[nt], qf[kk], b[0], b[1]);
-        mma_bf16(s[nt + 1], qf[kk], b[2], b[3]);
-        load_bt<LDH>(b, Vs, nt, kk);
-        mma_bf16(dp[nt], of[kk], b[0], b[1]);
-        mma_bf16(dp[nt + 1], of[kk], b[2], b[3]);
-      }
+    fence_regs<4 * NS>(&s[0][0]);
+    fence_regs<4 * NS>(&dp[0][0]);
+    wgmma_fence();
+    mma_abt<DKP>(&s[0][0], Qs, Ks);
+    wgmma_commit();
+    mma_abt<DKP>(&dp[0][0], dOs, Vs);
+    wgmma_commit();
+    wgmma_wait_one();   // S is complete
+    fence_regs<4 * NS>(&s[0][0]);
 
-    // dS into dp
+    // P (keys past T, in the last tile only, get 0), then dS into dp
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) round_bf16_pair(s[nt][e], s[nt][e + 1]);
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[nt][e] = fast_exp2(fmaf(s[nt][e], sl2, -lse2[e / 2]));
+    if (k0 + BT > T) {
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + nt * 8 + i2 + (e & 1) >= T) s[nt][e] = 0.f;
+    }
+    wgmma_wait_all();   // dP is complete
+    fence_regs<4 * NS>(&dp[0][0]);
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int h = e / 2;
-        const int col = k0 + nt * 8 + i2 + (e & 1);
-        const float x = col < T ? round_bf16(s[nt][e]) * sl2 : NEG;
-        const float p = exp2f(x - lse2[h]);
         float da = dp[nt][e];
         if (DROP) {
           const int row = q0 + warp * 16 + g + 8 * h;
+          const int col = k0 + nt * 8 + i2 + (e & 1);
           da = dropout_keep(dkey, row, col, thresh) ? da * inv_keep : 0.f;
         }
-        dp[nt][e] = p * (da - dlt[h]) * scale;
+        dp[nt][e] = s[nt][e] * (da - dlt[h]) * scale;
       }
 
-    // dQ_w += dS K: K fragments by ldmatrix.trans (rows are keys)
+    // dQ += dS K: A from registers, K read MN-major (rows are keys)
+    uint32_t sa[BT / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BT / 16; ++kk) {
-      uint32_t a[4];
-      pack_a(a, dp[2 * kk], dp[2 * kk + 1]);
+    for (int kk = 0; kk < BT / 16; ++kk) pack_a(sa[kk], dp[2 * kk], dp[2 * kk + 1]);
+    fence_regs<4 * ND>(&acc[0][0]);
+    wgmma_fence();
 #pragma unroll
-      for (int dn = 0; dn < ND; dn += 2) {
-        uint32_t b[4];
-        load_b<LDH>(b, Ks, dn, kk);
-        mma_bf16(acc[dn], a, b[0], b[1]);
-        mma_bf16(acc[dn + 1], a, b[2], b[3]);
-      }
-    }
+    for (int p = 0; p < DKP / 64; ++p) mma_ab(&acc[8 * p][0], sa, Ks, p);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<4 * ND>(&acc[0][0]);
     __syncthreads();
   }
 
@@ -731,34 +825,50 @@ int launch_delta(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <int DKP, bool DROP>
-int launch_bf16(const Args& a) {
+template <int DKP, bool DROP, bool TMA>
+int launch_bf16_as(const Args& a) {
   int err = launch_delta<bf16>(a);
   if (err) return err;
   const dim3 grid((a.T + BT - 1) / BT, a.BH);
   const size_t b1 = dkv_smem_bytes<DKP>(), b2 = dq_smem_bytes<DKP>();
   cudaError_t e = cudaFuncSetAttribute(
-      attn_bwd_dkv_bf16<DKP, DROP>,
+      attn_bwd_dkv_bf16<DKP, DROP, TMA>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b1);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(attn_bwd_dq_bf16<DKP, DROP>,
+  e = cudaFuncSetAttribute(attn_bwd_dq_bf16<DKP, DROP, TMA>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)b2);
   if (e != cudaSuccess) return (int)e;
+  CUtensorMap mq{}, mk{}, mv{}, mo{};   // the maps hold the pointers
+  if (TMA) {
+    err = encode_tile_map(&mq, a.q, a.BH, a.T, a.dk);
+    if (!err) err = encode_tile_map(&mk, a.k, a.BH, a.T, a.dk);
+    if (!err) err = encode_tile_map(&mv, a.v, a.BH, a.T, a.dk);
+    if (!err) err = encode_tile_map(&mo, a.dout, a.BH, a.T, a.dk);
+    if (err) return err;
+  }
   const bf16 *q = static_cast<const bf16*>(a.q),
              *k = static_cast<const bf16*>(a.k),
              *v = static_cast<const bf16*>(a.v),
              *dout = static_cast<const bf16*>(a.dout);
-  attn_bwd_dkv_bf16<DKP, DROP><<<grid, NWARP * 32, b1, a.stream>>>(
+  attn_bwd_dkv_bf16<DKP, DROP, TMA><<<grid, 128, b1, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.grad_k),
       static_cast<bf16*>(a.grad_v), a.T, a.dk, a.scale, a.seed, a.thresh,
-      a.inv_keep);
+      a.inv_keep, mq, mk, mv, mo);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  attn_bwd_dq_bf16<DKP, DROP><<<grid, NWARP * 32, b2, a.stream>>>(
+  attn_bwd_dq_bf16<DKP, DROP, TMA><<<grid, 128, b2, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.grad_q), a.T, a.dk,
-      a.scale, a.seed, a.thresh, a.inv_keep);
+      a.scale, a.seed, a.thresh, a.inv_keep, mq, mk, mv, mo);
   return (int)cudaGetLastError();
+}
+
+template <int DKP, bool DROP>
+int launch_bf16(const Args& a) {
+  return tma_fits(a.q, a.dk) && tma_fits(a.k, a.dk) && tma_fits(a.v, a.dk) &&
+                 tma_fits(a.dout, a.dk)
+             ? launch_bf16_as<DKP, DROP, true>(a)
+             : launch_bf16_as<DKP, DROP, false>(a);
 }
 
 template <int DKP, bool DROP>
@@ -793,15 +903,9 @@ int launch_f32(const Args& a) {
 
 template <bool DROP>
 int dispatch(const Args& a, bool is_bf16) {
+  if (is_bf16)   // swizzled tiles of 64 or 128 columns (zero-padded)
+    return a.dk <= 64 ? launch_bf16<64, DROP>(a) : launch_bf16<128, DROP>(a);
   const int dkp = a.dk <= 16 ? 16 : a.dk <= 32 ? 32 : a.dk <= 64 ? 64 : 128;
-  if (is_bf16) {
-    switch (dkp) {
-      case 16: return launch_bf16<16, DROP>(a);
-      case 32: return launch_bf16<32, DROP>(a);
-      case 64: return launch_bf16<64, DROP>(a);
-      default: return launch_bf16<128, DROP>(a);
-    }
-  }
   switch (dkp) {
     case 16: return launch_f32<16, DROP>(a);
     case 32: return launch_f32<32, DROP>(a);

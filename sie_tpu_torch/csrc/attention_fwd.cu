@@ -44,23 +44,33 @@
 // on Hopper a 64 x 896 f32 score tile alone exceeds a block's 227 KB of
 // shared memory, so this kernel walks 64-key tiles with an online softmax.
 //
-// Design, bf16 (the FlashAttention-2 arrangement): a block of 4 warps owns
-// 64 query rows, each warp 16 of them. The block stages Q once and each
-// 64-key tile of K and V in shared memory (dk padded with zeros to the next
-// of 16, 32, 64, 128 there only), two K/V buffers deep: cp.async fills one
-// while the warps read the other. Each warp keeps everything else in
-// registers: its Q fragments, its 16 x 64 score tile, computed with
-// mma.sync m16n8k16 (bf16 in, f32 out) on K fragments read by ldmatrix; the
-// online-softmax state of its rows (each row is spread over four lanes,
-// reduced by two shuffles; exponentials as exp2 of log2-scaled scores); and
-// its 16 x dk f32 output accumulator. The score tile's accumulator layout
-// is the layout of the A operand of the P V product, so the probabilities
-// go from the softmax to the tensor cores without leaving registers; V
-// fragments come from ldmatrix.trans.
+// Design, bf16 (warpgroup MMA): a block is one warpgroup (4 warps, 128
+// threads) and owns 64 query rows, warp w rows 16w .. 16w + 15. The block
+// stages Q once and each 64-key tile of K and V in shared memory as
+// swizzled tiles (attention_common.cuh: 128-byte swizzle, dk zero-padded to
+// 64 or 128), two K/V buffers deep: one thread loads them by TMA (Q and
+// the first K/V tile together, tile j + 1 while tile j is used, each
+// buffer's fills counted on its mbarrier), or, where TMA cannot take the
+// shape, all threads element by element. S = Q K^T is one 64 x 64 wgmma
+// tile per key tile (m64n64k16, A = Q and B = K both read from shared
+// memory through K-major descriptors); the online softmax runs on its
+// accumulators in registers (each row spread over four lanes, reduced by
+// two shuffles; exponentials as one FFMA and ex2.approx of the raw score);
+// O += P V is wgmma with A = P from registers (the score accumulators,
+// packed to bf16, are wgmma's register A fragments) and B = the V tile read
+// MN-major (transposed); O accumulates in f32 registers.
+// With the tensor-core work per tile down to a few wgmma instructions, the
+// softmax's per-score instructions and the loader's per-thread copies set
+// the pace, so the design spends none it can avoid: TMA in place of a
+// cp.async per 16 bytes and thread, one conversion per pair of scores,
+// masking only in the tile that reaches past T (at the flagship shape on an
+// H100 80GB HBM3 at 700 W: 0.57 ms with a cp.async loader, 0.33 with TMA,
+// 0.30 with paired rounding).
 //
-// Design, f32 (3xTF32): the same arrangement, tiles and pipeline, with f32
-// tiles (row stride dk + 4 words, 87 KB of shared memory at dk = 64) and
-// every product taken as three mma.sync m16n8k8 TF32 products, big*big +
+// Design, f32 (3xTF32): the mma.sync arrangement (4 warps, 16 query rows
+// each, 64-row tiles two deep by cp.async), with f32 tiles (row stride
+// dk + 4 words, 87 KB of shared memory at dk = 64) and every product taken
+// as three mma.sync m16n8k8 TF32 products, big*big +
 // big*small + small*big of each operand's split (attention_common.cuh),
 // accumulated in f32: f32 accuracy on the tensor cores. Q's split
 // fragments are made once per warp and held in registers (64 at dk = 64;
@@ -85,50 +95,61 @@ using namespace attn;
 // ------------------------------------------------- tiles of both paths
 constexpr int BQ = 64;      // query rows per block
 constexpr int BK = 64;      // keys per tile
-constexpr int NWARP = 4;    // warps per block, 16 query rows each
+constexpr int NWARP = 4;    // warps per f32 block, 16 query rows each
 
 // ---------------------------------------------------------------- bf16 path
 template <int DKP>
 constexpr size_t bf16_smem_bytes() {
-  return sizeof(bf16) * 5 * 64 * (DKP + 8);   // Q, and two K and V tiles
+  // Q, and two K and V tiles; 1024 bytes of slack to align the tiles
+  return sizeof(bf16) * 5 * sw_tile_elems<DKP>() + 1024;
 }
 
-template <int DKP, bool DROP, bool LSE>
-__global__ void __launch_bounds__(NWARP * 32)
+// TMA: the tiles are staged by TMA (`tma_fits`), else by all threads
+template <int DKP, bool DROP, bool LSE, bool TMA>
+__global__ void __launch_bounds__(128)
 attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, bf16* __restrict__ o,
               float* __restrict__ lse, int T, int dk, float scale,
-              const int* __restrict__ seedp, uint32_t thresh, float inv_keep) {
-  constexpr int LDH = DKP + 8;
-  constexpr int TILE = 64 * LDH;  // elements of one staged tile
-  constexpr int KD = DKP / 16;    // k-steps of Q K^T
-  constexpr int NS = BK / 8;      // 8-key column tiles of the scores
-  constexpr int ND = DKP / 8;     // 8-wide column tiles of the output
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
+              const int* __restrict__ seedp, uint32_t thresh, float inv_keep,
+              const __grid_constant__ CUtensorMap mq,
+              const __grid_constant__ CUtensorMap mk,
+              const __grid_constant__ CUtensorMap mv) {
+  constexpr int TILE = sw_tile_elems<DKP>();
+  constexpr uint32_t TB = sw_tile_bytes<DKP>();
+  constexpr int NS = BK / 8;      // 8-key column chunks of the scores
+  constexpr int ND = DKP / 8;     // 8-wide column chunks of the output
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[3];   // TMA: Q, K/V buffers 0, 1
+  bf16* Qs = reinterpret_cast<bf16*>(sw_align(smem_raw));
   bf16* KVs = Qs + TILE;          // K, V of buffer 0, then K, V of buffer 1
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, i2 = (lane % 4) * 2;
   // scores in log2 units: exp(x * scale - m) = exp2(x * sl2 - m2)
   const float sl2 = scale * LOG2E;
 
-  const size_t base = (size_t)blockIdx.y * T * dk;
+  const int bh = blockIdx.y;
+  const size_t base = (size_t)bh * T * dk;
   const int q0 = blockIdx.x * BQ;
   const int ntiles = (T + BK - 1) / BK;
   uint32_t dkey = 0;
-  if (DROP) dkey = dropout_key(*seedp, blockIdx.y);
-  load_tile<DKP>(Qs, q + base, q0, T, dk);
-  cp_async_commit();
-  load_tile<DKP>(KVs, k + base, 0, T, dk);
-  load_tile<DKP>(KVs + TILE, v + base, 0, T, dk);
-  cp_async_commit();
-  cp_async_wait_one();   // Q has landed
-  __syncthreads();
-
-  // this warp's Q rows as A fragments
-  uint32_t qf[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) load_a<LDH>(qf[kk], Qs, warp * 16, kk);
+  if (DROP) dkey = dropout_key(*seedp, bh);
+  // Q and the first K/V tile at once: their loads overlap
+  if constexpr (TMA) {
+    mbar_init_all(bars, 3);
+    if (threadIdx.x == 0) {
+      mbar_expect(&bars[0], TB);
+      tma_tile<DKP>(Qs, mq, &bars[0], q0, bh);
+      mbar_expect(&bars[1], 2 * TB);
+      tma_tile<DKP>(KVs, mk, &bars[1], 0, bh);
+      tma_tile<DKP>(KVs + TILE, mv, &bars[1], 0, bh);
+    }
+    mbar_wait(&bars[0], 0);
+  } else {
+    load_tile_sw<DKP>(Qs, q + base, q0, T, dk);
+    load_tile_sw<DKP>(KVs, k + base, 0, T, dk);
+    load_tile_sw<DKP>(KVs + TILE, v + base, 0, T, dk);
+    tiles_ready();
+  }
 
   float acc[ND][4];
 #pragma unroll
@@ -139,53 +160,67 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   for (int j = 0; j < ntiles; ++j) {
-    // copy tile j + 1 into the other buffer while tile j is used
-    if (j + 1 < ntiles) {
-      bf16* nxt = KVs + ((j + 1) % 2) * 2 * TILE;
-      load_tile<DKP>(nxt, k + base, (j + 1) * BK, T, dk);
-      load_tile<DKP>(nxt + TILE, v + base, (j + 1) * BK, T, dk);
+    // copy tile j + 1 into the other buffer while tile j is used; buffer
+    // b's k-th fill completes phase k of barrier 1 + b
+    bf16* nxt = KVs + ((j + 1) % 2) * 2 * TILE;
+    if constexpr (TMA) {
+      if (j + 1 < ntiles && threadIdx.x == 0) {
+        uint64_t* bar = &bars[1 + (j + 1) % 2];
+        mbar_expect(bar, 2 * TB);
+        tma_tile<DKP>(nxt, mk, bar, (j + 1) * BK, bh);
+        tma_tile<DKP>(nxt + TILE, mv, bar, (j + 1) * BK, bh);
+      }
+      mbar_wait(&bars[1 + j % 2], (j / 2) & 1);
+    } else {
+      if (j + 1 < ntiles) {
+        load_tile_sw<DKP>(nxt, k + base, (j + 1) * BK, T, dk);
+        load_tile_sw<DKP>(nxt + TILE, v + base, (j + 1) * BK, T, dk);
+      }
+      tiles_ready();   // tile j + 1 is staged for the next iteration
     }
-    cp_async_commit();
-    cp_async_wait_one();   // tile j has landed
-    __syncthreads();
     const bf16* Ks = KVs + (j % 2) * 2 * TILE;
     const bf16* Vs = Ks + TILE;
     const int k0 = j * BK;
 
-    // scores: B = K^T, so B fragments are rows of K
+    // scores S = Q K^T: both tiles K-major, one 64 x 64 wgmma tile
     float s[NS][4];
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NS; nt += 2)
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t b[4];
-        load_bt<LDH>(b, Ks, nt, kk);
-        mma_bf16(s[nt], qf[kk], b[0], b[1]);
-        mma_bf16(s[nt + 1], qf[kk], b[2], b[3]);
-      }
+    fence_regs<4 * NS>(&s[0][0]);
+    wgmma_fence();
+    mma_abt<DKP>(&s[0][0], Qs, Ks);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<4 * NS>(&s[0][0]);
 
-    // raw score rounded to bf16, then scaled; keys past T masked
+    // raw scores rounded to bf16; keys past T (in the last tile only)
+    // masked; the scale goes into the exponent's FMA (max of r * sl2 is
+    // sl2 * max of r, as sl2 > 0)
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) round_bf16_pair(s[nt][e], s[nt][e + 1]);
+    if (k0 + BK > T) {
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + nt * 8 + i2 + (e & 1) >= T) s[nt][e] = NEG;
+    }
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + i2 + (e & 1);
-        const float x = col < T ? round_bf16(s[nt][e]) * sl2 : NEG;
-        s[nt][e] = x;
-        mx[e / 2] = fmaxf(mx[e / 2], x);
-      }
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[nt][e]);
     float alpha[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h]);
-      alpha[h] = exp2f(m[h] - m_new);   // 0 on the first tile
+      const float m_new = fmaxf(m[h], mx[h] * sl2);
+      alpha[h] = fast_exp2(m[h] - m_new);   // 0 on the first tile
       m[h] = m_new;
       l[h] *= alpha[h];
     }
@@ -193,7 +228,7 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - m[e / 2]);
+        const float p = fast_exp2(fmaf(s[nt][e], sl2, -m[e / 2]));
         s[nt][e] = p;
         l[e / 2] += p;
       }
@@ -213,20 +248,18 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[dn][e] *= alpha[e / 2];
 
-    // P V: the accumulators of score tiles 2kk and 2kk+1 are the A operand
-    // of key step kk; V fragments by ldmatrix.trans (rows are keys)
+    // O += P V: the score accumulators of chunks 2kk, 2kk + 1 are the A
+    // operand of key step kk (registers); V is read MN-major
+    uint32_t pa[BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      pack_a(a, s[2 * kk], s[2 * kk + 1]);
+    for (int kk = 0; kk < BK / 16; ++kk) pack_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
+    fence_regs<4 * ND>(&acc[0][0]);
+    wgmma_fence();
 #pragma unroll
-      for (int dn = 0; dn < ND; dn += 2) {
-        uint32_t b[4];
-        load_b<LDH>(b, Vs, dn, kk);
-        mma_bf16(acc[dn], a, b[0], b[1]);
-        mma_bf16(acc[dn + 1], a, b[2], b[3]);
-      }
-    }
+    for (int p = 0; p < DKP / 64; ++p) mma_ab(&acc[8 * p][0], pa, Vs, p);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<4 * ND>(&acc[0][0]);
     __syncthreads();   // every warp is done with this buffer before refill
   }
 
@@ -249,7 +282,7 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (col < dk) orow[col] = __float2bfloat16(acc[dn][2 * h + e] * inv);
       }
     if (LSE && i2 == 0)
-      lse[(size_t)blockIdx.y * T + row] = (m[h] + log2f(l[h])) * LN2;
+      lse[(size_t)bh * T + row] = (m[h] + log2f(l[h])) * LN2;
   }
 }
 
@@ -437,19 +470,33 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int DKP, bool DROP, bool LSE>
-int launch_bf16(const Args& a) {
+template <int DKP, bool DROP, bool LSE, bool TMA>
+int launch_bf16_as(const Args& a) {
   const size_t bytes = bf16_smem_bytes<DKP>();
   cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_bf16<DKP, DROP, LSE>,
+      attn_fwd_bf16<DKP, DROP, LSE, TMA>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
+  CUtensorMap mq{}, mk{}, mv{};   // the maps hold the pointers: per call
+  if (TMA) {
+    int e = encode_tile_map(&mq, a.q, a.BH, a.T, a.dk);
+    if (!e) e = encode_tile_map(&mk, a.k, a.BH, a.T, a.dk);
+    if (!e) e = encode_tile_map(&mv, a.v, a.BH, a.T, a.dk);
+    if (e) return e;
+  }
   const dim3 grid((a.T + BQ - 1) / BQ, a.BH);
-  attn_fwd_bf16<DKP, DROP, LSE><<<grid, NWARP * 32, bytes, a.stream>>>(
+  attn_fwd_bf16<DKP, DROP, LSE, TMA><<<grid, 128, bytes, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.T,
-      a.dk, a.scale, a.seed, a.thresh, a.inv_keep);
+      a.dk, a.scale, a.seed, a.thresh, a.inv_keep, mq, mk, mv);
   return (int)cudaGetLastError();
+}
+
+template <int DKP, bool DROP, bool LSE>
+int launch_bf16(const Args& a) {
+  return tma_fits(a.q, a.dk) && tma_fits(a.k, a.dk) && tma_fits(a.v, a.dk)
+             ? launch_bf16_as<DKP, DROP, LSE, true>(a)
+             : launch_bf16_as<DKP, DROP, LSE, false>(a);
 }
 
 template <int DKP, bool DROP, bool LSE>
@@ -469,15 +516,10 @@ int launch_f32(const Args& a) {
 
 template <bool DROP, bool LSE>
 int dispatch(const Args& a, bool is_bf16) {
+  if (is_bf16)   // swizzled tiles of 64 or 128 columns (zero-padded)
+    return a.dk <= 64 ? launch_bf16<64, DROP, LSE>(a)
+                      : launch_bf16<128, DROP, LSE>(a);
   const int dkp = a.dk <= 16 ? 16 : a.dk <= 32 ? 32 : a.dk <= 64 ? 64 : 128;
-  if (is_bf16) {
-    switch (dkp) {
-      case 16: return launch_bf16<16, DROP, LSE>(a);
-      case 32: return launch_bf16<32, DROP, LSE>(a);
-      case 64: return launch_bf16<64, DROP, LSE>(a);
-      default: return launch_bf16<128, DROP, LSE>(a);
-    }
-  }
   switch (dkp) {
     case 16: return launch_f32<16, DROP, LSE>(a);
     case 32: return launch_f32<32, DROP, LSE>(a);

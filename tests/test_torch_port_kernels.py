@@ -6,6 +6,10 @@ only PyTorch is installed:
     python -m pytest tests/test_torch_port_kernels.py -q
 """
 
+import os
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +34,21 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def time_limit():
+    """Ends the run if one test passes 300 s: a kernel that hangs blocks
+    inside the driver, where no exception or pytest hook reaches it."""
+    def expire():
+        print("test ran past 300 s: a kernel hangs", file=sys.stderr,
+              flush=True)
+        os._exit(1)
+    timer = threading.Timer(300.0, expire)
+    timer.daemon = True
+    timer.start()
+    yield
+    timer.cancel()
 
 
 def _normal(seed, *shapes):
@@ -87,7 +106,7 @@ def test_k2_matches_plain(card, metric, b, n, l):
 @pytest.mark.parametrize("rate", [0.0, 0.25])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 # ragged key and query tiles at every padded width: dk 48 is zero-filled to
-# 64 by cp.async, dk 30 is staged without it
+# 64 by TMA (bf16) or cp.async (f32), dk 30 is staged element by element
 @pytest.mark.parametrize("t,dk", [(40, 16), (130, 64), (300, 8), (70, 128),
                                   (70, 32), (200, 32), (200, 128), (70, 30),
                                   (200, 48)])
@@ -109,6 +128,49 @@ def test_k5_with_dropout_and_k6_match_plain(card, dtype, t, dk, rate):
         assert got.dtype == dtype
         lim = tol * max(1.0, float(w.float().abs().max()))
         assert float((got.float() - w.float()).abs().max()) <= lim
+
+
+# the bf16 kernels' wgmma tiling: T a whole number of 64-row tiles, T below
+# one tile, the 8 (batch, head) rows of a 1-row flagship request, dk 30
+# (no TMA: staged element by element into the swizzled layout), dk 8 and
+# 48 (zero-filled to 64 by TMA), dk 128 (two 64-column panels), and dk 64
+# in tensors 2 bytes off 16-byte alignment (no TMA)
+WGMMA_CASES = {"t128": (4, 128, 64), "t256": (2, 256, 64), "t1": (4, 1, 64),
+               "t17": (4, 17, 64), "bh8_t845": (8, 845, 64),
+               "dk30": (4, 130, 30), "dk8": (4, 100, 8), "dk48": (4, 200, 48),
+               "dk128": (4, 130, 128), "dk64_unaligned": (4, 130, 64)}
+
+
+def _unaligned(x):
+    """x in a contiguous tensor that starts 2 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return flat[1:].view(x.shape).copy_(x)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+@pytest.mark.parametrize("case", sorted(WGMMA_CASES))
+def test_bf16_wgmma_tiling_matches_plain(card, case, rate):
+    bh, t, dk = WGMMA_CASES[case]
+    q, k, v, do = (a.to(card, torch.bfloat16)
+                   for a in _normal(21, *[(bh, t, dk)] * 4))
+    if case.endswith("unaligned"):
+        q, k, v, do = (_unaligned(z) for z in (q, k, v, do))
+        assert q.is_contiguous() and q.data_ptr() % 16 == 2
+    scale, seed, tol = 1.0 / np.sqrt(dk), 31, 2e-2
+    before = fused_attention.launches, attention_bwd.launches
+    out, lse = attention_fwd(q, k, v, scale, rate, seed, want_lse=True)
+    want = attention_plain(q, k, v, scale, rate, seed)
+    assert float((out.float() - want.float()).abs().max()) <= tol
+    got = attention_bwd(q, k, v, out, do, lse, scale, rate, seed)
+    again = attention_bwd(q, k, v, out, do, lse, scale, rate, seed)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches, attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 2)
+    for a, w in zip(got, attention_bwd_plain(q, k, v, do, scale, rate, seed)):
+        lim = tol * max(1.0, float(w.float().abs().max()))
+        assert float((a.float() - w.float()).abs().max()) <= lim
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_k5_and_k6_f32_dropout_hash_through_the_outputs(card):
