@@ -187,16 +187,15 @@ class FullAttentionLayer(nn.Module):
     the probabilities, as the JAX package leaves it to XLA. The gate is the
     JAX package's; with `fused_max_len=0` a sequence longer than 4096 takes
     the fused branch too, where the JAX package runs its kv-blocked kernels
-    (K7, K8a, K8b) and this port the same K5 and K6."""
+    (K7, K8a, K8b) and this port the same K5 and K6. `use_flash` is taken
+    and ignored: the JAX package runs its stock flash kernel only on a TPU
+    and everywhere else takes these two branches, as this layer does."""
 
     def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype,
                  g: torch.Generator, use_fused: bool = False,
                  fused_max_len: int = 4096, fused_min_len: int = 256,
                  use_flash: bool = False, attention_dropout: float = 0.0):
         super().__init__()
-        if use_flash:
-            raise not_ported("use_flash_attention (the stock TPU flash "
-                             "kernel; K5 covers the same op)")
         self.n_heads = n_heads
         self.attention_dropout = attention_dropout
         self.dtype = dtype

@@ -189,6 +189,24 @@ def test_load_rejects_missing_and_extra_leaves():
         load_jax_params(port, wrong)
 
 
+@pytest.mark.parametrize("amp", [False, True])
+@pytest.mark.parametrize("use_fused", [False, True])
+def test_use_flash_attention_builds_and_matches_jax(use_fused, amp):
+    """The JAX package takes its stock flash kernel only on a TPU and
+    otherwise the fused gate or the XLA branch; the port takes the flag and
+    the same two branches (min_len 0 puts T=40 through the fused one)."""
+    kw = dict(BASE, model="InterpGN", amp=amp, use_flash_attention=True,
+              use_fused_attention=use_fused, fused_attention_min_len=0)
+    layer = build_model(Config(**kw), "cpu").deep_model.encoder.layers[0] \
+        .attention
+    assert layer.uses_kernel(40, 40, 8) == use_fused
+    [(got, tinfo, want, jinfo)] = _pair(kw, _x(4))
+    _assert_logits(got, want, amp)
+    # the gate reads the expert's bf16 predictions under amp
+    np.testing.assert_allclose(tinfo.eta.numpy(), np.asarray(jinfo.eta),
+                               atol=BF16_TOL if amp else 1e-5)
+
+
 def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(Config(**dict(BASE, model="EEGCNN")), "cpu")
