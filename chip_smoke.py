@@ -8,10 +8,13 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      ptxas's registers and spills of each instantiation beside its SASS
      counts of HGMMA (wgmma) and HMMA (mma.sync) instructions
      (`cuobjdump -sass`); fails unless each of the 32 bf16 attention
-     instantiations has HGMMA and no HMMA;
+     instantiations has HGMMA and no HMMA; the FP32, ALU and LDS
+     instructions of the inner loop of each shapelet kernel's flagship
+     instantiation (K1/K3 10, K2/K4 5 shapelet rows a block);
   3. K1 (shapelet distance) against its plain version at the flagship
      shapes: B=64, C=122, T=845, n=10, each of the six banks, both metrics;
-     kernel, plain and torch.cdist times and the bound;
+     kernel, plain and torch.cdist times, the bound and the issue-slot
+     floor (two instructions a tap);
   4. K5 (fused attention) against its plain version at BH=512, T=845,
      dk=64 in bf16 and f32, and at a ragged T=300; kernel, plain and
      scaled_dot_product_attention times and the bound;
@@ -26,10 +29,12 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      and rate 0;
   7. K2 (shapelet-distance backward) against its plain version at B=64 on
      each of the six banks, both metrics, random output gradients, and
-     against itself (deterministic); kernel and plain times and the bound;
-     the library time, the bank gradient through torch.cdist(p=1), timed
-     per bank in a child process (a fault there cannot reach this one's
-     CUDA context), kept only if all six banks run;
+     against itself (deterministic); kernel and plain times, the bound and
+     the issue-slot floor; the library time, the bank gradient through
+     torch.cdist(p=1) in calls of fewer batch rows, halved at each fault
+     until they run, summed per bank and timed in child processes (a fault
+     there cannot reach this one's CUDA context), kept only if all six
+     banks run;
   8. K6 (attention backward) against its plain version at BH=512, T=845,
      dk=64 in bf16 and f32 and at a ragged T=300, rates 0 and 0.1; kernel,
      plain and scaled_dot_product_attention-backward times and the bound;
@@ -43,7 +48,7 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      K3 equal bit for bit to six K1 launches and K4 to six K2 launches
      (random output gradients), K4 equal to itself on a second run, both
      against their plain versions; K3 against the sum of the six K1 times
-     and K4 against the six K2 times, and the bound;
+     and K4 against the six K2 times, the bound and the issue-slot floor;
  11. the flagship with `fuse_short_banks=True`, at the same weights:
      served (1, 5, 64, 150 rows; K3 1 and K5 2 launches per chunk, no
      other kernel; logits equal to the unfused predictor's on the card) and
@@ -195,7 +200,7 @@ def phase_device() -> str:
 
 def kernel_name(mangled: str) -> str:
     """kernel<template arguments> of a mangled entry name, else the name."""
-    k = re.search(r"\d((?:attn|shapelet)_[a-z0-9_]+?)I(.*?)EEv", mangled)
+    k = re.search(r"\d((?:attn|shapelet|l1)_[a-z0-9_]+?)I(.*?)EEv", mangled)
     if not k:
         return mangled
     args = re.findall(r"L[ib](\d+)E", k.group(2))
@@ -247,6 +252,59 @@ def sass_counts(lib: str) -> dict:
     return {k: tuple(v) for k, v in counts.items()}
 
 
+# SASS opcodes by the pipe that executes them on Hopper: the FP32 pipe (128
+# lanes an SM) and the ALU pipe (64 lanes an SM: compares, selects, min/max,
+# integer logic), and shared-memory loads
+SASS_FP32 = ("FADD", "FFMA", "FMUL")
+SASS_ALU = ("FSET", "FSETP", "FSEL", "FMNMX", "ISETP", "IADD3", "LOP3",
+            "SHF", "SEL", "IMNMX", "LEA", "PLOP3", "IABS", "FCHK")
+
+
+def sass_inner_loops(lib: str) -> dict:
+    """{kernel<template arguments>: (FP32, ALU, LDS, all)}: the instructions
+    of each function's busiest innermost loop (the range from a backward
+    branch's target to the branch that holds no other loop, the one with
+    the most FP32 instructions), from `cuobjdump -sass`. Per tap, K1 needs
+    2 FP32 and K2 1 FP32 and 1 ALU instruction; the rest of the loop is its
+    overhead."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            funcs[name] = []
+            continue
+        ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z0-9]+)(?:\.[A-Z0-9_.]+)?\s*([^;]*);", line)
+        if ins and name is not None:
+            funcs[name].append((int(ins.group(1), 16), ins.group(2),
+                                ins.group(3)))
+    result = {}
+    for name, body in funcs.items():
+        loops = []
+        for addr, op, arg in body:
+            t = re.match(r"\s*(0x[0-9a-f]+)", arg) if op == "BRA" else None
+            if t and int(t.group(1), 16) <= addr:
+                loops.append((int(t.group(1), 16), addr))
+        inner = [(a, b) for a, b in loops
+                 if not any(a <= c and d <= b and (c, d) != (a, b)
+                            for c, d in loops)]
+        best = None
+        for a, b in inner:
+            ops = [op for addr, op, _ in body if a <= addr <= b]
+            row = (sum(op in SASS_FP32 for op in ops),
+                   sum(op in SASS_ALU for op in ops),
+                   sum(op == "LDS" for op in ops), len(ops))
+            if best is None or row[0] > best[0]:
+                best = row
+        if best is not None:
+            result[name] = best
+    return result
+
+
 def phase_build() -> None:
     from sie_tpu_torch.ops import build
     t0 = time.perf_counter()
@@ -266,6 +324,15 @@ def phase_build() -> None:
         for line in build.PTXAS_LOG.get(src, "").splitlines():
             if "arning" in line:
                 print(f"[build] {src}: ptxas: {line.strip()}")
+    # the shapelet kernels' flagship instantiations (n = 10: K1 and K3 take
+    # 10 shapelet rows a block, K2 and K4 5): FP32, ALU and shared-load
+    # instructions of the inner loop
+    for src in [n for n in build.SIGNATURES if n.startswith("shapelet")]:
+        for name, (fp32, alu, lds, total) in sorted(
+                sass_inner_loops(build._lib_path(src)).items()):
+            if re.match(r"l1_fwd_\w+<10\b|l1_bwd_\w*partial<5\b", name):
+                print(f"[build] {src}: {name}: inner loop FP32 {fp32}, ALU "
+                      f"{alu}, LDS {lds}, all {total} instructions")
     wg = {k: v for k, v in sass.items() if k.startswith(WGMMA_KERNELS)}
     # 2 widths x 2 loaders (TMA, cp.async) x (4 forward, 2 + 2 backward)
     if len(wg) != 32:
@@ -276,6 +343,23 @@ def phase_build() -> None:
     print(f"[build] bf16 attention: all {len(wg)} instantiations run wgmma "
           f"(HGMMA {min(v[0] for v in wg.values())}-"
           f"{max(v[0] for v in wg.values())} each), no HMMA")
+
+
+def issue_floor(flops: float) -> str:
+    """The issue-slot floor of a shapelet kernel doing `flops` = 2 x taps.
+    The table's FP32 peak counts an FMA as two operations, but a tap is two
+    instructions (K1: subtract, add of |.|; K2-K4: a compare, which the
+    64-lane ALU pipe takes in two of its cycles, and an FMA), and an SM
+    issues one instruction a clock on each of its four schedulers (128
+    lanes): taps x 2 / (SMs x 128 x clock), twice the operations bound."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ms = 1e3 * flops / (sms * 128 * mhz * 1e6)
+    return (f"issue-slot floor {ms:.4f} ms ({sms} SMs x 128 lanes at "
+            f"{mhz:.0f} MHz max SM clock, two instructions a tap)")
 
 
 def phase_k1() -> dict:
@@ -322,17 +406,7 @@ def phase_k1() -> dict:
     print(f"[K1] six banks: kernel {tot['ms']:.4f} ms, plain "
           f"{tot['plain_ms']:.3f} ms, cdist {tot['library_ms']:.3f} ms, bound "
           f"{tot['bound_ms']:.4f} ms ({by}), max abs err {err:.3e}")
-    # The table's FP32 peak counts an FMA as two operations; a tap is two
-    # FP32 instructions (subtract, add of |.|), so at one instruction per
-    # lane and clock the floor is twice that: taps * 2 / (SMs * 128 * clock)
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    issue_ms = 1e3 * tot["flops"] / (sms * 128 * mhz * 1e6)
-    print(f"[K1] six banks: issue-slot floor {issue_ms:.4f} ms ({sms} SMs x "
-          f"128 FP32 lanes at {mhz:.0f} MHz max SM clock); its "
+    print(f"[K1] six banks: {issue_floor(tot['flops'])}; its "
           f"{tot['bytes'] / 1e9:.3f} GB in and out take "
           f"{1e3 * tot['bytes'] / PEAK_BYTES:.4f} ms at 3.35 TB/s")
     return {"name": "K1 shapelet_l1_fwd", "route": "cuda",
@@ -572,6 +646,7 @@ def phase_k2() -> dict:
           f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms ({by}), "
           f"max abs err {err:.3e} ({rel:.3e} x max|want|); library "
           f"{'(not all banks ran)' if lib is None else f'{lib:.4f} ms'}")
+    print(f"[K2] six banks: {issue_floor(tot['flops'])}")
     return {"name": "K2 shapelet_l1_bwd", "route": "cuda",
             "source": "sie_tpu_torch/csrc/shapelet_l1_bwd.cu",
             "replaces": "sie_tpu/ops/pallas/shapelet_pallas.py:162",
@@ -580,15 +655,28 @@ def phase_k2() -> dict:
 
 
 K2_LIB_FLAG = "--k2-library"   # argument of the child process below
-K2_LIB_BUDGET = 240            # s, all child processes together
+K2_LIB_BUDGET = 300            # s, all child processes together
 
 
-def k2_library_child(first: int) -> None:
+def k2_library_rows(b: int, c: int, n: int, t: int, l: int) -> int:
+    """Batch rows per torch.cdist(p=1) call to try first: the largest power
+    of two at which the (C, rows * W, n, L) elements of its backward stay
+    below 2^31 (a 32-bit index), at most b."""
+    rows = 1
+    while rows * 2 <= b and c * rows * 2 * (t - l + 1) * n * l < 2 ** 31:
+        rows *= 2
+    return rows
+
+
+def k2_library_child(first: int, rows_first: int) -> None:
     """The child process of `k2_library_ms`: times the one PyTorch call for
     K2's function, the bank gradient through torch.cdist(p=1) (backward
     only, as the SDPA backward is timed), on banks first, first + 1, ... at
-    phase_k2's shapes; one flushed line a bank, with its max abs difference
-    from K2. A fault ends the process at its bank."""
+    phase_k2's shapes. The batch is split into calls of `rows` batch rows
+    (rows_first at the first bank, `k2_library_rows` after it) and their
+    times summed; one flushed line a bank with the split, the summed time
+    and the max abs difference of the summed gradient from K2. A fault ends
+    the process at its bank."""
     from sie_tpu_torch.config import Config
     from sie_tpu_torch.models.sbm import bank_lengths
     from sie_tpu_torch.ops.shapelet_l1 import l1_sliding_distance_bwd
@@ -596,37 +684,50 @@ def k2_library_child(first: int) -> None:
     gen = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn((b, c, t), generator=gen, device="cuda")
     for i, l in enumerate(bank_lengths(Config())):
-        if i < first:
-            continue
         w = t - l + 1
         s = torch.randn((n, c, l), generator=gen, device="cuda")
         g = torch.randn((b, n, c, w), generator=gen, device="cuda")
+        if i < first:
+            continue
+        rows = rows_first if i == first else k2_library_rows(b, c, n, t, l)
         sg = s.detach().requires_grad_()
-        xu = x.unfold(-1, l, 1).transpose(0, 1).reshape(c, b * w, l)
-        d = torch.cdist(xu, sg.transpose(0, 1), p=1)          # (C, B*W, n)
-        gd = (g / l).permute(2, 0, 3, 1).reshape(c, b * w, n)
-        run = lambda: torch.autograd.grad(d, sg, gd, retain_graph=True)[0]
+        calls = []
+        for b0 in range(0, b, rows):
+            xb = x[b0:b0 + rows]
+            r = xb.shape[0]
+            xu = xb.unfold(-1, l, 1).transpose(0, 1).reshape(c, r * w, l)
+            d = torch.cdist(xu, sg.transpose(0, 1), p=1)      # (C, r*W, n)
+            gd = (g[b0:b0 + rows] / l).permute(2, 0, 3, 1).reshape(c, r * w,
+                                                                   n)
+            calls.append((d, gd))
+
+        def run():
+            return sum(torch.autograd.grad(d, sg, gd, retain_graph=True)[0]
+                       for d, gd in calls)
         ms = events_ms(run, reps=2)
         e = float((run() - l1_sliding_distance_bwd(x, s, g)).abs().max())
-        print(f"{K2_LIB_FLAG} {i} {l} {ms} {e}", flush=True)
-        del d, xu, run
+        print(f"{K2_LIB_FLAG} {i} {l} {rows} {ms} {e}", flush=True)
+        del calls, run
 
 
 def k2_library_ms():
-    """K2's library time summed over the six banks, each timed in a child
-    process so that a fault cannot reach this process's CUDA context; a
-    child that faults is followed by one from the next bank, within
-    K2_LIB_BUDGET seconds for all. None unless every bank ran; every
-    bank's time or fault is printed."""
+    """K2's library time summed over the six banks, each bank's batch split
+    into calls of fewer rows until they run: a child process times banks
+    from a first one on (a fault there cannot reach this process's CUDA
+    context); a child that faults at a bank is followed by one that splits
+    that bank's batch in half again, down to single rows, within
+    K2_LIB_BUDGET seconds for all. None unless every bank ran; every bank's
+    split and time, or its fault, is printed."""
     from sie_tpu_torch.config import Config
     from sie_tpu_torch.models.sbm import bank_lengths
     lengths = bank_lengths(Config())
     torch.cuda.empty_cache()   # the children need the card's memory
     times, first = {}, 0
+    rows = k2_library_rows(64, 122, 10, 845, lengths[0])
     deadline = time.monotonic() + K2_LIB_BUDGET
     while first < len(lengths):
         cmd = [sys.executable, os.path.abspath(__file__), K2_LIB_FLAG,
-               str(first)]
+               str(first), str(rows)]
         try:
             r = subprocess.run(cmd, capture_output=True, text=True,
                                timeout=max(1.0, deadline - time.monotonic()))
@@ -638,15 +739,27 @@ def k2_library_ms():
             why = f"the {K2_LIB_BUDGET} s for all banks ran out"
         for line in out.splitlines():
             if line.startswith(K2_LIB_FLAG):
-                _, i, l, ms, e = line.split()
+                _, i, l, rr, ms, e = line.split()
                 times[int(i)] = float(ms)
-                print(f"[K2] library, bank L={l}: cdist(p=1) backward "
-                      f"{float(ms):.4f} ms, max |diff| from K2 {float(e):.3e}")
-        first = max([first - 1, *times]) + 1
-        if first < len(lengths):
-            print(f"[K2] library, bank L={lengths[first]}: no time: "
-                  f"{why[:160]}")
+                print(f"[K2] library, bank L={l}: cdist(p=1) backward in "
+                      f"calls of {rr} of 64 batch rows, summed "
+                      f"{float(ms):.4f} ms, max |diff| from K2 "
+                      f"{float(e):.3e}")
+        done = max([first - 1, *times]) + 1
+        if done >= len(lengths) or time.monotonic() >= deadline:
+            break
+        # the child stopped at bank `done`, which it ran in calls of `tried`
+        tried = rows if done == first else k2_library_rows(
+            64, 122, 10, 845, lengths[done])
+        first = done
+        print(f"[K2] library, bank L={lengths[first]}: calls of {tried} "
+              f"batch rows fault: {why[:160]}")
+        if tried > 1:
+            rows = tried // 2
+        else:
             first += 1
+            if first < len(lengths):
+                rows = k2_library_rows(64, 122, 10, 845, lengths[first])
     return sum(times.values()) if len(times) == len(lengths) else None
 
 
@@ -976,6 +1089,7 @@ def phase_k3_k4() -> tuple:
           f"ms, bound {bms4:.4f} ms ({by4}); equal to K2 bit for bit and to "
           f"itself on a second run, max abs err {err4:.3e} ({rel4:.3e} x "
           f"max|want|) against the plain version")
+    print(f"[K3] [K4] six flagship banks: {issue_floor(taps)}")
     # No library time: no one PyTorch call computes several banks (K1's
     # row times torch.cdist per bank; K2 has none, see phase_k2)
     return ({"name": "K3 shapelet_l1_grouped_fwd", "route": "cuda",
@@ -1258,6 +1372,6 @@ def main() -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == [K2_LIB_FLAG]:
-        k2_library_child(int(sys.argv[2]))
+        k2_library_child(int(sys.argv[2]), int(sys.argv[3]))
     else:
         main()

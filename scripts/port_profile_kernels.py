@@ -1,9 +1,12 @@
 """CUDA-event times of the port's kernels at the flagship shapes on one
 CUDA card, for A/B runs of two trees in one call:
 
-- `shapelet`: K1 and K2 summed over the six banks (B=64, C=122, T=845,
-  n=10, L = 43 ... 676, 'euclidean') and, where the tree has them, K3 and
-  K4 (the six banks in one launch);
+- `shapelet`: K1 and K2 at each of the six banks and summed over them
+  (B=64, C=122, T=845, n=10, L = 43 ... 676, 'euclidean') and, where the
+  tree has them, K3 and K4 (the six banks in one launch); `--sass` also
+  prints, for each instantiation of the tree's shapelet kernels, ptxas's
+  registers and spills and the FP32, ALU and LDS instructions of its
+  innermost busy loop (`chip_smoke.sass_inner_loops`);
 - `attention`: the fused-attention forward K5 (with the row log-sum-exp, as
   training runs it) and its backward K6 (from that forward's output) at
   BH=512, T=845, dk=64 (`--rate` adds attention dropout, in a tree that
@@ -13,7 +16,7 @@ CUDA card, for A/B runs of two trees in one call:
 
     python scripts/port_profile_kernels.py [--tree DIR] [--reps 20]
         [--kernels shapelet,attention] [--rate R] [--long]
-        [--dtypes bfloat16,float32]
+        [--dtypes bfloat16,float32] [--sass]
 
 `--tree` imports `sie_tpu_torch` from another checkout (e.g. the parent
 commit unpacked under archive_check/), so that two versions can be timed in
@@ -39,12 +42,15 @@ def shapelet_runs(torch, gen):
              for l in LENGTHS]
     gs = [torch.randn((b, n, c, t - l + 1), generator=gen, device="cuda")
           for l in LENGTHS]
-    runs = {
-        "K1 six banks": lambda: [ops.l1_sliding_distance(x, s)
-                                 for s in banks],
-        "K2 six banks": lambda: [ops.l1_sliding_distance_bwd(x, s, g)
-                                 for s, g in zip(banks, gs)],
-    }
+    runs = {}
+    for l, s, g in zip(LENGTHS, banks, gs):
+        runs[f"K1 L={l}"] = lambda s=s: ops.l1_sliding_distance(x, s)
+        runs[f"K2 L={l}"] = lambda s=s, g=g: ops.l1_sliding_distance_bwd(
+            x, s, g)
+    runs["K1 six banks"] = lambda: [ops.l1_sliding_distance(x, s)
+                                    for s in banks]
+    runs["K2 six banks"] = lambda: [ops.l1_sliding_distance_bwd(x, s, g)
+                                    for s, g in zip(banks, gs)]
     if hasattr(ops, "l1_sliding_distance_grouped"):
         runs["K3"] = lambda: ops.l1_sliding_distance_grouped(x, banks)
         runs["K4"] = lambda: ops.l1_sliding_distance_grouped_bwd(x, banks, gs)
@@ -71,6 +77,24 @@ def attention_runs(torch, gen, rate, long, dtypes):
     return runs
 
 
+def print_sass(tree: str) -> None:
+    """ptxas's registers and spills and the inner loop's instruction mix of
+    every instantiation of the tree's shapelet kernels."""
+    import chip_smoke
+    from sie_tpu_torch.ops import build
+    names = [n for n in build.SIGNATURES if n.startswith("shapelet")]
+    for src in names:
+        loops = chip_smoke.sass_inner_loops(build._lib_path(src))
+        regs = {k: v for k, *v in chip_smoke.ptxas_entries(
+            build.PTXAS_LOG.get(src, ""))}
+        for name in sorted(set(loops) | set(regs)):
+            fp32, alu, lds, total = loops.get(name, ("?",) * 4)
+            r = regs.get(name, ("?", "?", "?"))
+            print(f"sass {src} {name} tree {tree}: registers {r[0]}, spill "
+                  f"stores {r[1]} B, loads {r[2]} B; inner loop FP32 {fp32}, "
+                  f"ALU {alu}, LDS {lds}, all {total}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
@@ -80,8 +104,12 @@ def main(argv=None) -> None:
     ap.add_argument("--rate", type=float, default=0.0)
     ap.add_argument("--long", action="store_true")
     ap.add_argument("--dtypes", type=lambda v: v.split(","), default=None)
+    ap.add_argument("--sass", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
+    # chip_smoke (its SASS parser) from this script's own checkout
+    sys.path.insert(1, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -89,6 +117,11 @@ def main(argv=None) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+    from sie_tpu_torch.ops import build
+    build.build([n for n in build.SIGNATURES if any(
+        n.startswith(k[:5]) for k in args.kernels.split(","))])
+    if args.sass:
+        print_sass(args.tree)
     gen = torch.Generator(device="cuda").manual_seed(1)
     runs = {}
     for group in args.kernels.split(","):

@@ -20,23 +20,36 @@
 //   L1: sum g * (s > x ? 1 : -1) = 2 * sum g * [s > x] - G,
 //   sq: sum g * (s - x)          = s * G - sum g * x,
 // so the L1 tap is a compare that yields 1.0 or 0.0 and an FMA, and the sq
-// tap one FMA; G is summed once per window as g is staged.
+// tap one FMA; G is summed once per window, from the staged g. The compare
+// (FSET) runs on the ALU pipe, half as wide as the FMA pipe, so an L1 tap
+// also takes two of its cycles a warp.
 //
 // Design: the TPU kernel kept the whole (n, L, C) gradient resident in VMEM
 // and let its sequential grid add into it. CUDA blocks run in no order, so
-// here each block owns (channel c, a tile of taps, a chunk of at most 16
+// here each block owns (channel c, a tile of taps, a chunk of at most 5
 // shapelet rows, a chunk of batch rows) and writes its partial sums to a
 // workspace (one slice per batch chunk); a second launch adds the slices in
 // a fixed order and applies 1/L (2/L). No float atomics: the result is the
-// same bit for bit on every run. Within a block, each of 64 threads owns
-// LPT taps strided by the block width and keeps NS x LPT accumulators and
-// the matching shapelet values in registers. The block stages, for one
-// batch row at a time, 256 windows of g[b, rows, c, :] and the x segment
-// they touch in shared memory; each thread adds the g values it stages to
-// its share of G, and the shares are summed in a fixed order at the end. A
-// thread reads each x value once per window (neighbouring threads on
-// neighbouring taps: no bank conflicts) and g four windows at a time as a
-// broadcast float4 that serves all its taps. The block's body is
+// same bit for bit on every run.
+//
+// Inside a block: a thread owns TPT = 4 consecutive taps of every shapelet
+// row of the chunk and keeps their 4 x NS shapelet values and accumulators
+// in registers. For 4 windows it reads the 7 x values they touch as two
+// float4 loads and each row's 4 g values as one float4: one shared load
+// for every 23 FP32 and ALU instructions at NS = 5. Five rows a block (not
+// 10) keep a thread at 64 registers, so that two blocks of up to 512
+// threads fit an SM; 8 taps a thread was faster at some banks and slower
+// at others (PERF.md, section 6). A short L has few tap groups, so the
+// block has tg x wsh threads: thread (group, share) takes the window quads
+// share, share + wsh, ... of each pass, and the shares' sums are added in
+// order at the end. `bwd_tiling` (shapelet_common.cuh) picks the tap tiles
+// and wsh of each L at launch for the fewest issued taps: at the
+// flagship's six banks <= 3.8 % beyond the work. One block covers all of
+// L's taps for every flagship bank, so it reads each g value once. g and
+// x are staged by cp.async, a batch row's windows (up to 1024) a pass, two
+// passes deep; thread i adds quads i, i + threads, ... of each row's
+// staged g to its share of G, and the shares are summed in a fixed order
+// (warp sums, then the warps' in order). The block's body is
 // `l1_bwd_block` in shapelet_common.cuh, which K4 runs too.
 
 #include "shapelet_common.cuh"
@@ -45,21 +58,19 @@ namespace {
 
 using namespace shapelet;
 
-template <int NS, int LPT, bool SQ>
-__global__ void __launch_bounds__(THREADS)
+template <int NS, bool SQ>
+__global__ void __launch_bounds__(BWD_THREADS_MAX, 2)
 l1_bwd_partial(const float* __restrict__ x, const float* __restrict__ s,
                const float* __restrict__ g, float* __restrict__ ws, int B,
-               int C, int T, int n, int L, int W, int tiles, int chunks,
+               int C, int T, int n, int L, int W, BwdTiling tl, int chunks,
                int bchunk) {
-  __shared__ __align__(16) float gs[NS * WC];
-  __shared__ float xs[bwd_xs_floats(LPT)];
-  __shared__ float gw[NS * (THREADS / 32)];   // per-warp shares of G
+  extern __shared__ __align__(16) float smem[];
   int bid = blockIdx.x;
-  const int tile = bid % tiles;
-  bid /= tiles;
+  const int tile = bid % tl.tiles;
+  bid /= tl.tiles;
   const int chunk = bid % chunks;
-  l1_bwd_block<NS, LPT, SQ>(x, s, g, ws, B, C, T, n, L, W, tile, chunk,
-                            bid / chunks, bchunk, blockIdx.y, gs, xs, gw);
+  l1_bwd_block<NS, SQ>(x, s, g, ws, B, C, T, n, L, W, tl, tile, chunk,
+                       bid / chunks, bchunk, blockIdx.y, smem);
 }
 
 __global__ void l1_bwd_reduce(const float* __restrict__ ws,
@@ -69,33 +80,20 @@ __global__ void l1_bwd_reduce(const float* __restrict__ ws,
   if (i < count) l1_bwd_reduce_one(ws, out, i, count, parts, scale);
 }
 
-template <int NS, int LPT>
+template <int NS>
 void launch_partial(const float* x, const float* s, const float* g, float* ws,
                     int B, int C, int T, int n, int L, int bchunk, bool sq,
                     cudaStream_t stream) {
   const int W = T - L + 1;
-  const int tiles = (L + THREADS * LPT - 1) / (THREADS * LPT);
+  const BwdTiling tl = bwd_tiling(L, W);
   const int chunks = (n + NS - 1) / NS;
   const int parts = (B + bchunk - 1) / bchunk;
-  const dim3 grid(tiles * chunks * parts, C);
-  if (sq)
-    l1_bwd_partial<NS, LPT, true><<<grid, THREADS, 0, stream>>>(
-        x, s, g, ws, B, C, T, n, L, W, tiles, chunks, bchunk);
-  else
-    l1_bwd_partial<NS, LPT, false><<<grid, THREADS, 0, stream>>>(
-        x, s, g, ws, B, C, T, n, L, W, tiles, chunks, bchunk);
-}
-
-template <int NS>
-void launch_ns(const float* x, const float* s, const float* g, float* ws,
-               int B, int C, int T, int n, int L, int bchunk, bool sq,
-               cudaStream_t stream) {
-  switch (bwd_lpt(L)) {
-    case 1: launch_partial<NS, 1>(x, s, g, ws, B, C, T, n, L, bchunk, sq, stream); break;
-    case 2: launch_partial<NS, 2>(x, s, g, ws, B, C, T, n, L, bchunk, sq, stream); break;
-    case 3: launch_partial<NS, 3>(x, s, g, ws, B, C, T, n, L, bchunk, sq, stream); break;
-    default: launch_partial<NS, 4>(x, s, g, ws, B, C, T, n, L, bchunk, sq, stream); break;
-  }
+  const dim3 grid(tl.tiles * chunks * parts, C);
+  const int bytes = 4 * bwd_smem_floats(tl, NS);
+  auto kernel = sq ? l1_bwd_partial<NS, true> : l1_bwd_partial<NS, false>;
+  allow_smem(kernel, bytes);
+  kernel<<<grid, tl.block, bytes, stream>>>(x, s, g, ws, B, C, T, n, L, W,
+                                            tl, chunks, bchunk);
 }
 
 }  // namespace
@@ -115,12 +113,10 @@ extern "C" int shapelet_l1_bwd(const void* x, const void* s, const void* g,
   float* wp = static_cast<float*>(ws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool sq = squared != 0;
-  // balanced chunks of at most 16 rows, rounded up to an even count
-  switch (n < 1 ? 0 : bwd_rows(n)) {
+  switch (n < 1 ? 0 : bwd_rows(n)) {   // balanced chunks of <= 5 rows
 #define K2_CASE(N) \
-    case N: launch_ns<N>(xp, sp, gp, wp, B, C, T, n, L, batch_chunk, sq, st); break;
-    K2_CASE(2) K2_CASE(4) K2_CASE(6) K2_CASE(8) K2_CASE(10) K2_CASE(12)
-    K2_CASE(14) K2_CASE(16)
+    case N: launch_partial<N>(xp, sp, gp, wp, B, C, T, n, L, batch_chunk, sq, st); break;
+    K2_CASE(1) K2_CASE(2) K2_CASE(3) K2_CASE(4) K2_CASE(5)
 #undef K2_CASE
     default: return (int)cudaErrorInvalidValue;
   }

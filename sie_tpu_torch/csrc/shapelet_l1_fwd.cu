@@ -12,18 +12,26 @@
 // (B=64, C=122, n=10, six banks) that is ~1e11 FP32 operations against
 // ~1.1 GB of output, so the ALUs, not memory, set the floor.
 //
-// Design: one block per (window tile, shapelet chunk, batch row) and channel.
-// The block stages LC taps of its x row segment and of s[chunk, c, :] in
-// shared memory; each of its 64 threads owns WPT windows, strided by the
-// block width so that the x reads and the output stores are coalesced along
-// W. A thread keeps NS x WPT accumulators in registers: every x value it
-// reads from shared memory serves all NS shapelets, and every s value (read
-// four taps at a time as a broadcast float4) serves all WPT windows, so the
-// loop issues about one shared-memory load for every six FP32 instructions.
-// Taps are summed in order, like the JAX scan. Shapelet banks of more than
-// 16 rows are split into equal chunks (the grid's chunk index); the rows of
-// a last, shorter chunk are zero-filled and never stored. The block's body
-// is `l1_fwd_block` in shapelet_common.cuh, which K3 runs too.
+// Design: the work of one (shapelet chunk, channel) is items of WPT = 8
+// consecutive windows of one batch row, numbered row by row, and a block
+// of 128 threads takes 128 consecutive items, one a thread, whatever rows
+// they fall in: the padded taps are only the < 8 windows past each row's
+// end (<= 3.5 % at the flagship's six banks). The block stages 128 taps of
+// x for every row it spans, and of s[chunk, c, :], in shared memory by
+// cp.async, two passes deep, so that the next pass loads while this one
+// is computed. For four taps a thread reads the 11 x values of its
+// windows as three float4 loads, one register window that serves every
+// shapelet row, and each row's four s values as one broadcast float4:
+// about one shared load for every 50 FP32 instructions. A thread keeps
+// NS x 8 accumulators in registers; each sums its taps in order, as the
+// JAX scan does. The outputs go through shared memory and are stored
+// along W, coalesced. Shapelet banks of more than 16 rows are split into
+// equal chunks (the grid's chunk index); the rows of a last, shorter
+// chunk are zero-filled and never stored. The block's body is
+// `l1_fwd_block` in shapelet_common.cuh, which K3 runs too. At the
+// flagship (NS = 10) it takes 128 registers and 4 blocks an SM; 256-thread
+// blocks, 64-tap passes and 5 blocks an SM (96 registers) were each
+// slower on the card (PERF.md, section 6).
 
 #include "shapelet_common.cuh"
 
@@ -32,33 +40,28 @@ namespace {
 using namespace shapelet;
 
 template <int NS, bool SQ>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(FWD_THREADS)
 l1_fwd_kernel(const float* __restrict__ x, const float* __restrict__ s,
-              float* __restrict__ out, int C, int T, int n, int L, int W,
-              int tiles, int chunks) {
-  __shared__ float xs[WT + LC];
-  __shared__ __align__(16) float ss[NS * LC];
-  int bid = blockIdx.x;
-  const int tile = bid % tiles;
-  bid /= tiles;
-  const int chunk = bid % chunks;
-  l1_fwd_block<NS, SQ>(x, s, out, C, T, n, L, W, tile, chunk, bid / chunks,
-                       blockIdx.y, xs, ss);
+              float* __restrict__ out, int B, int C, int T, int n, int L,
+              int W, FwdTiling tl) {
+  extern __shared__ __align__(16) float smem[];
+  l1_fwd_block<NS, SQ>(x, s, out, B, C, T, n, L, W, tl,
+                       blockIdx.x % tl.blocks, blockIdx.x / tl.blocks,
+                       blockIdx.y, smem);
 }
 
 template <int NS>
 void launch(const float* x, const float* s, float* out, int B, int C, int T,
             int n, int L, bool sq, cudaStream_t stream) {
   const int W = T - L + 1;
-  const int tiles = (W + WT - 1) / WT;
+  const FwdTiling tl = fwd_tiling(B, W);
   const int chunks = (n + NS - 1) / NS;
-  const dim3 grid(tiles * chunks * B, C);
-  if (sq)
-    l1_fwd_kernel<NS, true><<<grid, THREADS, 0, stream>>>(
-        x, s, out, C, T, n, L, W, tiles, chunks);
-  else
-    l1_fwd_kernel<NS, false><<<grid, THREADS, 0, stream>>>(
-        x, s, out, C, T, n, L, W, tiles, chunks);
+  const dim3 grid(tl.blocks * chunks, C);
+  const int bytes = 4 * fwd_smem_floats(tl, NS);
+  auto kernel = sq ? l1_fwd_kernel<NS, true> : l1_fwd_kernel<NS, false>;
+  allow_smem(kernel, bytes);
+  kernel<<<grid, FWD_THREADS, bytes, stream>>>(x, s, out, B, C, T, n, L, W,
+                                               tl);
 }
 
 }  // namespace

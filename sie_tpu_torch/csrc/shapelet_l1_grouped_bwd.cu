@@ -17,16 +17,18 @@
 // Design: K2's, over a table of banks, the way K3 extends K1. The partial
 // launch's blocks each find their bank from blockIdx.x and run
 // `l1_bwd_block` (shapelet_common.cuh), the body of K2, with that bank's
-// batch chunk and taps per thread, writing partial sums into the bank's
-// slice of one workspace; one reduce launch then adds every bank's slices
-// in a fixed order and applies 1/L_g. No float atomics: the gradients are
-// K2's bit for bit, and the same on every run. The caller passes each
-// bank's batch chunk (K2's choice for that bank alone) so that the partial
-// sums, and hence the roundings, are K2's. The table lists the banks by
-// descending work per block, so the longest blocks start first. All banks
-// share one shapelet-row chunk NS, the largest of K2's per-bank choices;
-// the taps per thread stay per bank (1 to 4, a switch inside the kernel), so
-// a short bank does not run 256-tap tiles.
+// tiling (`bwd_tiling`, K2's for that bank) and batch chunk, writing
+// partial sums into the bank's slice of one workspace; one reduce launch
+// then adds every bank's slices in a fixed order and applies 1/L_g. No
+// float atomics: the gradients are K2's bit for bit, and the same on every
+// run. The caller passes each bank's batch chunk (K2's choice for that
+// bank alone) so that the partial sums, and hence the roundings, are K2's.
+// The table lists the banks by descending work per block, so the longest
+// blocks start first. All banks share one shapelet-row chunk NS, the
+// largest of K2's per-bank choices, and the launch's block size and
+// dynamic shared memory are the largest bank's; a bank's threads past its
+// own tg x wsh only take part in the barriers (in K2 too, up to the next
+// multiple of 32), so every bank's sums are formed as in K2.
 
 #include "shapelet_common.cuh"
 
@@ -40,7 +42,8 @@ struct Bank {
   const float* s;
   const float* g;
   float* ws;
-  int n, L, W, tiles, chunks, bchunk, lpt, start;   // start: first block
+  int n, L, W, chunks, bchunk, start;   // start: first block
+  BwdTiling tl;
 };
 
 struct Table {
@@ -61,32 +64,21 @@ struct ReduceTable {
 };
 
 template <int NS>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(BWD_THREADS_MAX, 2)
 l1_bwd_grouped_partial(const float* __restrict__ x, const Table tab, int B,
                        int C, int T) {
-  __shared__ __align__(16) float gs[NS * WC];
-  __shared__ float xs[bwd_xs_floats(LPT_MAX)];
-  __shared__ float gw[NS * (THREADS / 32)];
+  extern __shared__ __align__(16) float smem[];
   Bank bk = tab.bank[0];
 #pragma unroll
   for (int i = 1; i < MAX_BANKS; ++i)
     if (i < tab.count && (int)blockIdx.x >= tab.bank[i].start) bk = tab.bank[i];
   int bid = blockIdx.x - bk.start;
-  const int tile = bid % bk.tiles;
-  bid /= bk.tiles;
+  const int tile = bid % bk.tl.tiles;
+  bid /= bk.tl.tiles;
   const int chunk = bid % bk.chunks;
-  const int bc = bid / bk.chunks;
-  const int c = blockIdx.y;
-  switch (bk.lpt) {
-#define K4_BLOCK(LPT)                                                       \
-    case LPT:                                                               \
-      l1_bwd_block<NS, LPT, false>(x, bk.s, bk.g, bk.ws, B, C, T, bk.n,     \
-                                   bk.L, bk.W, tile, chunk, bc, bk.bchunk,  \
-                                   c, gs, xs, gw);                          \
-      break;
-    K4_BLOCK(1) K4_BLOCK(2) K4_BLOCK(3) K4_BLOCK(4)
-#undef K4_BLOCK
-  }
+  l1_bwd_block<NS, false>(x, bk.s, bk.g, bk.ws, B, C, T, bk.n, bk.L, bk.W,
+                          bk.tl, tile, chunk, bid / bk.chunks, bk.bchunk,
+                          blockIdx.y, smem);
 }
 
 __global__ void l1_bwd_grouped_reduce(const ReduceTable tab) {
@@ -101,9 +93,16 @@ __global__ void l1_bwd_grouped_reduce(const ReduceTable tab) {
 }
 
 template <int NS>
-int launch(const float* x, Table tab, int total, int B, int C, int T,
+int launch(const float* x, const Table& tab, int total, int B, int C, int T,
            cudaStream_t stream) {
-  l1_bwd_grouped_partial<NS><<<dim3(total, C), THREADS, 0, stream>>>(
+  int bytes = 0, block = 32;
+  for (int i = 0; i < tab.count; ++i) {
+    const int b = 4 * bwd_smem_floats(tab.bank[i].tl, NS);
+    bytes = b > bytes ? b : bytes;
+    block = tab.bank[i].tl.block > block ? tab.bank[i].tl.block : block;
+  }
+  allow_smem(l1_bwd_grouped_partial<NS>, bytes);
+  l1_bwd_grouped_partial<NS><<<dim3(total, C), block, bytes, stream>>>(
       x, tab, B, C, T);
   return (int)cudaGetLastError();
 }
@@ -123,7 +122,7 @@ extern "C" int shapelet_l1_grouped_bwd(const void* x, int B, int C, int T,
                                        const int* n, const int* L,
                                        const int* bchunk, void* stream) {
   if (banks < 1 || banks > MAX_BANKS || B < 1) return (int)cudaErrorInvalidValue;
-  int ns = 2;
+  int ns = 1;
   for (int i = 0; i < banks; ++i) {
     if (n[i] < 1 || L[i] < 1 || L[i] > T || bchunk[i] < 1)
       return (int)cudaErrorInvalidValue;
@@ -142,8 +141,7 @@ extern "C" int shapelet_l1_grouped_bwd(const void* x, int B, int C, int T,
     bk.n = n[i];
     bk.L = L[i];
     bk.W = T - L[i] + 1;
-    bk.lpt = bwd_lpt(L[i]);
-    bk.tiles = (L[i] + THREADS * bk.lpt - 1) / (THREADS * bk.lpt);
+    bk.tl = bwd_tiling(L[i], bk.W);
     bk.chunks = (n[i] + ns - 1) / ns;
     bk.bchunk = bchunk[i];
     const int parts = (B + bchunk[i] - 1) / bchunk[i];
@@ -155,10 +153,12 @@ extern "C" int shapelet_l1_grouped_bwd(const void* x, int B, int C, int T,
   }
   if (elems > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   red.total = (int)elems;
-  // the partial launch's table by descending work per block: tap slots x
-  // windows x batch rows (insertion sort of at most 8 indices)
+  // the partial launch's table by descending work per block: issued tap
+  // slots x batch rows (insertion sort of at most 8 indices)
   auto work = [&](int i) {
-    return (long long)THREADS * bank[i].lpt * bank[i].W * bank[i].bchunk;
+    const BwdTiling& t = bank[i].tl;
+    return bwd_issued(t.tg, t.wsh, (bank[i].W + 3) / 4, t.wpass, t.qp) *
+           bank[i].bchunk;
   };
   int order[MAX_BANKS];
   for (int i = 0; i < banks; ++i) {
@@ -173,7 +173,7 @@ extern "C" int shapelet_l1_grouped_bwd(const void* x, int B, int C, int T,
     tab.bank[r] = bank[order[r]];
     tab.bank[r].start = (int)total;
     const int parts = (B + bank[order[r]].bchunk - 1) / bank[order[r]].bchunk;
-    total += (long long)tab.bank[r].tiles * tab.bank[r].chunks * parts;
+    total += (long long)tab.bank[r].tl.tiles * tab.bank[r].chunks * parts;
   }
   if (total > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const float* xp = static_cast<const float*>(x);
@@ -182,8 +182,7 @@ extern "C" int shapelet_l1_grouped_bwd(const void* x, int B, int C, int T,
   switch (ns) {
 #define K4_CASE(N) \
     case N: err = launch<N>(xp, tab, (int)total, B, C, T, st); break;
-    K4_CASE(2) K4_CASE(4) K4_CASE(6) K4_CASE(8) K4_CASE(10) K4_CASE(12)
-    K4_CASE(14) K4_CASE(16)
+    K4_CASE(1) K4_CASE(2) K4_CASE(3) K4_CASE(4) K4_CASE(5)
 #undef K4_CASE
     default: return (int)cudaErrorInvalidValue;
   }

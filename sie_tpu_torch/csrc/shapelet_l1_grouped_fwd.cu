@@ -19,17 +19,18 @@
 // let each group of shapelet rows take only its own taps, so that the
 // banks shared the x window loads held in vector registers. On Hopper the
 // cost of separate launches is elsewhere: each K1 launch of a long bank is
-// a small grid (L=676 gives 64 x 122 blocks of 170 windows in 256-window
-// tiles) and the card drains between launches. So this kernel keeps K1's
-// per-block work unchanged and only merges the grids: a table in the kernel
-// arguments holds, per bank, L, W, n, its tile and chunk counts, the first
-// block of its range and its s and out pointers; each block finds its bank
-// from blockIdx.x and runs `l1_fwd_block` (shapelet_common.cuh), the body
-// of K1. The result is K1's on every bank, bit for bit. The table lists the
-// banks by descending L, so the blocks with the most taps start first and
-// the short banks' blocks fill the tail. All banks share one shapelet-row
-// chunk NS, the largest of K1's per-bank choices (rows past a bank's n are
-// zero-filled and never stored, as in K1).
+// a small grid and the card drains between launches. So this kernel keeps
+// K1's per-block work unchanged and only merges the grids: a table in the
+// kernel arguments holds, per bank, n, L, W, its tiling (`fwd_tiling`, the
+// one K1 takes for that bank), chunk count, the first block of its range
+// and its s and out pointers; each block finds its bank from blockIdx.x
+// and runs `l1_fwd_block` (shapelet_common.cuh), the body of K1. The
+// result is K1's on every bank, bit for bit. The table lists the banks by
+// descending L, so the blocks with the most taps start first and the short
+// banks' blocks fill the tail. All banks share one shapelet-row chunk NS,
+// the largest of K1's per-bank choices (rows past a bank's n are
+// zero-filled and never stored, as in K1), and one dynamic shared-memory
+// size, the largest bank's.
 
 #include "shapelet_common.cuh"
 
@@ -42,7 +43,8 @@ constexpr int MAX_BANKS = 8;
 struct Bank {
   const float* s;
   float* out;
-  int n, L, W, tiles, chunks, start;   // start: first block of the bank
+  int n, L, W, chunks, start;   // start: first block of the bank
+  FwdTiling tl;
 };
 
 struct Table {
@@ -51,28 +53,33 @@ struct Table {
 };
 
 template <int NS>
-__global__ void __launch_bounds__(THREADS)
-l1_fwd_grouped(const float* __restrict__ x, const Table tab, int C, int T) {
-  __shared__ float xs[WT + LC];
-  __shared__ __align__(16) float ss[NS * LC];
+__global__ void __launch_bounds__(FWD_THREADS)
+l1_fwd_grouped(const float* __restrict__ x, const Table tab, int B, int C,
+               int T) {
+  extern __shared__ __align__(16) float smem[];
   // the bank of this block: the last one whose range starts at or before it
   // (static indices only, so the table stays in the parameter space)
   Bank bk = tab.bank[0];
 #pragma unroll
   for (int i = 1; i < MAX_BANKS; ++i)
     if (i < tab.count && (int)blockIdx.x >= tab.bank[i].start) bk = tab.bank[i];
-  int bid = blockIdx.x - bk.start;
-  const int tile = bid % bk.tiles;
-  bid /= bk.tiles;
-  const int chunk = bid % bk.chunks;
-  l1_fwd_block<NS, false>(x, bk.s, bk.out, C, T, bk.n, bk.L, bk.W, tile,
-                          chunk, bid / bk.chunks, blockIdx.y, xs, ss);
+  const int bid = blockIdx.x - bk.start;
+  l1_fwd_block<NS, false>(x, bk.s, bk.out, B, C, T, bk.n, bk.L, bk.W, bk.tl,
+                          bid % bk.tl.blocks, bid / bk.tl.blocks, blockIdx.y,
+                          smem);
 }
 
 template <int NS>
-int launch(const float* x, Table tab, int total, int C, int T,
+int launch(const float* x, const Table& tab, int total, int B, int C, int T,
            cudaStream_t stream) {
-  l1_fwd_grouped<NS><<<dim3(total, C), THREADS, 0, stream>>>(x, tab, C, T);
+  int bytes = 0;
+  for (int i = 0; i < tab.count; ++i) {
+    const int b = 4 * fwd_smem_floats(tab.bank[i].tl, NS);
+    bytes = b > bytes ? b : bytes;
+  }
+  allow_smem(l1_fwd_grouped<NS>, bytes);
+  l1_fwd_grouped<NS><<<dim3(total, C), FWD_THREADS, bytes, stream>>>(
+      x, tab, B, C, T);
   return (int)cudaGetLastError();
 }
 
@@ -110,10 +117,10 @@ extern "C" int shapelet_l1_grouped_fwd(const void* x, int B, int C, int T,
     bk.n = n[i];
     bk.L = L[i];
     bk.W = T - L[i] + 1;
-    bk.tiles = (bk.W + WT - 1) / WT;
+    bk.tl = fwd_tiling(B, bk.W);
     bk.chunks = (n[i] + ns - 1) / ns;
     bk.start = (int)total;
-    total += (long long)bk.tiles * bk.chunks * B;
+    total += (long long)bk.tl.blocks * bk.chunks;
   }
   if (total == 0) return 0;
   if (total > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -121,7 +128,7 @@ extern "C" int shapelet_l1_grouped_fwd(const void* x, int B, int C, int T,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (ns) {
 #define K3_CASE(N) \
-    case N: return launch<N>(xp, tab, (int)total, C, T, st);
+    case N: return launch<N>(xp, tab, (int)total, B, C, T, st);
     K3_CASE(1) K3_CASE(2) K3_CASE(3) K3_CASE(4) K3_CASE(5) K3_CASE(6)
     K3_CASE(7) K3_CASE(8) K3_CASE(9) K3_CASE(10) K3_CASE(11) K3_CASE(12)
     K3_CASE(13) K3_CASE(14) K3_CASE(15) K3_CASE(16)

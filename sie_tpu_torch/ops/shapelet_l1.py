@@ -37,6 +37,7 @@ from sie_tpu_torch.ops import build
 
 METRICS = ("euclidean", "sqeuclidean")
 _BLOCKS = 2048   # K2 splits the batch until its grid has about this many blocks
+_K2_ROWS = 5     # shapelet rows per K2 block at most (NSB_MAX in the source)
 MAX_GROUPED_BANKS = 8   # banks in one K3/K4 launch (its argument table)
 
 
@@ -159,11 +160,12 @@ def _k1(x: torch.Tensor, s: torch.Tensor, metric: str) -> torch.Tensor:
 l1_sliding_distance.launches = 0   # K1 launches in this process
 
 
-def _batch_chunk(b: int, c: int, n: int, l: int) -> int:
+def _batch_chunk(b: int, c: int, n: int) -> int:
     """Batch rows per K2 block: the batch is split into chunks until the
-    grid (C x tap tiles x shapelet chunks x batch chunks) has about
-    `_BLOCKS` blocks; each chunk adds one partial-sum slice."""
-    per_chunk = c * -(-l // 256) * -(-n // 16)
+    grid (C x shapelet chunks x batch chunks, times the tap tiles of long
+    banks) has about `_BLOCKS` blocks; each chunk adds one partial-sum
+    slice."""
+    per_chunk = c * -(-n // _K2_ROWS)
     parts = max(1, min(b, -(-_BLOCKS // per_chunk)))
     return -(-b // parts)
 
@@ -187,7 +189,7 @@ def l1_sliding_distance_bwd(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor,
         return out.zero_()
     if out.numel() == 0:
         return out
-    chunk = _batch_chunk(b, c, n, l)
+    chunk = _batch_chunk(b, c, n)
     ws = torch.empty((-(-b // chunk), n, c, l), dtype=torch.float32,
                      device=x.device)
     lib = build.load("shapelet_l1_bwd")
@@ -336,7 +338,7 @@ def l1_sliding_distance_grouped_bwd(
         return tuple(o.zero_() for o in outs)
     # each bank's batch chunk is K2's for that bank alone: the same partial
     # sums, so the same roundings
-    chunks = [_batch_chunk(b, c, s.shape[0], s.shape[2]) for s in banks]
+    chunks = [_batch_chunk(b, c, s.shape[0]) for s in banks]
     ws = torch.empty(sum(-(-b // ch) * s.numel()
                          for ch, s in zip(chunks, banks)),
                      dtype=torch.float32, device=x.device)

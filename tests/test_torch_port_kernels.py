@@ -58,9 +58,19 @@ def _normal(seed, *shapes):
 
 
 @pytest.mark.parametrize("metric", ["euclidean", "sqeuclidean"])
-@pytest.mark.parametrize("n,l", [(2, 7), (10, 300), (21, 5), (3, 600)])
-def test_k1_matches_plain(card, metric, n, l):
-    x, s = (a.to(card) for a in _normal(9, (2, 5, 600), (n, 5, l)))
+# T=600, then the tiling's edges (shapelet_common.cuh): W at 2048 windows
+# (WT_MAX, where a row splits into segments) and one either side, and at
+# 1024 (a block's 128 items of 8 windows on one row) and one either side;
+# the flagship's shortest and longest banks, an EigenWorms-shaped
+# polyphase component, and 21 rows (two chunks)
+@pytest.mark.parametrize("n,l,t", [(2, 7, 600), (10, 300, 600), (21, 5, 600),
+                                   (3, 600, 600), (3, 5, 2051), (3, 5, 2052),
+                                   (3, 5, 2053), (2, 9, 1031), (2, 9, 1032),
+                                   (2, 9, 1033), (10, 43, 845),
+                                   (10, 676, 845), (10, 1598, 1998),
+                                   (21, 43, 845)])
+def test_k1_matches_plain(card, metric, n, l, t):
+    x, s = (a.to(card) for a in _normal(9, (2, 5, t), (n, 5, l)))
     before = l1_sliding_distance.launches
     got = l1_sliding_distance(x, s, metric)
     torch.cuda.synchronize()
@@ -86,11 +96,20 @@ def test_k5_matches_plain(card, dtype, t, dk):
 
 
 @pytest.mark.parametrize("metric", ["euclidean", "sqeuclidean"])
-@pytest.mark.parametrize("b,n,l", [(2, 2, 7), (5, 10, 300), (3, 21, 5),
-                                   (64, 3, 600)])
-def test_k2_matches_plain(card, metric, b, n, l):
-    x, s, g = (a.to(card) for a in _normal(8, (b, 5, 600), (n, 5, l),
-                                           (b, n, 5, 601 - l)))
+# T=600, then the tiling's edges (shapelet_common.cuh): W at 1024 windows
+# (QMAX quads, where a row splits into passes) and one either side, L at a
+# multiple of TPT taps and one either side; the flagship's shortest and
+# longest banks, an EigenWorms-shaped polyphase component, and 21 rows
+@pytest.mark.parametrize("b,n,l,t", [(2, 2, 7, 600), (5, 10, 300, 600),
+                                     (3, 21, 5, 600), (64, 3, 600, 600),
+                                     (3, 4, 7, 1029), (3, 4, 7, 1030),
+                                     (3, 4, 7, 1031), (2, 3, 99, 400),
+                                     (2, 3, 100, 400), (2, 3, 101, 400),
+                                     (4, 10, 43, 845), (4, 10, 676, 845),
+                                     (2, 10, 1598, 1998), (3, 21, 43, 845)])
+def test_k2_matches_plain(card, metric, b, n, l, t):
+    x, s, g = (a.to(card) for a in _normal(8, (b, 5, t), (n, 5, l),
+                                           (b, n, 5, t + 1 - l)))
     before = l1_sliding_distance_bwd.launches
     got = l1_sliding_distance_bwd(x, s, g, metric)
     torch.cuda.synchronize()
@@ -199,6 +218,8 @@ GROUPED_CASES = {   # (B, C, T, ((n, L) of each bank, ascending L))
     "flagship_like": (5, 3, 300, ((10, 15), (10, 30), (10, 60), (10, 90),
                                   (10, 150), (10, 240))),
     "equal_lengths_and_17_rows": (2, 4, 80, ((17, 9), (3, 9), (1, 70))),
+    "flagship_lengths": (3, 4, 845, ((10, 43), (10, 85), (10, 169),
+                                     (10, 254), (10, 423), (10, 676))),
 }
 
 
