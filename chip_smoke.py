@@ -70,7 +70,26 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      once per polyphase component of the six strided banks, K5 2, K6 2), a
      finite loss and moved weights; the median step time; a step at
      dropout 0.1;
- 14. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
+ 14. the staged steps as CUDA graphs (`Trainer.stage_steps`,
+     `train_step_staged`, `train_epoch_staged`, `eval_epoch_staged_scan`)
+     against the eager indexed steps at the flagship's width with dropout
+     0.1, from the same weights and generator state: 10 steps in turns
+     (eager, then the same step as a graph: warm-up, capture, replays) and
+     two scanned epochs of 5 (warm-up, captured); losses within 1e-5
+     relative, parameters within 2.1 x lr (and whether bit-equal); each
+     captured graph's launches (a step K1 6, K2 6, K5 2, K6 2; an epoch 5
+     times that; the fused flagship's step K3 1, K4 1, K5 2, K6 2; an eval
+     pass K1 6, K5 2 a batch); the scanned eval pass against the eager
+     eval step (logits within 5e-2, same argmax); the median eager and
+     graph step times;
+ 15. the flagship experiment through the command line, in this process
+     (`sie_tpu_torch.run.main`): synthetic CHISCO (640 trials, 122
+     channels, 1651 samples cropped to 845; 448 training rows), InterpGN +
+     Transformer at full width, amp, 3 epochs; finite epoch losses, the
+     test accuracy and CSV, CUDA graphs captured, every kernel of the path
+     launched (counts read over this first run); a re-run that skips
+     training and gives the same test accuracy; a run under --scan_epoch;
+ 16. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
      timed training steps of each kernel's path), then the device line.
 
 The K5 and K6 phases (4, 6, 8, 12) run under a time limit that ends the
@@ -1332,8 +1351,230 @@ def phase_train_long() -> dict:
     return launches
 
 
+GRAPH_STEPS = 10        # train steps of the graph-against-eager phase
+GRAPH_EPOCH = 5         # steps of its staged schedule (one scanned epoch)
+LOSS_RTOL = 1e-5        # graph replays against eager steps: losses
+PARAM_TOL = 2.1         # x lr: parameters (the amp update limit of
+# tests/test_torch_port_train.py: one Adam step moves a weight by ~lr)
+EVAL_TOL = 5e-2         # bf16 logits, the scanned eval pass against eager
+
+
+def graph_trainer(cfg, ds):
+    """A trainer of the flagship at the seed-0 weights and generator state,
+    with `ds` held on the card."""
+    from sie_tpu_torch.train.trainer import Trainer
+    t = Trainer(cfg, steps_per_epoch=GRAPH_EPOCH, device="cuda",
+                generator=torch.Generator().manual_seed(0))
+    return t, t.device_data("train", ds)
+
+
+def capture_counts(trainer, counts, call) -> dict:
+    """The launches counted while `call()` captured one new graph of
+    `trainer` (the kernels count at capture, not at replay)."""
+    n = len(trainer.captures)
+    counts.zero()
+    out = call()
+    got = counts.read()
+    if len(trainer.captures) != n + 1:
+        fail(f"expected one capture, got {len(trainer.captures) - n}")
+    return out, got
+
+
+def phase_graphs(smi: str) -> dict:
+    """The staged steps as CUDA graphs against the eager indexed steps, at
+    the flagship's width with dropout RATE: losses, parameters, launches
+    of each captured graph, the scanned eval pass, step medians."""
+    cfg = train_config(dropout=RATE)
+    ds = random_rows(cfg, 256)
+    b = cfg.batch_size
+    rng = np.random.default_rng(2)
+    steps = [(rng.permutation(len(ds.y))[:b], np.ones(b, np.float32))
+             for _ in range(GRAPH_EPOCH)]
+    want = {"K1": 6, "K2": 6, "K5": 2, "K6": 2}
+    counts = Counts()
+    eager, dev_e = graph_trainer(cfg, ds)
+    graph, dev_g = graph_trainer(cfg, ds)
+    staged = graph.stage_steps(steps, 1.0)
+    times = {"eager": [], "graph": []}
+    losses = {"eager": [], "graph": []}
+
+    def timed(path, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = fn()
+        torch.cuda.synchronize()
+        times[path].append(1e3 * (time.perf_counter() - t0))
+        losses[path].append(float(loss))
+
+    # in turns: an eager step, then the same step as a graph (the first
+    # staged call is the eager warm-up, the second captures and replays)
+    for i in range(GRAPH_STEPS):
+        k = i % GRAPH_EPOCH
+        timed("eager", lambda: eager.train_step_indexed(dev_e, steps[k][0],
+                                                        steps[k][1], 1.0))
+        if i == 1:
+            _, got = capture_counts(graph, counts, lambda: timed(
+                "graph", lambda: graph.train_step_staged(dev_g, staged, k)))
+            if got != Counts.full(want):
+                fail(f"train_step_staged graph: launches {got}, want "
+                     f"{Counts.full(want)}")
+        else:
+            timed("graph", lambda: graph.train_step_staged(dev_g, staged, k))
+    # the scanned epoch: a warm-up epoch, then a captured one
+    scan, dev_s = graph_trainer(cfg, ds)
+    staged_s = scan.stage_steps(steps, 1.0)
+    scan_losses = scan.train_epoch_staged(dev_s, staged_s).tolist()
+    out, got = capture_counts(scan, counts, lambda: scan.train_epoch_staged(
+        dev_s, staged_s))
+    scan_losses += out.tolist()
+    if got != Counts.full(want, GRAPH_EPOCH):
+        fail(f"train_epoch_staged graph: launches {got}, want "
+             f"{Counts.full(want, GRAPH_EPOCH)}")
+    for path, got_l in (("graph", losses["graph"]), ("scan", scan_losses)):
+        err = max(abs(a - e) / abs(e) for a, e in zip(got_l,
+                                                      losses["eager"]))
+        if not np.isfinite(got_l).all() or err > LOSS_RTOL:
+            fail(f"{path} losses {got_l} against eager {losses['eager']}: "
+                 f"relative error {err}")
+        print(f"[graphs] {path}: {GRAPH_STEPS} losses within {err:.3e} "
+              f"relative of the eager steps")
+    pe = dict(eager.model.named_parameters())
+    for path, t in (("graph", graph), ("scan", scan)):
+        worst, equal = 0.0, True
+        for name, p in t.model.named_parameters():
+            worst = max(worst, float((p - pe[name]).detach().abs().max()))
+            equal = equal and torch.equal(p, pe[name])
+        if worst > PARAM_TOL * cfg.lr:
+            fail(f"{path} parameters differ from eager by {worst}")
+        print(f"[graphs] {path}: parameters within {worst:.3e} of eager "
+              f"(limit {PARAM_TOL * cfg.lr:.3e}); bit-equal: {equal}")
+
+    # the fused flagship's captured step: K3/K4 in place of K1/K2
+    fcfg = train_config(dropout=RATE, fuse_short_banks=True)
+    fused, dev_f = graph_trainer(fcfg, ds)
+    staged_f = fused.stage_steps(steps, 1.0)
+    fused.train_step_staged(dev_f, staged_f, 0)
+    (loss_f, _), got = capture_counts(
+        fused, counts, lambda: fused.train_step_staged(dev_f, staged_f, 1))
+    want_f = Counts.full({"K3": 1, "K4": 1, "K5": 2, "K6": 2})
+    if got != want_f or not np.isfinite(float(loss_f)):
+        fail(f"fused train_step_staged graph: launches {got}, want "
+             f"{want_f}; loss {float(loss_f)}")
+    del fused, dev_f, scan, dev_s
+
+    # the scanned eval pass (a warm-up, then a captured pass) against the
+    # eager eval step batch by batch, with and without collecting
+    eval_steps = [(np.arange(i * b, (i + 1) * b), np.ones(b, np.float32))
+                  for i in range(2)]
+    staged_e = graph.stage_steps(eval_steps)
+    for gating, collect in ((None, False), (0.5, True)):
+        graph.eval_epoch_staged_scan(dev_g, staged_e, gating, collect)
+        (logits, ce, mloss, info), got = capture_counts(
+            graph, counts, lambda: graph.eval_epoch_staged_scan(
+                dev_g, staged_e, gating, collect))
+        if got != Counts.full({"K1": 6, "K5": 2}, len(eval_steps)):
+            fail(f"eval_epoch_staged_scan graph: launches {got}")
+        for i, (idx, w) in enumerate(eval_steps):
+            want_l, want_i = graph.eval_step(
+                (ds.x[idx], ds.y[idx], ds.padding_mask[idx], w), gating)
+            err = float((logits[i] - want_l).abs().max())
+            if err > EVAL_TOL or not torch.equal(logits[i].argmax(-1),
+                                                 want_l.argmax(-1)):
+                fail(f"scanned eval batch {i}: max |dlogits| {err}")
+            if collect and float((info.eta[i] - want_i.eta).abs().max()) > \
+                    EVAL_TOL:
+                fail(f"scanned eval batch {i}: gate eta differs")
+        print(f"[graphs] eval_epoch_staged_scan (gating {gating}, collect "
+              f"{collect}): {len(eval_steps)} batches, logits within "
+              f"{err:.3e} of the eager eval step, same argmax; launches "
+              f"{got}")
+    med = {p: float(np.median(t[2:])) for p, t in times.items()}
+    print(f"[graphs] ms per step (B={b}, dropout {RATE}), eager "
+          f"train_step_indexed: " + ", ".join(f"{t:.3f}" for t in
+                                            times["eager"]))
+    print(f"[graphs] ms per step, graph train_step_staged (warm-up, capture, "
+          f"replays): " + ", ".join(f"{t:.3f}" for t in times["graph"]))
+    print(f"[graphs] median of steps 3-{GRAPH_STEPS}: eager {med['eager']:.3f}"
+          f" ms, graph {med['graph']:.3f} ms ({smi}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    return med
+
+
+CLI_TRIALS = 640     # synthetic CHISCO trials: 448 train rows, 7 steps
+CLI_FLAGS = ("--data EEG3 --synthetic_trials 640 --target_channels 122 "
+             "--target_timepoints 1651 --model InterpGN --dnn_type "
+             "Transformer --num_shapelet 10 --d_model 512 --d_ff 2048 "
+             "--n_heads 8 --e_layers 2 --batch_size 64 --lr 5e-3 "
+             "--train_epochs 3 --patience 3 --log_interval 1 --seed 0")
+
+
+def run_cli(argv) -> tuple:
+    """sie_tpu_torch.run.main(argv) in this process -> (its printed lines,
+    its results); the lines are echoed."""
+    import contextlib
+    import io
+    from sie_tpu_torch.run import main
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        results = main(argv)
+    text = out.getvalue()
+    print("\n".join("[cli] " + l for l in text.splitlines() if l.strip()))
+    return text, results
+
+
+def phase_cli() -> dict:
+    """The flagship experiment through the command line on synthetic
+    CHISCO: train, checkpoint and test; a re-run that skips training and
+    reproduces the test accuracy; a run under --scan_epoch. The kernels'
+    counts are read over the first run, the path's main run."""
+    import tempfile
+    counts = Counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        common = CLI_FLAGS.split() + [
+            "--data_root", os.path.join(tmp, "no_chisco"),
+            "--result_dir", os.path.join(tmp, "result"),
+            "--cache_dir", os.path.join(tmp, "cache")]
+        first = common + ["--checkpoint_dir", os.path.join(tmp, "ck")]
+        t0 = time.perf_counter()
+        counts.zero()   # the path's main run
+        text, res = run_cli(first)
+        launches = counts.read()
+        secs = time.perf_counter() - t0
+        epochs = re.findall(r"Epoch \d+/3 \| Train Loss (\S+) \| Val Loss "
+                            r"(\S+)", text)
+        if len(epochs) != 3 or not all(np.isfinite(float(v)) for e in epochs
+                                       for v in e):
+            fail(f"the CLI run logged epochs {epochs}")
+        csv_path = re.search(r"Test summary saved at: (\S+)", text)
+        if "Test accuracy" not in text or not csv_path or \
+                not os.path.exists(csv_path.group(1)):
+            fail("the CLI run wrote no test accuracy or CSV")
+        graphs = re.search(r"CUDA graphs captured: (\d+)", text)
+        if not graphs or int(graphs.group(1)) < 2:
+            fail("the CLI run captured no train and eval graphs")
+        for k in ("K1", "K2", "K5", "K6"):
+            if not launches[k]:
+                fail(f"the CLI run launched no {k}: {launches}")
+        acc = res[0][2]["accuracy"]
+        text2, res2 = run_cli(first)
+        if "checkpoint exists — skipping training" not in text2 or \
+                res2[0][2]["accuracy"] != acc or res2[0][1] != res[0][1]:
+            fail(f"the re-run did not skip training or gave accuracy "
+                 f"{res2[0][2]['accuracy']} (loss {res2[0][1]}), not {acc} "
+                 f"({res[0][1]})")
+        text3, res3 = run_cli(common + ["--scan_epoch", "--checkpoint_dir",
+                                        os.path.join(tmp, "ck_scan")])
+        if len(re.findall(r"Epoch \d+/3 \| Train Loss", text3)) != 3 or \
+                "Test accuracy" not in text3:
+            fail("the --scan_epoch run did not train and test")
+    print(f"[cli] {secs:.1f} s for the first run; test accuracy {acc:.2f}%, "
+          f"the same on the re-run; --scan_epoch {res3[0][2]['accuracy']:.2f}"
+          f"%; launches over the first run {launches}")
+    return launches
+
+
 def main() -> None:
-    phase_device()
+    smi = phase_device()
     phase_build()
     k1 = phase_k1()
     with time_limit(300, "the K5 phase"):
@@ -1351,6 +1592,8 @@ def main() -> None:
     with time_limit(600, "the long-sequence K5/K6 phase"):
         k7, k8a, k8b = phase_long_attention()
     long_launches = phase_train_long()
+    phase_graphs(smi)
+    phase_cli()
     # each row's launches: the timed training steps of its own path
     paths = ((k1, launches, "K1"), (k2, launches, "K2"),
              (k3, fused, "K3"), (k4, fused, "K4"), (k5, launches, "K5"),

@@ -1,14 +1,19 @@
 """Where a training step's time goes in sie_tpu_torch, on one CUDA card.
 
     python scripts/port_profile_train.py [--config flagship|fused|eigenworms]
-        [--steps 10] [--no-profile] [--out DIR]
+        [--path indexed|staged] [--steps 10] [--no-profile] [--out DIR]
 
 Builds the configuration's InterpGN (weights from seed 0) under `Trainer`
 on the card: `flagship` is bench.py's (B=64), `fused` the same with
 `fuse_short_banks`, `eigenworms` chip_smoke.py's EigenWorms-shaped model
-(T=17984, float32, B=8). Holds four batches of random rows on the card,
-warms up with 3 steps, then times `--steps` steps with the host clock
-(each ending in a synchronisation) and prints their times and median.
+(T=17984, float32, B=8). Holds four batches of random rows on the card.
+`--path indexed` (the default) trains through the eager
+`train_step_indexed`; `--path staged` stages a schedule of four batches
+and trains through `train_step_staged`, whose first call is the eager
+warm-up and second the capture of its CUDA graph, which later steps
+replay. Warms up with 3 steps, then times `--steps` steps with the host
+clock (each ending in a synchronisation) and prints their times and
+median.
 Unless `--no-profile`, it then profiles two more steps with torch.profiler
 and prints the device busy time, the idle share of the profiled window and
 the ops by device time; `--out` also writes the Chrome trace there. Exits
@@ -18,6 +23,7 @@ non-zero without a card.
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import subprocess
 import sys
@@ -35,6 +41,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="flagship",
                     choices=("flagship", "fused", "eigenworms"))
+    ap.add_argument("--path", default="indexed", choices=("indexed", "staged"))
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--no-profile", action="store_true")
     ap.add_argument("--out", default=None)
@@ -62,18 +69,24 @@ def main(argv=None) -> None:
     dev = trainer.device_data("train", ds)
     w = np.ones((batch,), np.float32)
     idx = lambda: rng.integers(0, rows, batch)
+    if args.path == "staged":
+        staged = trainer.stage_steps([(idx(), w) for _ in range(4)], 1.0)
+        ks = itertools.count()
+        step = lambda: trainer.train_step_staged(dev, staged, next(ks) % 4)
+    else:
+        step = lambda: trainer.train_step_indexed(dev, idx(), w, 1.0)
 
     for _ in range(WARMUP):
-        trainer.train_step_indexed(dev, idx(), w, 1.0)
+        step()
     torch.cuda.synchronize()
     times = []
     for _ in range(args.steps):
         t0 = time.perf_counter()
-        trainer.train_step_indexed(dev, idx(), w, 1.0)
+        step()
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     med = float(np.median(times))
-    print(f"{args.config} train step of {batch} rows, ms: "
+    print(f"{args.config} {args.path} train step of {batch} rows, ms: "
           + ", ".join(f"{t:.3f}" for t in times)
           + f"; median {med:.3f} ({1e3 * batch / med:.1f} samples/s)")
     if args.no_profile:
@@ -86,7 +99,7 @@ def main(argv=None) -> None:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            trainer.train_step_indexed(dev, idx(), w, 1.0)
+            step()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
@@ -95,14 +108,17 @@ def main(argv=None) -> None:
     busy = sum(e.self_device_time_total for e in events
                if e.device_type == DeviceType.CUDA
                and "Activity Buffer" not in e.key) / 1e3
-    print(f"profiled {steps} steps: wall {wall:.3f} ms, device busy "
-          f"{busy:.3f} ms (idle share {max(0.0, 1 - busy / wall):.3f})")
+    if busy == 0.0:
+        raise SystemExit(f"the profiler saw no device time over {steps} "
+                         f"{args.path} steps: no idle share")
+    print(f"profiled {steps} {args.path} steps: wall {wall:.3f} ms, device "
+          f"busy {busy:.3f} ms (idle share {max(0.0, 1 - busy / wall):.3f})")
     print(events.table(sort_by="self_device_time_total", row_limit=30,
                        max_name_column_width=60))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
-            args.out, f"train_trace_{args.config}.json"))
+            args.out, f"train_trace_{args.config}_{args.path}.json"))
 
 
 if __name__ == "__main__":

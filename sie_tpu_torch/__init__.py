@@ -7,8 +7,12 @@ kernels under `csrc/`, built by nvcc for sm_90a at first use
 and its plain PyTorch version for a CPU tensor.
 
 Ported so far: the serving forward of InterpGN / SBM / LTS / DNN with the
-Transformer expert (`serve.Predictor`) and their training step
-(`train.trainer.Trainer`), with kernels K1/K2 (shapelet distance, forward
-and backward, `ops/shapelet_l1.py`) and K5/K6 (fused attention with
-dropout, forward and backward, `ops/attention.py`).
+Transformer expert (`serve.Predictor`), their training step and the
+epoch-staged train and eval paths, captured as CUDA graphs on the card
+(`train.trainer.Trainer`), the classification experiment with its data
+path and flax-format checkpoints (`train.experiment.Experiment`), and the
+command line `python -m sie_tpu_torch.run`; kernels K1/K2 (shapelet
+distance, forward and backward, `ops/shapelet_l1.py`; K3/K4 for grouped
+banks) and K5/K6 (fused attention with dropout, forward and backward,
+`ops/attention.py`).
 """

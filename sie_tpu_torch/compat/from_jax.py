@@ -1,4 +1,5 @@
-"""Load the JAX package's flax parameters into the port's modules.
+"""Carry parameters between the JAX package's flax trees and the port's
+modules, in both directions.
 
 The port names its submodules after the flax scopes, so a flax path maps
 to a PyTorch parameter name by three renames (`TokenEmbedding_0` ->
@@ -13,14 +14,16 @@ to a PyTorch parameter name by three renames (`TokenEmbedding_0` ->
 
 Every flax leaf is consumed exactly once and every PyTorch parameter is
 filled: an unknown, duplicate or missing leaf, or a shape that differs,
-raises `ParamLoadError`.
+raises `ParamLoadError`. `to_jax_params` is the reverse: the same renames
+and transposes undone, every PyTorch parameter consumed exactly once, so a
+flax tree survives `load_jax_params` then `to_jax_params` unchanged.
 """
 
 from __future__ import annotations
 
 import re
 from collections.abc import Mapping
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Mapping as MappingT, Tuple
 
 import numpy as np
 import torch
@@ -106,3 +109,63 @@ def load_jax_params(module: nn.Module, params: Any) -> nn.Module:
         raise ParamLoadError(f"no flax leaf filled {len(missing)} parameters, "
                              f"e.g. {missing[:6]}")
     return module
+
+
+def port_layout(module: nn.Module, tree: Any) -> Dict[str, np.ndarray]:
+    """{PyTorch parameter name: array laid out for it} of a flax-shaped
+    tree (params, or a per-parameter state such as Adam's moments)."""
+    return dict(_target(module, path, np.asarray(v))
+                for path, v in _flatten(tree).items())
+
+
+# the port's module class behind each renamed flax scope
+_KINDS = {"TokenEmbedding_0": "TokenEmbedding",
+          "FullAttentionLayer_0": "FullAttentionLayer"}
+
+
+def _flax_scope(part: str, child: nn.Module) -> str:
+    """The flax scope name of the port's submodule `part` (`child`)."""
+    for flax_name, port_name in _RENAMES.items():
+        if part == port_name and type(child).__name__ == _KINDS[flax_name]:
+            return flax_name
+    return part
+
+
+def to_jax_tree(module: nn.Module,
+                tensors: MappingT[str, torch.Tensor]) -> Dict[str, Any]:
+    """The flax-layout tree (nested dicts of float32 numpy arrays) of
+    per-parameter tensors keyed by `module`'s parameter names: the
+    parameters themselves, or state of the same shapes."""
+    tree: Dict[str, Any] = {}
+    for name, value in tensors.items():
+        parts = name.split(".")
+        owner, path = module, []
+        for part in parts[:-1]:
+            child = getattr(owner, part)
+            if isinstance(owner, nn.ModuleList):
+                path[-1] = f"layer_{part}"    # "layers", "<i>" -> "layer_<i>"
+            else:
+                path.append(_flax_scope(part, child))
+            owner = child
+        leaf = parts[-1]
+        value = value.detach().float().cpu().numpy()
+        if leaf == "weight" and isinstance(owner, nn.Linear):
+            leaf, value = "kernel", value.T
+        elif leaf == "weight" and isinstance(owner, nn.Conv1d):
+            leaf, value = "kernel", value.transpose(2, 1, 0)
+        elif leaf == "weight" and isinstance(owner, nn.LayerNorm):
+            leaf = "scale"
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        if leaf in node:
+            raise ParamLoadError(f"{name!r} maps to the flax leaf "
+                                 f"{tuple(path) + (leaf,)} twice")
+        node[leaf] = np.ascontiguousarray(value)
+    return tree
+
+
+def to_jax_params(module: nn.Module) -> Dict[str, Any]:
+    """`module`'s parameters as the flax `params` tree that
+    `load_jax_params` reads and the JAX package's models apply."""
+    return to_jax_tree(module, dict(module.named_parameters()))

@@ -175,6 +175,9 @@ class Config:
         )
 
 
+DEFAULT_SEEDS = (0, 42, 1234, 8237, 2023)   # run.py's seeds without --seed
+
+
 def config_to_json(cfg: Config) -> str:
     return json.dumps(dataclasses.asdict(cfg), indent=1)
 

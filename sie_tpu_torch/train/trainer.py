@@ -1,4 +1,4 @@
-"""Training step (counterpart of sie_tpu/train/trainer.py).
+"""Training and evaluation steps (counterpart of sie_tpu/train/trainer.py).
 
 One optimizer step is the JAX package's `Trainer._update`: forward in
 training mode (dropout on, masks from the trainer's generator), loss =
@@ -8,12 +8,31 @@ backward (through kernels K2 and K6 on the card), then the optimizer of
 the SBM classifier. The model's parameters are the state; the step returns
 the loss and logits as device tensors, with no host synchronisation.
 
+The epoch-staged paths (`stage_steps`, `train_step_staged`,
+`train_epoch_staged`, `eval_step_staged`, `eval_step_indexed`,
+`eval_epoch_staged_scan`) are, in the JAX package, one jitted program per
+step or one `lax.scan` program per epoch. Here each is a CUDA graph on the
+card: the first call of a (path, shapes, buffers) key runs eagerly on the
+trainer's graph stream (the warm-up, which builds the kernels and lets
+cuBLAS and the optimizer allocate their state outside any graph), the
+second captures the same work and replays it, and later calls replay. The
+graph reads its batch from static buffers that the trainer owns:
+`stage_steps` copies an epoch's (index, weight) schedule and beta into the
+buffers of its (steps, batch) shape, and a step index goes to the card as a
+device scalar. The dropout generator is registered with every graph, so a
+replay draws the masks that the eager step would. A capture that fails
+raises; nothing falls back to the eager step. On a CPU tensor each of these
+methods runs the same work eagerly.
+
 The optimizer has optax's semantics, not PyTorch's habits:
 - `clip_by_global_norm`: g -> (g / norm) * max_norm when norm >= max_norm
   (`clip_grad_norm_` would divide by norm + 1e-6);
 - Adam with b1 0.9, b2 0.999 and eps 1e-8 outside the square root
-  (`torch.optim.Adam`, which computes the same update);
-- a per-epoch cosine learning rate under `lr_decay` and a linear warm-up;
+  (`torch.optim.Adam`, which computes the same update; on the card
+  `capturable`, its step counts and the learning rate on the card, so an
+  update can be captured);
+- a per-epoch cosine learning rate under `lr_decay` and a linear warm-up,
+  computed on the card from a device count inside a captured step;
 - `gradient_accumulation_steps` as `optax.MultiSteps`: the micro-batch
   gradients are averaged, clipping and Adam act once per group on the
   average, the schedule counts optimizer steps, and the parameters do not
@@ -22,16 +41,21 @@ The optimizer has optax's semantics, not PyTorch's habits:
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import (Any, Callable, Dict, Hashable, Iterable, List,
+                    NamedTuple, Optional, Tuple)
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sie_tpu_torch.compat.from_jax import (load_jax_params, port_layout,
+                                           to_jax_params, to_jax_tree)
 from sie_tpu_torch.config import Config
 from sie_tpu_torch.device import DeviceLike, resolve_device
+from sie_tpu_torch.models.info import ModelInfo
 from sie_tpu_torch.models.layers import not_ported
 from sie_tpu_torch.models.registry import build_model
 from sie_tpu_torch.models.sbm import clamp_sbm_weights
@@ -59,10 +83,11 @@ def weighted_ce(logits: torch.Tensor, labels: torch.Tensor,
 def make_loss_fn(cfg: Config):
     """loss_fn(model, batch, beta, generator) -> (loss, (logits, info)):
     weighted CE of the logits + the mean model loss (+ beta * weighted CE
-    of the SBM logits for InterpGN)."""
+    of the SBM logits for InterpGN); beta is a float or a 0-d f32 tensor on
+    the batch's device."""
     is_interpgn = cfg.model == "InterpGN"
 
-    def loss_fn(model: nn.Module, batch, beta: float,
+    def loss_fn(model: nn.Module, batch, beta,
                 generator: Optional[torch.Generator]):
         x, y, mask, w = batch
         logits, info = model(x, mask, generator=generator)
@@ -76,29 +101,41 @@ def make_loss_fn(cfg: Config):
     return loss_fn
 
 
-def make_schedule(cfg: Config, steps_per_epoch: int) -> Callable[[int], float]:
-    """The learning rate of optimizer step `count` (from 0). The schedule
-    counts optimizer steps: with gradient accumulation an epoch has
-    ceil(steps_per_epoch / k) of them."""
+def make_schedule(cfg: Config, steps_per_epoch: int) -> Callable:
+    """The learning rate of optimizer step `count` (from 0): a float for an
+    int count, a tensor for a tensor count (inside a captured step). The
+    schedule counts optimizer steps: with gradient accumulation an epoch
+    has ceil(steps_per_epoch / k) of them."""
     accum = max(cfg.gradient_accumulation_steps, 1)
     per_epoch = max(-(-steps_per_epoch // accum), 1)
+    warmup = max(int(cfg.lr_warmup_epochs * per_epoch), 1)
 
-    def base(count: int) -> float:
-        if not cfg.lr_decay:
-            return cfg.lr
-        epoch = count // per_epoch
-        return cfg.lr * 0.5 * (1 + math.cos(math.pi * epoch / cfg.train_epochs))
+    def schedule(count):
+        on_device = torch.is_tensor(count)
+        lr = cfg.lr
+        if cfg.lr_decay:
+            epoch = count // per_epoch
+            cos = torch.cos if on_device else math.cos
+            lr = lr * 0.5 * (1 + cos(math.pi * epoch / cfg.train_epochs))
+        if cfg.lr_warmup_epochs > 0:
+            ramp = (count + 1) / warmup
+            lr = lr * (ramp.clamp(max=1.0) if on_device else min(ramp, 1.0))
+        return lr
 
-    if cfg.lr_warmup_epochs > 0:
-        warmup = max(int(cfg.lr_warmup_epochs * per_epoch), 1)
-        return lambda count: base(count) * min((count + 1) / warmup, 1.0)
-    return base
+    return schedule
 
 
 class Optimizer:
     """Clip-by-global-norm and Adam under gradient accumulation, with
     optax's semantics (module docstring). `step()` consumes the gradients
-    that backward left in each parameter's `.grad`."""
+    that backward left in each parameter's `.grad`.
+
+    The device work of a micro-batch (`device_step`) is kept apart from
+    the host's bookkeeping (`advance`: the optimizer count and the
+    micro-batch's place in its group), so a captured step holds the first
+    and the host keeps the second across replays. On the card the count
+    that drives the learning rate also lives on the card; the running mean
+    of an accumulation group lives in buffers allocated once."""
 
     def __init__(self, cfg: Config, steps_per_epoch: int,
                  params: Iterable[nn.Parameter]):
@@ -107,37 +144,90 @@ class Optimizer:
         self.accum = max(cfg.gradient_accumulation_steps, 1)
         self.clip = float(cfg.gradient_clip)
         self.schedule = make_schedule(cfg, steps_per_epoch)
-        self.adam = torch.optim.Adam(self.params, lr=self.schedule(0),
-                                     betas=(0.9, 0.999), eps=1e-8)
+        dev = self.params[0].device if self.params else torch.device("cpu")
+        self.capturable = dev.type == "cuda"
+        if self.capturable:
+            self.lr = torch.zeros((), dtype=torch.float32, device=dev)
+            self.count_t = torch.zeros((), dtype=torch.float32, device=dev)
+            self.adam = torch.optim.Adam(self.params, lr=self.lr,
+                                         betas=(0.9, 0.999), eps=1e-8,
+                                         capturable=True, foreach=True)
+        else:
+            self.adam = torch.optim.Adam(self.params, lr=self.schedule(0),
+                                         betas=(0.9, 0.999), eps=1e-8)
         self.count = 0        # optimizer steps taken
         self.mini_step = 0    # micro-batches in the current group
-        self._acc: Optional[List[torch.Tensor]] = None
+        self._acc = ([torch.zeros_like(p) for p in self.params]
+                     if self.accum > 1 else None)
 
-    def step(self) -> bool:
-        """One micro-batch; True when the parameters were updated."""
+    def device_step(self, position: int, count: int) -> bool:
+        """The device work of one micro-batch at `position` in its group,
+        `count` optimizer steps taken before it; True when it updates the
+        parameters. Changes no host state."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in self.params]
         if self.accum > 1:
-            if self._acc is None:
-                self._acc = [torch.zeros_like(p) for p in self.params]
-            n = self.mini_step
             # MultiSteps' running mean: acc + (g - acc) / (n + 1)
-            self._acc = [a + (g - a) / (n + 1) for a, g in zip(self._acc,
-                                                                grads)]
-            self.mini_step += 1
-            if self.mini_step < self.accum:
+            for a, g in zip(self._acc, grads):
+                if position == 0:
+                    a.zero_()
+                a.add_((g - a) / (position + 1))
+            if position < self.accum - 1:
                 return False
-            grads, self._acc, self.mini_step = self._acc, None, 0
+            grads = self._acc
         if self.clip > 0:
             grads = clip_by_global_norm(grads, self.clip)
         for p, g in zip(self.params, grads):
             p.grad = g
-        lr = self.schedule(self.count)
-        for group in self.adam.param_groups:
-            group["lr"] = lr
-        self.adam.step()
-        self.count += 1
+        if self.capturable:
+            self.lr.fill_(self.schedule(self.count_t))
+            self.adam.step()
+            self.count_t.add_(1)
+        else:
+            lr = self.schedule(count)
+            for group in self.adam.param_groups:
+                group["lr"] = lr
+            self.adam.step()
         return True
+
+    def advance(self, micro_steps: int = 1) -> None:
+        """The host's bookkeeping of `micro_steps` micro-batches."""
+        for _ in range(micro_steps):
+            if self.mini_step == self.accum - 1:
+                self.count += 1
+            self.mini_step = (self.mini_step + 1) % self.accum
+
+    def step(self) -> bool:
+        """One micro-batch; True when the parameters were updated."""
+        moved = self.device_step(self.mini_step, self.count)
+        self.advance()
+        return moved
+
+    # ---- snapshot ------------------------------------------------------
+    def state(self) -> Dict[str, Any]:
+        """count, mini_step, and per parameter (in `params` order) Adam's
+        first and second moments and the accumulation group's mean."""
+        zeros = [torch.zeros_like(p) for p in self.params]
+        st = [self.adam.state.get(p, {}) for p in self.params]
+        return {"count": self.count, "mini_step": self.mini_step,
+                "mu": [s.get("exp_avg", z) for s, z in zip(st, zeros)],
+                "nu": [s.get("exp_avg_sq", z) for s, z in zip(st, zeros)],
+                "acc": self._acc or zeros}
+
+    def load_state(self, count: int, mini_step: int, mu, nu, acc) -> None:
+        """The reverse of `state`, from per-parameter arrays."""
+        self.count, self.mini_step = int(count), int(mini_step)
+        for i, p in enumerate(self.params):
+            step = torch.tensor(float(count), dtype=torch.float32,
+                                device=p.device if self.capturable else "cpu")
+            as_p = lambda a: torch.as_tensor(np.asarray(a), dtype=p.dtype
+                                             ).to(p.device)
+            self.adam.state[p] = {"step": step, "exp_avg": as_p(mu[i]),
+                                  "exp_avg_sq": as_p(nu[i])}
+            if self._acc is not None:
+                self._acc[i].copy_(as_p(acc[i]))
+        if self.capturable:
+            self.count_t.fill_(float(count))
 
 
 def clip_by_global_norm(grads: List[torch.Tensor],
@@ -153,6 +243,46 @@ def clip_by_global_norm(grads: List[torch.Tensor],
 def make_optimizer(cfg: Config, steps_per_epoch: int,
                    params: Iterable[nn.Parameter]) -> Optimizer:
     return Optimizer(cfg, steps_per_epoch, params)
+
+
+def per_sample_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Softmax cross entropy of f32 logits per row. A label outside [0, C)
+    gives a meaningless value instead of a device-side assert, as optax
+    does: the caller filters such rows out."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    safe = labels.long().clamp(0, logits.shape[-1] - 1)
+    return -logp.gather(-1, safe[:, None])[:, 0]
+
+
+class Staged(NamedTuple):
+    """An epoch's schedule on the device: indices (n, B) int64, weights
+    (n, B) f32 and beta (a 0-d f32 tensor)."""
+    ia: torch.Tensor
+    wa: torch.Tensor
+    beta: torch.Tensor
+
+
+def _clone(out):
+    """A copy of a captured graph's outputs, which the next replay
+    overwrites."""
+    if out is None:
+        return None
+    if torch.is_tensor(out):
+        return out.clone()
+    if isinstance(out, ModelInfo):
+        return dataclasses.replace(out, **{
+            f.name: _clone(getattr(out, f.name))
+            for f in dataclasses.fields(out)})
+    return type(out)(_clone(o) for o in out)
+
+
+def _stack_infos(infos: List[ModelInfo]) -> ModelInfo:
+    """ModelInfo of per-batch infos, each field stacked on a new first axis
+    (None stays None)."""
+    return ModelInfo(**{
+        f.name: (None if getattr(infos[0], f.name) is None else
+                 torch.stack([getattr(i, f.name) for i in infos]))
+        for f in dataclasses.fields(ModelInfo)})
 
 
 class Trainer:
@@ -181,6 +311,15 @@ class Trainer:
             cfg.seed + 17)
         self.step = 0
         self._dev_data: Dict[str, Tuple[torch.Tensor, ...]] = {}
+        # epoch-staged paths: schedule buffers by (steps, batch) shape, the
+        # device step index, index buffers by batch size, and the graphs
+        self._staged: Dict[Tuple[int, int], Staged] = {}
+        self._k = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        self._idx: Dict[int, torch.Tensor] = {}
+        self._graphs: Dict[Hashable, Tuple[Any, Any]] = {}
+        self._warm: set = set()
+        self._stream = None
+        self.captures: List[Hashable] = []   # graph keys, in capture order
 
     # ---- steps ------------------------------------------------------------
     def _tensor(self, a, dtype: torch.dtype) -> torch.Tensor:
@@ -193,35 +332,56 @@ class Trainer:
                 self._tensor(mask, torch.float32),
                 self._tensor(w, torch.float32))
 
-    def _update(self, batch, beta: float):
-        """Loss and gradients, the optimizer step, the pos_weight clamp."""
-        cfg = self.cfg
+    def _beta(self, beta) -> torch.Tensor:
+        return torch.tensor(float(beta), dtype=torch.float32,
+                            device=self.device)
+
+    def _device_step(self, batch, beta: torch.Tensor, position: int,
+                     count: int):
+        """The device work of one train step (what a graph captures):
+        loss and gradients, the optimizer at micro-batch `position` with
+        `count` optimizer steps before it, the pos_weight clamp."""
         self.model.train()
         for p in self.model.parameters():
             p.grad = None
-        loss, (logits, _info) = self.loss_fn(self.model, batch, float(beta),
+        loss, (logits, _info) = self.loss_fn(self.model, batch, beta,
                                              self.generator)
         loss.backward()
-        self.optimizer.step()
-        if cfg.pos_weight and cfg.model in _CLAMPED:
+        self.optimizer.device_step(position, count)
+        if self.cfg.pos_weight and self.cfg.model in _CLAMPED:
             clamp_sbm_weights(self.model)
-        self.step += 1
         return loss.detach(), logits.detach()
+
+    def _advance(self, steps: int = 1) -> None:
+        self.optimizer.advance(steps)
+        self.step += steps
+
+    def _update(self, batch, beta: torch.Tensor):
+        """One eager train step on a device batch."""
+        opt = self.optimizer
+        out = self._device_step(batch, beta, opt.mini_step, opt.count)
+        self._advance()
+        return out
 
     def train_step(self, batch, beta: float):
         """batch = (x (B, T, C), y (B,), padding mask (B, T), weights (B,)),
         numpy or tensors -> (loss, logits) on the device."""
-        return self._update(self._device_batch(batch), beta)
+        return self._update(self._device_batch(batch), self._beta(beta))
 
-    def eval_step(self, batch, gating_value: Optional[float] = None):
-        """(logits, ModelInfo) in eval mode, without gradients."""
-        x, _y, mask, _w = self._device_batch(batch)
+    def _eval_forward(self, x, mask, gating_value=None):
+        """The eval-mode forward every eval path shares: no gradients, no
+        dropout."""
         self.model.eval()
         try:
             with torch.no_grad():
                 return self.model(x, mask, gating_value=gating_value)
         finally:
             self.model.train()
+
+    def eval_step(self, batch, gating_value: Optional[float] = None):
+        """(logits, ModelInfo) in eval mode, without gradients."""
+        x, _y, mask, _w = self._device_batch(batch)
+        return self._eval_forward(x, mask, gating_value)
 
     # ---- device-resident data ---------------------------------------------
     def device_data(self, tag: str, ds) -> Tuple[torch.Tensor, ...]:
@@ -236,17 +396,209 @@ class Trainer:
 
     def train_step_indexed(self, dev_data, idx, w, beta: float):
         """A train step on rows `idx` of `device_data`, gathered on the
-        device; only idx and w cross from the host."""
+        device; only idx, w and beta cross from the host."""
         idx = self._tensor(idx, torch.int64)
         x, y, mask = (leaf[idx] for leaf in dev_data)
-        return self._update((x, y, mask, self._tensor(w, torch.float32)), beta)
+        return self._update((x, y, mask, self._tensor(w, torch.float32)),
+                            self._beta(beta))
 
-    # ---- not ported --------------------------------------------------------
-    def train_step_staged(self, *args, **kwargs):
-        raise not_ported("the epoch-staged train step (train_step_staged)")
+    # ---- graphs -----------------------------------------------------------
+    def _run(self, key: Hashable, body: Callable[[], Any]):
+        """body() eagerly on the CPU. On the card: the first call of `key`
+        runs body() eagerly on the graph stream (the warm-up), the second
+        captures it into a CUDA graph and replays it, later calls replay;
+        a replay's outputs are copied, as the next replay overwrites them.
+        A failing capture raises."""
+        if self.device.type != "cuda":
+            return body()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        if key not in self._graphs:
+            self._stream.wait_stream(current)
+            if key not in self._warm:
+                with torch.cuda.stream(self._stream):
+                    out = body()
+                current.wait_stream(self._stream)
+                self._warm.add(key)
+                return out
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(self.generator)
+            with torch.cuda.graph(graph, stream=self._stream):
+                out = body()
+            self._graphs[key] = (graph, out)
+            self.captures.append(key)
+        graph, out = self._graphs[key]
+        graph.replay()
+        return _clone(out)
 
-    def train_epoch_staged(self, *args, **kwargs):
-        raise not_ported("the scanned epoch (train_epoch_staged)")
+    def _key(self, kind: str, dev_data, staged: Optional[Staged], *extra):
+        """A graph's key: the path, the device buffers it reads, shapes."""
+        ptrs = tuple(t.data_ptr() for t in dev_data)
+        if staged is not None:
+            ptrs += (staged.ia.data_ptr(), staged.wa.data_ptr(),
+                     staged.beta.data_ptr(), tuple(staged.ia.shape))
+        return (kind, ptrs) + extra
 
-    def eval_epoch_staged_scan(self, *args, **kwargs):
-        raise not_ported("the scanned eval pass (eval_epoch_staged_scan)")
+    # ---- epoch-staged steps -----------------------------------------------
+    def stage_steps(self, steps, beta: float = 0.0) -> Optional[Staged]:
+        """Copies an epoch's (idx, w) schedule and beta into the trainer's
+        buffers of its (steps, batch) shape. steps: list of (idx (B,), w
+        (B,)) pairs from Batcher.epoch_indices. Returns the buffers, or None
+        for an empty epoch. Staging another schedule of the same shape
+        reuses the buffers, and the graphs that read them."""
+        if not steps:
+            return None
+        idx_all = torch.from_numpy(np.stack([i for i, _ in steps])
+                                   .astype(np.int64))
+        w_all = torch.from_numpy(np.stack([w for _, w in steps])
+                                 .astype(np.float32))
+        shape = tuple(idx_all.shape)
+        if shape not in self._staged:
+            self._staged[shape] = Staged(
+                torch.empty(shape, dtype=torch.int64, device=self.device),
+                torch.empty(shape, dtype=torch.float32, device=self.device),
+                torch.empty((), dtype=torch.float32, device=self.device))
+        buf = self._staged[shape]
+        buf.ia.copy_(idx_all)
+        buf.wa.copy_(w_all)
+        buf.beta.fill_(float(beta))
+        return buf
+
+    def train_step_staged(self, dev_data, staged: Staged, k: int):
+        """Train step `k` of a staged schedule -> (loss, logits); on the
+        card a replay of the step's graph (one graph per place in an
+        accumulation group)."""
+        opt = self.optimizer
+        position, count = opt.mini_step, opt.count
+        self._k.fill_(k)
+
+        def body():
+            idx = staged.ia.index_select(0, self._k)[0]
+            w = staged.wa.index_select(0, self._k)[0]
+            x, y, mask = (leaf[idx] for leaf in dev_data)
+            return self._device_step((x, y, mask, w), staged.beta, position,
+                                     count)
+
+        out = self._run(self._key("train_step", dev_data, staged, position),
+                        body)
+        self._advance()
+        return out
+
+    def train_epoch_staged(self, dev_data, staged: Staged) -> torch.Tensor:
+        """Every step of a staged epoch in order -> the per-step losses
+        (n_steps,); on the card one graph replay for the whole epoch, the
+        counterpart of the JAX package's `lax.scan` over the schedule.
+        Equal to looping `train_step_staged`."""
+        opt = self.optimizer
+        position, count = opt.mini_step, opt.count
+        n = staged.ia.shape[0]
+
+        def body():
+            losses = []
+            for i in range(n):
+                pos = (position + i) % opt.accum
+                x, y, mask = (leaf[staged.ia[i]] for leaf in dev_data)
+                loss, _ = self._device_step(
+                    (x, y, mask, staged.wa[i]), staged.beta, pos,
+                    count + (position + i) // opt.accum)
+                losses.append(loss)
+            return torch.stack(losses)
+
+        out = self._run(self._key("train_epoch", dev_data, staged, position),
+                        body)
+        self._advance(n)
+        return out
+
+    def eval_epoch_staged_scan(self, dev_data, staged: Staged,
+                               gating_value=None, collect: bool = False):
+        """The whole eval pass over a staged schedule -> (logits (n, B, C),
+        per-sample CE (n, B), per-batch model loss (n,), the stacked
+        ModelInfo when `collect`, else None); on the card one graph replay
+        per pass (one graph per gating value, collect and schedule), for
+        the caller to fetch at once."""
+        n = staged.ia.shape[0]
+
+        def body():
+            logits_l, ce_l, ml_l, infos = [], [], [], []
+            for i in range(n):
+                x, y, mask = (leaf[staged.ia[i]] for leaf in dev_data)
+                logits, info = self._eval_forward(x, mask, gating_value)
+                logits_l.append(logits)
+                ce_l.append(per_sample_ce(logits, y))
+                ml_l.append(info.loss.mean() if info.loss is not None else
+                            torch.zeros((), device=logits.device))
+                infos.append(info)
+            return (torch.stack(logits_l), torch.stack(ce_l),
+                    torch.stack(ml_l), _stack_infos(infos) if collect
+                    else None)
+
+        return self._run(self._key("eval_epoch", dev_data, staged,
+                                   gating_value, bool(collect)), body)
+
+    def eval_step_staged(self, dev_data, staged: Staged, k: int,
+                         gating_value=None):
+        """(logits, ModelInfo) of batch `k` of a staged schedule, in eval
+        mode; on the card a graph replay."""
+        self._k.fill_(k)
+
+        def body():
+            idx = staged.ia.index_select(0, self._k)[0]
+            x, _y, mask = (leaf[idx] for leaf in dev_data)
+            return self._eval_forward(x, mask, gating_value)
+
+        return self._run(self._key("eval_step", dev_data, staged,
+                                   gating_value), body)
+
+    def eval_step_indexed(self, dev_data, idx, gating_value=None):
+        """(logits, ModelInfo) of rows `idx` of `device_data`, in eval mode;
+        on the card the indices go into a buffer of their batch size and a
+        graph replays."""
+        idx = self._tensor(idx, torch.int64)
+        b = idx.shape[0]
+        if b not in self._idx:
+            self._idx[b] = torch.empty((b,), dtype=torch.int64,
+                                       device=self.device)
+        buf = self._idx[b]
+        buf.copy_(idx)
+
+        def body():
+            x, _y, mask = (leaf[buf] for leaf in dev_data)
+            return self._eval_forward(x, mask, gating_value)
+
+        return self._run(self._key("eval_indexed", dev_data, None, b,
+                                   buf.data_ptr(), gating_value), body)
+
+    # ---- snapshot ---------------------------------------------------------
+    def _named(self) -> List[str]:
+        return [n for n, p in self.model.named_parameters() if p.requires_grad]
+
+    def state_tree(self) -> Dict[str, Any]:
+        """The trainer's whole state as a tree of host arrays: step,
+        params and batch_stats in the flax layout, the optimizer (count,
+        mini_step, Adam's moments and the accumulation mean under the
+        flax names) and the dropout generator's state."""
+        opt = self.optimizer.state()
+        tree = lambda ts: to_jax_tree(self.model, dict(zip(self._named(),
+                                                           ts)))
+        return {"step": self.step, "params": to_jax_params(self.model),
+                "batch_stats": {},
+                "opt_state": {"count": opt["count"],
+                              "mini_step": opt["mini_step"],
+                              "mu": tree(opt["mu"]), "nu": tree(opt["nu"]),
+                              "acc": tree(opt["acc"])},
+                "rng": self.generator.get_state().numpy()}
+
+    def load_state_tree(self, tree: Dict[str, Any]) -> None:
+        """The reverse of `state_tree`."""
+        load_jax_params(self.model, tree["params"])
+        opt = tree["opt_state"]
+        per_param = {k: port_layout(self.model, opt[k])
+                     for k in ("mu", "nu", "acc")}
+        names = self._named()
+        self.optimizer.load_state(
+            opt["count"], opt["mini_step"],
+            *([per_param[k][n] for n in names] for k in ("mu", "nu", "acc")))
+        self.step = int(tree["step"])
+        self.generator.set_state(torch.from_numpy(
+            np.asarray(tree["rng"], np.uint8).copy()))

@@ -1,0 +1,1 @@
+"""Utilities for sie_tpu_torch (counterpart of sie_tpu/utils)."""

@@ -2,7 +2,8 @@
 `flax` or `optax`, and nothing of the JAX package `sie_tpu`, at any place
 in the file (imports inside functions included), read from the source so
 that lazily imported modules count too. chip_smoke.py and the port's
-profiling scripts run on a machine without JAX."""
+profiling scripts run on a machine without JAX. Nor `msgpack`: the port
+reads and writes flax's checkpoint format with the standard library."""
 
 import ast
 import glob
@@ -11,7 +12,7 @@ import os
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "sie_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "sie_tpu", "msgpack"}
 FILES = sorted(
     [os.path.relpath(p, ROOT) for p in
      glob.glob(os.path.join(ROOT, "sie_tpu_torch", "**", "*.py"),
@@ -40,4 +41,8 @@ def test_imports_nothing_of_jax(path):
 def test_the_list_covers_the_port():
     assert "sie_tpu_torch/ops/shapelet_l1.py" in FILES
     assert "scripts/port_profile_kernels.py" in FILES
-    assert len(FILES) >= 20
+    for new in ("run.py", "train/experiment.py", "train/checkpoint.py",
+                "compat/flax_msgpack.py", "data/preprocess.py", "data/eeg.py",
+                "data/provider.py", "utils/shapelet_util.py"):
+        assert f"sie_tpu_torch/{new}" in FILES
+    assert len(FILES) >= 35
