@@ -28,11 +28,12 @@ The optimizer has optax's semantics, not PyTorch's habits:
 - `clip_by_global_norm`: g -> (g / norm) * max_norm when norm >= max_norm
   (`clip_grad_norm_` would divide by norm + 1e-6);
 - Adam with b1 0.9, b2 0.999 and eps 1e-8 outside the square root
-  (`torch.optim.Adam`, which computes the same update; on the card
-  `capturable`, its step counts and the learning rate on the card, so an
+  (`torch.optim.Adam`, which computes the same update, its learning rate
+  a tensor; on the card `capturable`, its step counts there too, so an
   update can be captured);
 - a per-epoch cosine learning rate under `lr_decay` and a linear warm-up,
-  computed on the card from a device count inside a captured step;
+  computed in tensor ops from the optimizer count, a tensor beside the
+  parameters (on the card inside a captured step);
 - `gradient_accumulation_steps` as `optax.MultiSteps`: the micro-batch
   gradients are averaged, clipping and Adam act once per group on the
   average, the schedule counts optimizer steps, and the parameters do not
@@ -102,24 +103,22 @@ def make_loss_fn(cfg: Config):
 
 
 def make_schedule(cfg: Config, steps_per_epoch: int) -> Callable:
-    """The learning rate of optimizer step `count` (from 0): a float for an
-    int count, a tensor for a tensor count (inside a captured step). The
-    schedule counts optimizer steps: with gradient accumulation an epoch
-    has ceil(steps_per_epoch / k) of them."""
+    """The learning rate of optimizer step `count` (from 0), both 0-d f32
+    tensors on the count's device, as the JAX package's schedule computes
+    it; the card computes it inside a captured step. The schedule counts
+    optimizer steps: with gradient accumulation an epoch has
+    ceil(steps_per_epoch / k) of them."""
     accum = max(cfg.gradient_accumulation_steps, 1)
     per_epoch = max(-(-steps_per_epoch // accum), 1)
     warmup = max(int(cfg.lr_warmup_epochs * per_epoch), 1)
 
-    def schedule(count):
-        on_device = torch.is_tensor(count)
-        lr = cfg.lr
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        lr = torch.full_like(count, cfg.lr)
         if cfg.lr_decay:
-            epoch = count // per_epoch
-            cos = torch.cos if on_device else math.cos
-            lr = lr * 0.5 * (1 + cos(math.pi * epoch / cfg.train_epochs))
+            epoch = torch.div(count, per_epoch, rounding_mode="floor")
+            lr = lr * 0.5 * (1 + torch.cos(math.pi * epoch / cfg.train_epochs))
         if cfg.lr_warmup_epochs > 0:
-            ramp = (count + 1) / warmup
-            lr = lr * (ramp.clamp(max=1.0) if on_device else min(ramp, 1.0))
+            lr = lr * ((count + 1) / warmup).clamp(max=1.0)
         return lr
 
     return schedule
@@ -127,15 +126,17 @@ def make_schedule(cfg: Config, steps_per_epoch: int) -> Callable:
 
 class Optimizer:
     """Clip-by-global-norm and Adam under gradient accumulation, with
-    optax's semantics (module docstring). `step()` consumes the gradients
-    that backward left in each parameter's `.grad`.
+    optax's semantics (module docstring), on the gradients that backward
+    left in each parameter's `.grad`.
 
     The device work of a micro-batch (`device_step`) is kept apart from
     the host's bookkeeping (`advance`: the optimizer count and the
     micro-batch's place in its group), so a captured step holds the first
-    and the host keeps the second across replays. On the card the count
-    that drives the learning rate also lives on the card; the running mean
-    of an accumulation group lives in buffers allocated once."""
+    and the host keeps the second across replays. On every device the
+    count that drives the learning rate, and the learning rate, are 0-d
+    tensors beside the parameters, and the running mean of an
+    accumulation group lives in buffers allocated once; only Adam's
+    `capturable` (and `foreach`) differ on the card."""
 
     def __init__(self, cfg: Config, steps_per_epoch: int,
                  params: Iterable[nn.Parameter]):
@@ -145,25 +146,20 @@ class Optimizer:
         self.clip = float(cfg.gradient_clip)
         self.schedule = make_schedule(cfg, steps_per_epoch)
         dev = self.params[0].device if self.params else torch.device("cpu")
-        self.capturable = dev.type == "cuda"
-        if self.capturable:
-            self.lr = torch.zeros((), dtype=torch.float32, device=dev)
-            self.count_t = torch.zeros((), dtype=torch.float32, device=dev)
-            self.adam = torch.optim.Adam(self.params, lr=self.lr,
-                                         betas=(0.9, 0.999), eps=1e-8,
-                                         capturable=True, foreach=True)
-        else:
-            self.adam = torch.optim.Adam(self.params, lr=self.schedule(0),
-                                         betas=(0.9, 0.999), eps=1e-8)
+        on_card = dev.type == "cuda"
+        self.count_t = torch.zeros((), dtype=torch.float32, device=dev)
+        self.lr = torch.zeros((), dtype=torch.float32, device=dev)
+        self.adam = torch.optim.Adam(self.params, lr=self.lr,
+                                     betas=(0.9, 0.999), eps=1e-8,
+                                     capturable=on_card, foreach=on_card)
         self.count = 0        # optimizer steps taken
         self.mini_step = 0    # micro-batches in the current group
         self._acc = ([torch.zeros_like(p) for p in self.params]
                      if self.accum > 1 else None)
 
-    def device_step(self, position: int, count: int) -> bool:
-        """The device work of one micro-batch at `position` in its group,
-        `count` optimizer steps taken before it; True when it updates the
-        parameters. Changes no host state."""
+    def device_step(self, position: int) -> bool:
+        """The device work of one micro-batch at `position` in its group;
+        True when it updates the parameters. Changes no host state."""
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in self.params]
         if self.accum > 1:
@@ -179,15 +175,9 @@ class Optimizer:
             grads = clip_by_global_norm(grads, self.clip)
         for p, g in zip(self.params, grads):
             p.grad = g
-        if self.capturable:
-            self.lr.fill_(self.schedule(self.count_t))
-            self.adam.step()
-            self.count_t.add_(1)
-        else:
-            lr = self.schedule(count)
-            for group in self.adam.param_groups:
-                group["lr"] = lr
-            self.adam.step()
+        self.lr.copy_(self.schedule(self.count_t))
+        self.adam.step()
+        self.count_t.add_(1)
         return True
 
     def advance(self, micro_steps: int = 1) -> None:
@@ -196,12 +186,6 @@ class Optimizer:
             if self.mini_step == self.accum - 1:
                 self.count += 1
             self.mini_step = (self.mini_step + 1) % self.accum
-
-    def step(self) -> bool:
-        """One micro-batch; True when the parameters were updated."""
-        moved = self.device_step(self.mini_step, self.count)
-        self.advance()
-        return moved
 
     # ---- snapshot ------------------------------------------------------
     def state(self) -> Dict[str, Any]:
@@ -215,19 +199,19 @@ class Optimizer:
                 "acc": self._acc or zeros}
 
     def load_state(self, count: int, mini_step: int, mu, nu, acc) -> None:
-        """The reverse of `state`, from per-parameter arrays."""
+        """The reverse of `state`, from per-parameter arrays. New state
+        tensors: a graph captured before reads the old ones."""
         self.count, self.mini_step = int(count), int(mini_step)
         for i, p in enumerate(self.params):
-            step = torch.tensor(float(count), dtype=torch.float32,
-                                device=p.device if self.capturable else "cpu")
             as_p = lambda a: torch.as_tensor(np.asarray(a), dtype=p.dtype
                                              ).to(p.device)
-            self.adam.state[p] = {"step": step, "exp_avg": as_p(mu[i]),
-                                  "exp_avg_sq": as_p(nu[i])}
+            self.adam.state[p] = {
+                "step": torch.tensor(float(count), dtype=torch.float32,
+                                     device=p.device),
+                "exp_avg": as_p(mu[i]), "exp_avg_sq": as_p(nu[i])}
             if self._acc is not None:
                 self._acc[i].copy_(as_p(acc[i]))
-        if self.capturable:
-            self.count_t.fill_(float(count))
+        self.count_t.fill_(float(count))
 
 
 def clip_by_global_norm(grads: List[torch.Tensor],
@@ -316,7 +300,9 @@ class Trainer:
         self._staged: Dict[Tuple[int, int], Staged] = {}
         self._k = torch.zeros((1,), dtype=torch.int64, device=self.device)
         self._idx: Dict[int, torch.Tensor] = {}
-        self._graphs: Dict[Hashable, Tuple[Any, Any]] = {}
+        self._beta_t = torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
+        self._graphs: Dict[Hashable, Tuple[Any, Any, Tuple]] = {}
         self._warm: set = set()
         self._stream = None
         self.captures: List[Hashable] = []   # graph keys, in capture order
@@ -333,21 +319,21 @@ class Trainer:
                 self._tensor(w, torch.float32))
 
     def _beta(self, beta) -> torch.Tensor:
-        return torch.tensor(float(beta), dtype=torch.float32,
-                            device=self.device)
+        """beta in the eager steps' device scalar (a fill, no copy from
+        the host)."""
+        return self._beta_t.fill_(float(beta))
 
-    def _device_step(self, batch, beta: torch.Tensor, position: int,
-                     count: int):
+    def _device_step(self, batch, beta: torch.Tensor, position: int):
         """The device work of one train step (what a graph captures):
-        loss and gradients, the optimizer at micro-batch `position` with
-        `count` optimizer steps before it, the pos_weight clamp."""
+        loss and gradients, the optimizer at micro-batch `position` of its
+        group, the pos_weight clamp."""
         self.model.train()
         for p in self.model.parameters():
             p.grad = None
         loss, (logits, _info) = self.loss_fn(self.model, batch, beta,
                                              self.generator)
         loss.backward()
-        self.optimizer.device_step(position, count)
+        self.optimizer.device_step(position)
         if self.cfg.pos_weight and self.cfg.model in _CLAMPED:
             clamp_sbm_weights(self.model)
         return loss.detach(), logits.detach()
@@ -358,8 +344,7 @@ class Trainer:
 
     def _update(self, batch, beta: torch.Tensor):
         """One eager train step on a device batch."""
-        opt = self.optimizer
-        out = self._device_step(batch, beta, opt.mini_step, opt.count)
+        out = self._device_step(batch, beta, self.optimizer.mini_step)
         self._advance()
         return out
 
@@ -403,12 +388,15 @@ class Trainer:
                             self._beta(beta))
 
     # ---- graphs -----------------------------------------------------------
-    def _run(self, key: Hashable, body: Callable[[], Any]):
+    def _run(self, key: Hashable, reads: Tuple[torch.Tensor, ...],
+             body: Callable[[], Any]):
         """body() eagerly on the CPU. On the card: the first call of `key`
         runs body() eagerly on the graph stream (the warm-up), the second
         captures it into a CUDA graph and replays it, later calls replay;
         a replay's outputs are copied, as the next replay overwrites them.
-        A failing capture raises."""
+        The graph keeps `reads`, the tensors it reads, alive, so their
+        memory cannot pass to other tensors under the same key. A failing
+        capture raises."""
         if self.device.type != "cuda":
             return body()
         if self._stream is None:
@@ -426,19 +414,18 @@ class Trainer:
             graph.register_generator_state(self.generator)
             with torch.cuda.graph(graph, stream=self._stream):
                 out = body()
-            self._graphs[key] = (graph, out)
+            self._graphs[key] = (graph, out, reads)
             self.captures.append(key)
-        graph, out = self._graphs[key]
+        graph, out, _reads = self._graphs[key]
         graph.replay()
         return _clone(out)
 
-    def _key(self, kind: str, dev_data, staged: Optional[Staged], *extra):
-        """A graph's key: the path, the device buffers it reads, shapes."""
-        ptrs = tuple(t.data_ptr() for t in dev_data)
-        if staged is not None:
-            ptrs += (staged.ia.data_ptr(), staged.wa.data_ptr(),
-                     staged.beta.data_ptr(), tuple(staged.ia.shape))
-        return (kind, ptrs) + extra
+    @staticmethod
+    def _key(kind: str, reads: Tuple[torch.Tensor, ...], *extra):
+        """(a graph's key, the tensors it reads): the key holds the path,
+        the address, shape and type of each tensor read, and `extra`."""
+        return ((kind, tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                             for t in reads)) + extra, reads)
 
     # ---- epoch-staged steps -----------------------------------------------
     def stage_steps(self, steps, beta: float = 0.0) -> Optional[Staged]:
@@ -469,19 +456,17 @@ class Trainer:
         """Train step `k` of a staged schedule -> (loss, logits); on the
         card a replay of the step's graph (one graph per place in an
         accumulation group)."""
-        opt = self.optimizer
-        position, count = opt.mini_step, opt.count
+        position = self.optimizer.mini_step
         self._k.fill_(k)
 
         def body():
             idx = staged.ia.index_select(0, self._k)[0]
             w = staged.wa.index_select(0, self._k)[0]
             x, y, mask = (leaf[idx] for leaf in dev_data)
-            return self._device_step((x, y, mask, w), staged.beta, position,
-                                     count)
+            return self._device_step((x, y, mask, w), staged.beta, position)
 
-        out = self._run(self._key("train_step", dev_data, staged, position),
-                        body)
+        out = self._run(*self._key("train_step", (*dev_data, *staged,
+                                                  self._k), position), body)
         self._advance()
         return out
 
@@ -491,22 +476,21 @@ class Trainer:
         counterpart of the JAX package's `lax.scan` over the schedule.
         Equal to looping `train_step_staged`."""
         opt = self.optimizer
-        position, count = opt.mini_step, opt.count
+        position = opt.mini_step
         n = staged.ia.shape[0]
 
         def body():
             losses = []
             for i in range(n):
-                pos = (position + i) % opt.accum
                 x, y, mask = (leaf[staged.ia[i]] for leaf in dev_data)
-                loss, _ = self._device_step(
-                    (x, y, mask, staged.wa[i]), staged.beta, pos,
-                    count + (position + i) // opt.accum)
+                loss, _ = self._device_step((x, y, mask, staged.wa[i]),
+                                            staged.beta,
+                                            (position + i) % opt.accum)
                 losses.append(loss)
             return torch.stack(losses)
 
-        out = self._run(self._key("train_epoch", dev_data, staged, position),
-                        body)
+        out = self._run(*self._key("train_epoch", (*dev_data, *staged),
+                                   position), body)
         self._advance(n)
         return out
 
@@ -533,8 +517,8 @@ class Trainer:
                     torch.stack(ml_l), _stack_infos(infos) if collect
                     else None)
 
-        return self._run(self._key("eval_epoch", dev_data, staged,
-                                   gating_value, bool(collect)), body)
+        return self._run(*self._key("eval_epoch", (*dev_data, *staged),
+                                    gating_value, bool(collect)), body)
 
     def eval_step_staged(self, dev_data, staged: Staged, k: int,
                          gating_value=None):
@@ -547,8 +531,9 @@ class Trainer:
             x, _y, mask = (leaf[idx] for leaf in dev_data)
             return self._eval_forward(x, mask, gating_value)
 
-        return self._run(self._key("eval_step", dev_data, staged,
-                                   gating_value), body)
+        return self._run(*self._key("eval_step", (*dev_data, *staged,
+                                                  self._k), gating_value),
+                         body)
 
     def eval_step_indexed(self, dev_data, idx, gating_value=None):
         """(logits, ModelInfo) of rows `idx` of `device_data`, in eval mode;
@@ -566,8 +551,8 @@ class Trainer:
             x, _y, mask = (leaf[buf] for leaf in dev_data)
             return self._eval_forward(x, mask, gating_value)
 
-        return self._run(self._key("eval_indexed", dev_data, None, b,
-                                   buf.data_ptr(), gating_value), body)
+        return self._run(*self._key("eval_indexed", (*dev_data, buf),
+                                    gating_value), body)
 
     # ---- snapshot ---------------------------------------------------------
     def _named(self) -> List[str]:
@@ -590,7 +575,10 @@ class Trainer:
                 "rng": self.generator.get_state().numpy()}
 
     def load_state_tree(self, tree: Dict[str, Any]) -> None:
-        """The reverse of `state_tree`."""
+        """The reverse of `state_tree`. Drops the captured graphs, which
+        read the optimizer state that this replaces."""
+        self._graphs.clear()
+        self._warm.clear()
         load_jax_params(self.model, tree["params"])
         opt = tree["opt_state"]
         per_param = {k: port_layout(self.model, opt[k])

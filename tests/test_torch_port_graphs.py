@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from sie_tpu_torch.config import Config
-from sie_tpu_torch.train.trainer import Trainer
+from sie_tpu_torch.train.trainer import Optimizer, Trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -139,6 +139,68 @@ def test_eval_graphs_equal_eager_eval(card):
             assert torch.equal(got.argmax(-1), want.argmax(-1))
         assert float((info.eta[k] - want_info.eta).abs().max()) <= 5e-2
         assert ce.shape == (STEPS, B) and mloss.shape == (STEPS,)
+
+
+# the cases of tests/test_torch_port_train.py::test_optimizer_matches_optax,
+# which holds the CPU Optimizer against optax
+OPT_CASES = {
+    "clip_accum_cosine_warmup": dict(gradient_clip=0.5,
+                                     gradient_accumulation_steps=2,
+                                     lr_decay=True, lr_warmup_epochs=1.0,
+                                     train_epochs=3),
+    "plain_adam": dict(),
+    "clip_cosine": dict(gradient_clip=0.8, lr_decay=True, train_epochs=2),
+}
+
+
+@pytest.mark.parametrize("captured", [False, True], ids=["eager", "graph"])
+@pytest.mark.parametrize("case", sorted(OPT_CASES))
+def test_card_optimizer_equals_cpu_optimizer(card, case, captured):
+    """The Optimizer on the card (capturable Adam, the learning rate
+    computed on the card from its count), eagerly or as replays of one
+    captured graph per place in an accumulation group, against the CPU
+    Optimizer on the same gradients, within 1e-6 after every step."""
+    kw = dict(lr=0.01, **OPT_CASES[case])
+    rng = np.random.default_rng(0)
+    shapes = [(4, 3), (5,), (2, 2, 2)]
+    p0 = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    grads = [[rng.normal(size=s).astype(np.float32) * scale for s in shapes]
+             for scale in (0.1, 1.0, 0.3, 0.05, 0.8, 0.2, 0.6, 0.1)]
+    host = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in p0]
+    dev = [torch.nn.Parameter(torch.from_numpy(p.copy()).to(card))
+           for p in p0]
+    opt_h = Optimizer(Config(**kw), 3, host)
+    opt_d = Optimizer(Config(**kw), 3, dev)
+    static = [torch.zeros_like(p) for p in dev]   # the gradients read
+    warm, graphs = set(), {}
+    for i, g in enumerate(grads):
+        for p, a in zip(host, g):
+            p.grad = torch.from_numpy(a.copy())
+        opt_h.device_step(opt_h.mini_step)
+        opt_h.advance()
+        pos = opt_d.mini_step
+        for st, a in zip(static, g):
+            st.copy_(torch.from_numpy(a))
+        if captured and pos in warm:
+            if pos not in graphs:
+                graphs[pos] = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graphs[pos]):
+                    for p, st in zip(dev, static):
+                        p.grad = st
+                    opt_d.device_step(pos)
+            graphs[pos].replay()
+        else:
+            for p, st in zip(dev, static):
+                p.grad = st
+            opt_d.device_step(pos)
+            warm.add(pos)
+        opt_d.advance()
+        for got, want in zip(dev, host):
+            np.testing.assert_allclose(got.detach().cpu().numpy(),
+                                       want.detach().numpy(), atol=1e-6,
+                                       rtol=1e-6, err_msg=f"step {i}")
+    assert len(graphs) == (opt_d.accum if captured else 0)
+    assert opt_d.count == opt_h.count == float(opt_d.count_t)
 
 
 def test_failing_capture_raises(card):

@@ -166,3 +166,18 @@ def test_staged_steps_match_the_jax_package_under_accumulation():
         assert np.abs(p.detach().numpy() - want[name]).max() <= \
             2 * 2.1 * KW["lr"], name
     assert t.optimizer.count == 2 and t.optimizer.mini_step == 0
+
+
+def test_graph_keys_hold_shapes_and_a_load_drops_the_graphs():
+    """A graph's key tells apart two tensors at one address with other
+    shapes, and keeps the tensors it reads; loading a state drops the
+    graphs, which read the optimizer state that the load replaces."""
+    a = torch.zeros(6)
+    key, reads = Trainer._key("train_step", (a,), 0)
+    assert key != Trainer._key("train_step", (a[:3],), 0)[0]
+    assert reads[0] is a
+    (t, _dev), = _trainers(1)
+    t._graphs[key] = (None, None, reads)
+    t._warm.add(key)
+    t.load_state_tree(t.state_tree())
+    assert not t._graphs and not t._warm

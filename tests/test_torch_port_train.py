@@ -30,7 +30,7 @@ from sie_tpu_torch.models import layers as layers_mod
 from sie_tpu_torch.models import sbm as sbm_mod
 from sie_tpu_torch.models.registry import build_model
 from sie_tpu_torch.train.trainer import (Optimizer, Trainer, compute_beta,
-                                         weighted_ce)
+                                         make_schedule, weighted_ce)
 
 KW = dict(model="InterpGN", dnn_type="Transformer", seq_len=24, enc_in=3,
           num_class=3, num_shapelet=2, d_model=16, d_ff=32, n_heads=2,
@@ -70,7 +70,8 @@ def test_optimizer_matches_optax(case):
         jp = optax.apply_updates(jp, updates)
         for p, a in zip(tp, g):
             p.grad = torch.from_numpy(a.copy())
-        moved = opt.step()
+        moved = opt.device_step(opt.mini_step)
+        opt.advance()
         assert moved == ((i + 1) % kw.get("gradient_accumulation_steps", 1)
                          == 0)
         for got, want in zip(tp, jp):
@@ -78,6 +79,32 @@ def test_optimizer_matches_optax(case):
                                        atol=1e-6, rtol=1e-6,
                                        err_msg=f"step {i}")
     assert opt.count == len(grads) // kw.get("gradient_accumulation_steps", 1)
+
+
+@pytest.mark.parametrize("case", sorted(OPT_CASES))
+def test_schedule_matches_optax(case):
+    """make_schedule at every optimizer count of train_epochs + 1 epochs
+    against the learning rate the JAX package's optimizer applies: its
+    update over that of the same optimizer at a constant lr of 1, on the
+    same gradients."""
+    kw = dict(lr=0.01, **OPT_CASES[case])
+    steps_per_epoch = 3
+    accum = kw.get("gradient_accumulation_steps", 1)
+    unit = dict(kw, lr=1.0, lr_decay=False, lr_warmup_epochs=0.0)
+    txs = [jax_make_optimizer(JConfig(**c), steps_per_epoch)
+           for c in (kw, unit)]
+    p = jnp.zeros((1,), jnp.float32)
+    states = [tx.init(p) for tx in txs]
+    want = []
+    for i in range((kw.get("train_epochs", 10) + 1) * steps_per_epoch):
+        g = jnp.full((1,), 0.3 + 0.1 * i, jnp.float32)
+        (u, states[0]), (u1, states[1]) = (
+            tx.update(g, st, p) for tx, st in zip(txs, states))
+        if (i + 1) % accum == 0:
+            want.append(float(u[0]) / float(u1[0]))
+    schedule = make_schedule(Config(**kw), steps_per_epoch)
+    got = [float(schedule(torch.tensor(float(c)))) for c in range(len(want))]
+    np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
 def test_loss_pieces_match():
