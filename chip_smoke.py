@@ -89,8 +89,37 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      test accuracy and CSV, CUDA graphs captured, every kernel of the path
      launched (counts read over this first run); a re-run that skips
      training and gives the same test accuracy; a run under --scan_epoch;
- 16. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
-     timed training steps of each kernel's path), then the device line.
+ 16. InterpGN + FCN as run_uea.sh trains it (f32, num_shapelet 10,
+     lambda_div and lambda_reg 0.1, epsilon 1, gating_value 1, lr 5e-3)
+     at the EigenWorms shape (6 channels, 17984 steps, 5 classes), B=8:
+     6 eager `train_step_indexed` steps, each followed by the same step
+     through `train_step_staged` (warm-up, capture, replays) from the same
+     weights and generator state; each eager step, the warm-up and the
+     capture launch K1 = K2 = the polyphase components of the strided banks
+     and no other kernel; losses, parameters and BatchNorm buffers of the
+     graph bit-equal to eager after every step; every parameter and buffer
+     moved; eval logits of 2 rows against the CPU plain path within 1e-4,
+     buffers unmoved by eval; the median eager and graph step times;
+ 17. the same with dnn_type ResNet, 3 steps, graph against eager within
+     1e-5 (losses) and 2.1 x lr (tensors);
+ 18. EEGCNN as bench.py's second configuration times it (CHISCO shape,
+     B=64, amp, the eegcnn_* defaults, d_model 512): 8 eager steps against
+     graph steps at dropout 0, bit-equal, no kernel launched; 3 at the
+     config's dropout 0.1 within the limits above; a 64-row request
+     through `Predictor(cfg, variables)` from the trained model's
+     flax-layout variables (batch_stats included) against the CPU plain
+     path within 5e-2, same classes; request and step medians;
+ 19. the command line with BatchNorm: run_uea.sh's command (InterpGN +
+     FCN, --no-amp, its shapelet flags) on a synthetic UEA set at
+     SelfRegulationSCP2's shape (7 x 1152, 2 classes, 200/180 cases),
+     B=32, 3 epochs; and `--model EEGCNN` on synthetic CHISCO, 2 epochs;
+     each trains with finite losses and tests, its checkpoint holds
+     batch_stats under the flax names, and a re-run skips training at the
+     same test accuracy;
+ 20. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
+     timed training steps of each kernel's path, K1 and K2 adding those of
+     phases 16, 17 and 19's UEA run, split in `launches_by_path`), then the
+     device line.
 
 The K5 and K6 phases (4, 6, 8, 12) run under a time limit that ends the
 process, so that a kernel that hangs fails the run instead of holding the
@@ -1333,17 +1362,22 @@ def long_config(**kw):
                   dropout=0.0, amp=False, seed=0, **kw)
 
 
-def phase_train_long() -> dict:
+def strided_launches(cfg, tag: str) -> dict:
+    """K1 and K2 launches a training step of an EigenWorms-shaped InterpGN:
+    one per polyphase component of each of its strided banks."""
     from sie_tpu_torch.models.sbm import bank_lengths
     from sie_tpu_torch.ops.shapelet import shapelet_stride
-    cfg = long_config()
     strides = [shapelet_stride(cfg.seq_len, l) for l in bank_lengths(cfg)]
     if min(strides) < 2:
         fail(f"EigenWorms-shaped banks: strides {strides}, want all > 1")
-    # one K1 (K2) launch per polyphase component of each strided bank
-    want = {"K1": sum(strides), "K2": sum(strides), "K5": 2, "K6": 2}
-    print(f"[train long] banks L={bank_lengths(cfg)}, strides {strides}; "
-          f"launches a step {want}")
+    print(f"[{tag}] banks L={bank_lengths(cfg)}, strides {strides}")
+    return {"K1": sum(strides), "K2": sum(strides)}
+
+
+def phase_train_long() -> dict:
+    cfg = long_config()
+    want = dict(strided_launches(cfg, "train long"), K5=2, K6=2)
+    print(f"[train long] launches a step {want}")
     ds = random_rows(cfg, 2 * cfg.batch_size)
     _, dev, sched, _, _, launches = train_steps(
         cfg, ds, want, LONG_WARMUP, LONG_STEPS, "train long")
@@ -1573,6 +1607,297 @@ def phase_cli() -> dict:
     return launches
 
 
+# ---- the BatchNorm backbones (InterpGN + FCN/ResNet, EEGCNN) -------------
+UEA_SCHEDULE = 4       # steps of the staged schedule of the UEA paths
+UEA_STEPS = 6          # eager steps of InterpGN + FCN, each followed by the
+# same step as a graph (warm-up, capture, replays)
+RESNET_STEPS = 3       # the same for InterpGN + ResNet
+F32_TOL = 1e-4         # f32 logits, card vs CPU plain path (summation order)
+EEG_ROWS = 256         # random CHISCO-shaped rows held on the card
+EEG_STEPS = 8          # eager EEGCNN steps, each followed by a graph step
+EEG_DROPOUT_STEPS = 3  # the same at the config's dropout 0.1
+
+
+def uea_config(dnn_type: str):
+    """InterpGN + `dnn_type` as run_uea.sh trains it (f32; num_shapelet 10,
+    lambda_div and lambda_reg 0.1, epsilon 1, gating_value 1, lr 5e-3) at
+    the EigenWorms shape (sie_tpu/data/uea.py: 6 channels, 17984 steps, 5
+    classes) with the batch of 8 that run_uea.sh advises for it."""
+    from sie_tpu_torch.config import Config
+    return Config(model="InterpGN", dnn_type=dnn_type, data="UEA",
+                  dataset="EigenWorms", seq_len=LONG_T, enc_in=6,
+                  num_class=5, num_shapelet=10, lambda_div=0.1,
+                  lambda_reg=0.1, epsilon=1.0, gating_value=1.0, lr=5e-3,
+                  batch_size=8, dropout=0.0, amp=False, seed=0)
+
+
+def eegcnn_config(**kw):
+    """bench.py's second configuration (bench_eegcnn): EEGCNN at the
+    CHISCO shape, B=64, T=845, C=122, 3 classes, amp, the eegcnn_*
+    defaults of Config and its d_model 512 (so cnn_projection is on)."""
+    from sie_tpu_torch.config import Config
+    return Config(data="EEG3", model="EEGCNN", seq_len=845, enc_in=122,
+                  num_class=3, batch_size=64, amp=True, seed=0, **kw)
+
+
+def batch_stats(model) -> dict:
+    from sie_tpu_torch.compat.from_jax import batch_stats_buffers
+    return {k: v.clone() for k, v in batch_stats_buffers(model).items()}
+
+
+def graph_against_eager(cfg, ds, sched, n: int, want: dict, tag: str,
+                        exact: bool):
+    """Two trainers from the seed-0 weights and generator state, `ds` held
+    on the card: `n` eager `train_step_indexed` steps over the schedule
+    `sched`, each followed by the same step through `train_step_staged`
+    (the first its eager warm-up, the second the capture of its CUDA
+    graph, later ones replays). Each eager step launches `want`, the
+    warm-up and the capture the same, a replay nothing. After every step
+    the losses, parameters and BatchNorm buffers of the two are compared:
+    bit for bit when `exact`, else within LOSS_RTOL and PARAM_TOL x lr.
+    Fails unless every buffer and parameter moved. Returns (the eager
+    trainer, the median eager and graph step ms over the replays, whether
+    all was bit-equal)."""
+    from sie_tpu_torch.train.trainer import Trainer
+    counts = Counts()
+    mk = lambda: Trainer(cfg, steps_per_epoch=len(sched), device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+    eager, graph = mk(), mk()
+    dev_e, dev_g = eager.device_data("train", ds), graph.device_data(
+        "train", ds)
+    staged = graph.stage_steps(sched, 1.0)
+    start_p = {k: p.detach().clone() for k, p in
+               eager.model.named_parameters()}
+    start_s = batch_stats(eager.model)
+    expect, none = Counts.full(want), Counts.full({})
+    times = {"eager": [], "graph": []}
+    bit_equal = True
+
+    def timed(path, fn):
+        c0 = counts.read()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = fn()
+        torch.cuda.synchronize()
+        times[path].append(1e3 * (time.perf_counter() - t0))
+        return loss, counts.since(c0)
+
+    for i in range(n):
+        k = i % len(sched)
+        le, got = timed("eager", lambda: eager.train_step_indexed(
+            dev_e, sched[k][0], sched[k][1], 1.0))
+        if got != expect or not np.isfinite(float(le)):
+            fail(f"{tag} eager step {i}: launches {got}, want {expect}; "
+                 f"loss {float(le)}")
+        lg, got = timed("graph", lambda: graph.train_step_staged(
+            dev_g, staged, k))
+        if got != (expect if i < 2 else none):
+            fail(f"{tag} graph step {i}: launches {got}")
+        pairs = [(le, lg)] + [(p.detach(), q.detach()) for p, q in zip(
+            eager.model.parameters(), graph.model.parameters())] + [
+            (a, b) for a, b in zip(batch_stats(eager.model).values(),
+                                   batch_stats(graph.model).values())]
+        same = all(torch.equal(a, b) for a, b in pairs)
+        bit_equal = bit_equal and same
+        if exact and not same:
+            fail(f"{tag} step {i}: the graph's loss, parameters or "
+                 f"BatchNorm buffers differ from the eager step's")
+        err = abs(float(lg) - float(le)) / abs(float(le))
+        worst = max(float((p - q).abs().max()) for p, q in pairs[1:])
+        if err > LOSS_RTOL or worst > PARAM_TOL * cfg.lr:
+            fail(f"{tag} step {i}: graph loss {float(lg)} against eager "
+                 f"{float(le)}; worst tensor difference {worst}")
+    still = [k for k, p in eager.model.named_parameters()
+             if torch.equal(p, start_p[k])]
+    frozen = [k for k, v in batch_stats(eager.model).items()
+              if torch.equal(v, start_s[k])]
+    if still or frozen or not start_s:
+        fail(f"{tag}: parameters {still} or BatchNorm buffers {frozen} did "
+             f"not move ({len(start_s)} buffers)")
+    med = {p: float(np.median(t[2:])) for p, t in times.items()}
+    for path, t in times.items():
+        print(f"[{tag}] ms per step (B={cfg.batch_size}), {path}: "
+              + ", ".join(f"{v:.3f}" for v in t))
+    print(f"[{tag}] {n} steps: losses, parameters and {len(start_s)} "
+          f"BatchNorm buffers of the graph bit-equal to eager: {bit_equal}; "
+          f"every buffer moved; medians of steps 3-{n}: eager "
+          f"{med['eager']:.3f} ms, graph {med['graph']:.3f} ms")
+    return eager, med, bit_equal
+
+
+def eval_against_cpu(trainer, ds, rows: int, tol: float, tag: str) -> None:
+    """Eval logits of `rows` rows on the card (`Trainer.eval_step`, running
+    statistics) against a CPU copy of the model (the plain path), within
+    `tol`, with the same argmax; the buffers do not move."""
+    before = batch_stats(trainer.model)
+    batch = (ds.x[:rows], ds.y[:rows], ds.padding_mask[:rows],
+             np.ones(rows, np.float32))
+    got, _ = trainer.eval_step(batch)
+    cpu = copy.deepcopy(trainer.model).cpu().eval()
+    with torch.no_grad():
+        want, _ = cpu(torch.from_numpy(batch[0]), torch.from_numpy(batch[2]))
+    got = got.float().cpu()
+    e = float((got - want).abs().max())
+    if not e <= tol or not torch.equal(got.argmax(-1), want.argmax(-1)):
+        fail(f"{tag} eval logits differ from the CPU plain path: {e}")
+    after = batch_stats(trainer.model)
+    if not all(torch.equal(before[k], after[k]) for k in before):
+        fail(f"{tag}: an eval step moved the BatchNorm buffers")
+    print(f"[{tag}] eval, {rows} rows: card vs CPU plain path max "
+          f"|dlogits| {e:.3e} (limit {tol}), same argmax; buffers unmoved")
+
+
+def phase_uea(dnn_type: str, steps: int, exact: bool, tag: str) -> dict:
+    """InterpGN + `dnn_type` at the EigenWorms shape as run_uea.sh trains
+    it: eager steps against graph replays, launches (K1 = K2 = the
+    polyphase components of the strided banks, K3-K6 none), moved
+    BatchNorm buffers, eval logits against the CPU plain path. Returns
+    the launches counted over the path's run."""
+    cfg = uea_config(dnn_type)
+    want = strided_launches(cfg, tag)
+    ds = random_rows(cfg, UEA_SCHEDULE * cfg.batch_size)
+    rng = np.random.default_rng(3)
+    sched = [(rng.permutation(len(ds.y))[:cfg.batch_size],
+              np.ones(cfg.batch_size, np.float32))
+             for _ in range(UEA_SCHEDULE)]
+    counts = Counts()
+    counts.zero()   # the path's main run
+    eager, _, _ = graph_against_eager(cfg, ds, sched, steps, want, tag,
+                                      exact)
+    launches = counts.read()
+    eval_against_cpu(eager, ds, 2, F32_TOL, tag)
+    print(f"[{tag}] launches over the run {launches}")
+    return launches
+
+
+def phase_eegcnn(smi: str) -> None:
+    """bench.py's EEGCNN: graph replays against eager steps (bit-equal at
+    dropout 0; within limits at the config's dropout 0.1), no kernel
+    launch, and a 64-row request through Predictor(cfg, variables) from
+    the flax-layout variables of the trained model against the CPU."""
+    from sie_tpu_torch.compat.from_jax import to_jax_variables
+    from sie_tpu_torch.serve import Predictor
+    cfg = eegcnn_config(eegcnn_dropout1=0.0, eegcnn_dropout2=0.0)
+    ds = random_rows(cfg, EEG_ROWS)
+    rng = np.random.default_rng(4)
+    sched = [(rng.permutation(EEG_ROWS)[:cfg.batch_size],
+              np.ones(cfg.batch_size, np.float32)) for _ in range(4)]
+    counts = Counts()
+    counts.zero()   # the path's main run
+    eager, med, _ = graph_against_eager(cfg, ds, sched, EEG_STEPS, {},
+                                        "eegcnn", exact=True)
+    if any(counts.read().values()):
+        fail(f"EEGCNN launched kernels: {counts.read()}")
+    graph_against_eager(eegcnn_config(), ds, sched, EEG_DROPOUT_STEPS, {},
+                        "eegcnn dropout 0.1", exact=False)
+    variables = to_jax_variables(eager.model)
+    card = Predictor(cfg, variables, device="cuda", max_batch=64)
+    cpu = Predictor(cfg, variables, device="cpu", max_batch=64)
+    x = ds.x[:64]
+    card.predict(x)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        got = card.predict(x)
+        times.append(1e3 * (time.perf_counter() - t0))
+    want = cpu.predict(x)
+    e = float(np.abs(got.logits - want.logits).max())
+    if not np.isfinite(got.logits).all() or not e <= SERVE_TOL or \
+            not (got.classes == want.classes).all():
+        fail(f"EEGCNN served logits differ from the CPU plain path: {e}")
+    scopes = len(variables["batch_stats"]["eegcnn"])
+    print(f"[eegcnn] Predictor(cfg, variables) with {scopes} BatchNorm "
+          f"scopes: 64 rows within {e:.3e} of the CPU plain path "
+          f"(limit {SERVE_TOL}), same classes; ms per request: "
+          + ", ".join(f"{t:.3f}" for t in times)
+          + f" (median {float(np.median(times)):.3f}); step medians eager "
+          f"{med['eager']:.3f}, graph {med['graph']:.3f} ms ({smi})")
+
+
+UEA_CLI = ("--data UEA --dataset SelfRegulationSCP2 --model InterpGN "
+           "--dnn_type FCN --num_shapelet 10 --lambda_div 0.1 "
+           "--lambda_reg 0.1 --epsilon 1 --gating_value 1 --lr 5e-3 "
+           "--no-amp --batch_size 32 --train_epochs 3 --patience 50 "
+           "--log_interval 1 --seed 0")
+EEG_CLI = ("--data EEG3 --synthetic_trials 640 --target_channels 122 "
+           "--target_timepoints 1651 --model EEGCNN --batch_size 64 "
+           "--lr 5e-3 --train_epochs 2 --patience 50 --log_interval 1 "
+           "--seed 0")
+
+
+def cli_twice(argv, epochs: int, bn_scopes: list, tag: str) -> dict:
+    """argv through the command line: it trains `epochs` epochs with
+    finite losses and tests; its checkpoint holds batch_stats under the
+    flax names `bn_scopes`; a re-run skips training at the same test
+    accuracy. Returns the launches over the first run."""
+    from sie_tpu_torch.run import args_to_config, get_args
+    from sie_tpu_torch.train.checkpoint import load_checkpoint
+    counts = Counts()
+    t0 = time.perf_counter()
+    counts.zero()
+    text, res = run_cli(argv)
+    launches = counts.read()
+    secs = time.perf_counter() - t0
+    epochs_seen = re.findall(r"Epoch \d+/\d+ \| Train Loss (\S+)", text)
+    if len(epochs_seen) != epochs or not all(np.isfinite(float(v))
+                                             for v in epochs_seen):
+        fail(f"{tag}: the CLI run logged epochs {epochs_seen}")
+    if "Test accuracy" not in text:
+        fail(f"{tag}: the CLI run wrote no test accuracy")
+    cfg = args_to_config(get_args(argv), 0)
+    ckdir = os.path.join(cfg.checkpoint_dir, cfg.checkpoint_key())
+    stats = load_checkpoint(ckdir)["batch_stats"]
+    scopes = sorted(f"{a}/{b}" for a, v in stats.items() for b in v)
+    if scopes != bn_scopes or not all(
+            np.isfinite(np.asarray(leaf)).all() and np.asarray(leaf).size
+            for v in stats.values() for bn in v.values()
+            for leaf in bn.values()):
+        fail(f"{tag}: checkpoint batch_stats scopes {scopes}, want "
+             f"{bn_scopes}")
+    text2, res2 = run_cli(argv)
+    acc = res[0][2]["accuracy"]
+    if "checkpoint exists — skipping training" not in text2 or \
+            res2[0][2]["accuracy"] != acc:
+        fail(f"{tag}: the re-run did not skip training or gave accuracy "
+             f"{res2[0][2]['accuracy']}, not {acc}")
+    print(f"[{tag}] {secs:.1f} s for the first run; test accuracy "
+          f"{acc:.2f}%, the same on the re-run; checkpoint batch_stats "
+          f"{scopes}; launches over the first run {launches}")
+    return launches
+
+
+def phase_cli_bn() -> dict:
+    """run_uea.sh's command (InterpGN + FCN, f32, its shapelet flags) on
+    a synthetic UEA set at SelfRegulationSCP2's shape (7 dimensions, 1152
+    steps, 2 classes, 200 train and 180 test cases) with B=32 and 3
+    epochs; EEGCNN on synthetic CHISCO, 2 epochs. Returns the UEA run's
+    launches."""
+    import tempfile
+    from sie_tpu_torch.data.synthetic import write_synthetic_uea
+    with tempfile.TemporaryDirectory() as tmp:
+        write_synthetic_uea(os.path.join(tmp, "uea"), "SelfRegulationSCP2",
+                            n_train=200, n_test=180, n_dims=7, length=1152,
+                            n_classes=2, seed=0)
+        dirs = lambda name: ["--result_dir", os.path.join(tmp, "result"),
+                             "--cache_dir", os.path.join(tmp, "cache"),
+                             "--checkpoint_dir", os.path.join(tmp, name)]
+        uea = cli_twice(UEA_CLI.split() + ["--data_root",
+                                           os.path.join(tmp, "uea")]
+                        + dirs("ck_uea"), 3,
+                        ["deep_model/bn1", "deep_model/bn2",
+                         "deep_model/bn3"], "cli uea_fcn")
+        if not uea["K1"] or not uea["K2"]:
+            fail(f"the UEA CLI run launched no K1/K2: {uea}")
+        eeg = cli_twice(EEG_CLI.split() + ["--data_root",
+                                           os.path.join(tmp, "no_chisco")]
+                        + dirs("ck_eeg"), 2,
+                        ["eegcnn/block1_bn1", "eegcnn/block1_bn2",
+                         "eegcnn/block2_bn"], "cli eegcnn")
+        if any(eeg.values()):
+            fail(f"the EEGCNN CLI run launched kernels: {eeg}")
+    return uea
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -1594,7 +1919,14 @@ def main() -> None:
     long_launches = phase_train_long()
     phase_graphs(smi)
     phase_cli()
-    # each row's launches: the timed training steps of its own path
+    uea_fcn = phase_uea("FCN", UEA_STEPS, True, "uea_fcn")
+    uea_resnet = phase_uea("ResNet", RESNET_STEPS, False, "uea_resnet")
+    phase_eegcnn(smi)
+    cli_uea = phase_cli_bn()
+    # each row's launches: the timed training steps of its own path, and
+    # for K1/K2 also the runs of the BatchNorm backbones' paths
+    bn_paths = {"uea_fcn": uea_fcn, "uea_resnet": uea_resnet,
+                "cli_uea_fcn": cli_uea}
     paths = ((k1, launches, "K1"), (k2, launches, "K2"),
              (k3, fused, "K3"), (k4, fused, "K4"), (k5, launches, "K5"),
              (k6, launches, "K6"), (k7, long_launches, "K5"),
@@ -1604,10 +1936,16 @@ def main() -> None:
         d["launches"] = counted[key]
         if not d["launches"]:
             fail(f"{d['name']} was not launched on its path")
+        if key in ("K1", "K2"):
+            d["launches_by_path"] = {"train": counted[key], **{
+                p: c[key] for p, c in bn_paths.items()}}
+            d["launches"] += sum(c[key] for c in bn_paths.values())
         kernels.append(d)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: d[k] for k in keys} for d in kernels]}))
+    print(json.dumps({"kernels": [
+        {k: d[k] for k in keys + ("launches_by_path",) if k in d}
+        for d in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

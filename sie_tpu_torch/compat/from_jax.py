@@ -1,22 +1,29 @@
-"""Carry parameters between the JAX package's flax trees and the port's
+"""Carry variables between the JAX package's flax trees and the port's
 modules, in both directions.
 
 The port names its submodules after the flax scopes, so a flax path maps
-to a PyTorch parameter name by three renames (`TokenEmbedding_0` ->
-`token_embedding`, `FullAttentionLayer_0` -> `attention`, `layer_<i>` ->
-`layers.<i>`) and by the leaf's kind:
+to a PyTorch parameter or buffer name by three renames (`TokenEmbedding_0`
+-> `token_embedding`, `FullAttentionLayer_0` -> `attention`, `layer_<i>`
+-> `layers.<i>`) and by the leaf's kind:
 
 - Dense `kernel` (in, out)            -> Linear `weight`, transposed;
 - Conv `kernel` (k, C_in, C_out)      -> Conv1d `weight`, transpose(2, 1, 0);
-- LayerNorm `scale`                   -> `weight`;
+- Conv `kernel` (kh, kw, C_in/groups, C_out)
+                                      -> Conv2d `weight`, transpose(3, 2, 0, 1);
+- LayerNorm and BatchNorm `scale`     -> `weight`;
 - `bias`, and the raw parameters `shapelets_<i>` (n, C, L),
-  `threshold_<i>`, `bilinear_w`, `pos_embed` -> as they are.
+  `threshold_<i>`, `bilinear_w`, `pos_embed` -> as they are;
+- `batch_stats` `mean` and `var`      -> the BatchNorm's buffers.
 
-Every flax leaf is consumed exactly once and every PyTorch parameter is
+`load_jax_variables` fills a module from {"params", "batch_stats"};
+`load_jax_params` is its params-only case. Every flax leaf is consumed
+exactly once and every PyTorch parameter (and every BatchNorm buffer) is
 filled: an unknown, duplicate or missing leaf, or a shape that differs,
-raises `ParamLoadError`. `to_jax_params` is the reverse: the same renames
-and transposes undone, every PyTorch parameter consumed exactly once, so a
-flax tree survives `load_jax_params` then `to_jax_params` unchanged.
+raises `ParamLoadError`. Values are copied in place, so a captured CUDA
+graph that reads them stays valid. `to_jax_params` and
+`to_jax_variables` are the reverse: the same renames and transposes
+undone, every tensor consumed exactly once, so a flax tree survives a load
+and the reverse unchanged.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from typing import Any, Dict, Mapping as MappingT, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from sie_tpu_torch.models.layers import BatchNorm
 
 
 class ParamLoadError(ValueError):
@@ -70,44 +79,73 @@ def _target(module: nn.Module, path: Tuple[str, ...],
             value = value.T
         elif isinstance(owner, nn.Conv1d):
             value = value.transpose(2, 1, 0)
+        elif isinstance(owner, nn.Conv2d):
+            value = value.transpose(3, 2, 0, 1)
         else:
             raise ParamLoadError(f"flax kernel {path} maps to "
                                  f"{type(owner).__name__}, not a Linear or "
-                                 f"Conv1d")
+                                 f"Conv1d/Conv2d")
         leaf = "weight"
     elif leaf == "scale":
-        if not isinstance(owner, nn.LayerNorm):
+        if not isinstance(owner, (nn.LayerNorm, BatchNorm)):
             raise ParamLoadError(f"flax scale {path} maps to "
-                                 f"{type(owner).__name__}, not a LayerNorm")
+                                 f"{type(owner).__name__}, not a LayerNorm "
+                                 f"or BatchNorm")
         leaf = "weight"
     return (f"{owner_name}.{leaf}" if owner_name else leaf), value
 
 
-def load_jax_params(module: nn.Module, params: Any) -> nn.Module:
-    """Fill `module` from the flax parameter tree `params` (the value of
-    `variables["params"]`, as numpy arrays or anything numpy reads)."""
-    targets = dict(module.named_parameters())
+def batch_stats_buffers(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """{name: buffer} of every BatchNorm's running `mean` and `var` in
+    `module`: the port's counterpart of flax's `batch_stats`."""
+    return {f"{m}.{leaf}" if m else leaf: getattr(bn, leaf)
+            for m, bn in module.named_modules() if isinstance(bn, BatchNorm)
+            for leaf in ("mean", "var")}
+
+
+def _fill(module: nn.Module, tree: Any, targets: Dict[str, torch.Tensor],
+          what: str) -> None:
+    """Copies every leaf of the flax tree into its target tensor in place;
+    each target filled exactly once."""
     filled: Dict[str, Tuple[str, ...]] = {}
     with torch.no_grad():
-        for path, value in _flatten(params).items():
+        for path, value in _flatten(tree).items():
             name, value = _target(module, path, value)
             if name not in targets:
-                raise ParamLoadError(f"flax leaf {path} has no parameter "
+                raise ParamLoadError(f"flax leaf {path} has no {what} "
                                      f"{name!r} in the port")
             if name in filled:
                 raise ParamLoadError(f"flax leaves {filled[name]} and {path} "
                                      f"both map to {name!r}")
-            p = targets[name]
-            if tuple(value.shape) != tuple(p.shape):
+            t = targets[name]
+            if tuple(value.shape) != tuple(t.shape):
                 raise ParamLoadError(f"flax leaf {path} has shape "
                                      f"{value.shape}; {name!r} has "
-                                     f"{tuple(p.shape)}")
-            p.copy_(torch.tensor(value, dtype=torch.float32))
+                                     f"{tuple(t.shape)}")
+            t.copy_(torch.tensor(value, dtype=torch.float32))
             filled[name] = path
     missing = sorted(set(targets) - set(filled))
     if missing:
-        raise ParamLoadError(f"no flax leaf filled {len(missing)} parameters, "
+        raise ParamLoadError(f"no flax leaf filled {len(missing)} {what}s, "
                              f"e.g. {missing[:6]}")
+
+
+def load_jax_params(module: nn.Module, params: Any) -> nn.Module:
+    """Fill `module`'s parameters from the flax parameter tree `params`
+    (the value of `variables["params"]`, as numpy arrays or anything numpy
+    reads). BatchNorm buffers are left as they are."""
+    _fill(module, params, dict(module.named_parameters()), "parameter")
+    return module
+
+
+def load_jax_variables(module: nn.Module, variables: MappingT[str, Any]
+                       ) -> nn.Module:
+    """Fill `module` from flax variables {"params": ..., "batch_stats":
+    ...}: the parameters, and every BatchNorm's running mean and variance
+    (a model without BatchNorm takes an empty or absent batch_stats)."""
+    load_jax_params(module, variables["params"])
+    _fill(module, variables.get("batch_stats", {}),
+          batch_stats_buffers(module), "batch_stats buffer")
     return module
 
 
@@ -134,8 +172,8 @@ def _flax_scope(part: str, child: nn.Module) -> str:
 def to_jax_tree(module: nn.Module,
                 tensors: MappingT[str, torch.Tensor]) -> Dict[str, Any]:
     """The flax-layout tree (nested dicts of float32 numpy arrays) of
-    per-parameter tensors keyed by `module`'s parameter names: the
-    parameters themselves, or state of the same shapes."""
+    tensors keyed by `module`'s parameter or buffer names: the parameters
+    themselves, state of the same shapes, or the BatchNorm buffers."""
     tree: Dict[str, Any] = {}
     for name, value in tensors.items():
         parts = name.split(".")
@@ -153,7 +191,10 @@ def to_jax_tree(module: nn.Module,
             leaf, value = "kernel", value.T
         elif leaf == "weight" and isinstance(owner, nn.Conv1d):
             leaf, value = "kernel", value.transpose(2, 1, 0)
-        elif leaf == "weight" and isinstance(owner, nn.LayerNorm):
+        elif leaf == "weight" and isinstance(owner, nn.Conv2d):
+            leaf, value = "kernel", value.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and isinstance(owner, (nn.LayerNorm,
+                                                     BatchNorm)):
             leaf = "scale"
         node = tree
         for p in path:
@@ -169,3 +210,12 @@ def to_jax_params(module: nn.Module) -> Dict[str, Any]:
     """`module`'s parameters as the flax `params` tree that
     `load_jax_params` reads and the JAX package's models apply."""
     return to_jax_tree(module, dict(module.named_parameters()))
+
+
+def to_jax_variables(module: nn.Module) -> Dict[str, Any]:
+    """`module`'s variables as the flax tree {"params": ..., "batch_stats":
+    ...} that `load_jax_variables` reads and the JAX package's models
+    apply; batch_stats is {} for a model without BatchNorm, as the JAX
+    package writes it."""
+    return {"params": to_jax_params(module),
+            "batch_stats": to_jax_tree(module, batch_stats_buffers(module))}

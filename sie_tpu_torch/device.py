@@ -26,6 +26,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        # convolutions take deterministic algorithms, so a train step, eager
+        # or replayed as a CUDA graph, repeats bit for bit
+        torch.backends.cudnn.deterministic = True
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev

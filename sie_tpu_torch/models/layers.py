@@ -1,5 +1,6 @@
-"""Embeddings, attention and the encoder stack (counterpart of
-sie_tpu/models/layers.py), as the classification Transformer uses them.
+"""Embeddings, attention, the encoder stacks and batch norm (counterpart
+of sie_tpu/models/layers.py), as the classification Transformer, the FCN,
+ResNet and EEGCNN backbones use them.
 
 Numerics follow flax's dtype rules, so that the port and the JAX package
 round at the same places under `amp` (bf16 compute):
@@ -7,6 +8,8 @@ round at the same places under `amp` (bf16 compute):
   (`dense`, `TokenEmbedding`); parameters are stored in float32;
 - flax `LayerNorm` has no dtype, computes in float32 and returns float32
   from a bf16 input (`layer_norm`), with eps 1e-6;
+- flax `BatchNorm` (`BatchNorm`) computes its statistics in float32 and
+  returns `dtype`;
 - `jax.nn.gelu` is the tanh approximation (`gelu`).
 
 Parameters are initialised from an explicit `torch.Generator` with the
@@ -64,6 +67,45 @@ def linear(in_features: int, out_features: int, g: torch.Generator,
 
 def layer_norm_module(d: int) -> nn.LayerNorm:
     return nn.LayerNorm(d, eps=_LN_EPS)
+
+
+def conv(cls, in_channels: int, out_channels: int, kernel_size,
+         g: torch.Generator, bias: bool = True, groups: int = 1,
+         bias_fan_in: Optional[int] = None):
+    """nn.Conv1d or nn.Conv2d (`cls`) with U(-b, b) weight, b =
+    1/sqrt(fan_in), fan_in = in_channels/groups x the kernel's taps
+    (PyTorch's default and the JAX package's `torch_default_kernel_init`),
+    and a bias bounded by 1/sqrt(`bias_fan_in`, default fan_in)."""
+    c = nn.utils.skip_init(cls, in_channels, out_channels, kernel_size,
+                           groups=groups, bias=bias)
+    fan_in = c.weight[0].numel()
+    uniform_(c.weight, 1.0 / math.sqrt(fan_in), g)
+    if bias:
+        uniform_(c.bias, 1.0 / math.sqrt(max(bias_fan_in or fan_in, 1)), g)
+    return c
+
+
+def same_pads(kernel: Tuple[int, ...]) -> Tuple[int, ...]:
+    """F.pad's pads (last axis first) of flax's stride-1 "SAME" padding:
+    k - 1 taps per axis, (k - 1) // 2 of them before the input."""
+    pads: Tuple[int, ...] = ()
+    for k in reversed(kernel):
+        pads += ((k - 1) // 2, k - 1 - (k - 1) // 2)
+    return pads
+
+
+def conv_forward(c: nn.Module, x: torch.Tensor, dtype: torch.dtype,
+                 stride: int = 1, padding: int = 0,
+                 same: bool = False) -> torch.Tensor:
+    """flax `nn.Conv(dtype=dtype)` on a channels-first x: input, kernel and
+    bias cast to dtype; `padding` zeros on both sides of each axis, or
+    flax's "SAME" split (`same_pads`) when `same`."""
+    fn = F.conv1d if isinstance(c, nn.Conv1d) else F.conv2d
+    x = x.to(dtype)
+    if same:
+        x = F.pad(x, same_pads(c.kernel_size))
+    bias = None if c.bias is None else c.bias.to(dtype)
+    return fn(x, c.weight.to(dtype), bias, stride, padding, 1, c.groups)
 
 
 # ------------------------------------------------------------ dropout
@@ -294,3 +336,101 @@ class Encoder(nn.Module):
         for layer in self.layers:
             x = layer(x, generator)
         return layer_norm(self.norm, x)
+
+
+class TorchTransformerEncoderLayer(nn.Module):
+    """torch.nn.TransformerEncoderLayer's defaults as the EEGCNN head uses
+    them (the JAX package's `TorchTransformerEncoderLayer`): post-norm,
+    ReLU FFN, separate `q`/`k`/`v`/`out_proj` projections, `norm1`/`norm2`
+    and `linear1`/`linear2`, dropout at `dropout` after the softmax, the
+    attention and each FFN linear. A key with mask 0 scores -1e30 (not
+    -inf), so a fully masked row stays a uniform softmax. Plain torch
+    attention: the JAX package runs no kernel here either.
+
+    Init: q/k/v xavier-uniform with zero bias, out_proj PyTorch's Linear
+    default with zero bias, linear1/linear2 PyTorch's Linear defaults."""
+
+    def __init__(self, d_model: int, n_heads: int, d_ff: int,
+                 dropout: float, dtype: torch.dtype, g: torch.Generator):
+        super().__init__()
+        self.n_heads = n_heads
+        self.dropout = dropout
+        self.dtype = dtype
+        for name in ("q", "k", "v", "out_proj"):
+            lin = linear(d_model, d_model, g)
+            if name != "out_proj":
+                uniform_(lin.weight, math.sqrt(3.0 / d_model), g)
+            with torch.no_grad():
+                lin.bias.zero_()
+            setattr(self, name, lin)
+        self.norm1 = layer_norm_module(d_model)
+        self.linear1 = linear(d_model, d_ff, g)
+        self.linear2 = linear(d_ff, d_model, g)
+        self.norm2 = layer_norm_module(d_model)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (B, L, d_model); mask (B, L) bool, True where a key is kept."""
+        drop = lambda z: dropout(z, self.dropout, generator, self.training)
+        dt = self.dtype
+        b, l, d = x.shape
+        split = lambda z: z.unflatten(-1, (self.n_heads, -1)).transpose(1, 2)
+        q, k, v = (split(dense(x, lin, dt)) for lin in (self.q, self.k,
+                                                        self.v))
+        dk = q.shape[-1]
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)
+                              ) / math.sqrt(dk)            # (B, H, L, L)
+        if mask is not None:
+            scores = scores.masked_fill(~mask[:, None, None, :], -1e30)
+        a = drop(torch.softmax(scores, dim=-1))
+        out = torch.matmul(a.to(dt).float(), v.float())    # (B, H, L, dk)
+        out = out.transpose(1, 2).reshape(b, l, d).to(dt)
+        x = layer_norm(self.norm1, x + drop(dense(out, self.out_proj, dt)))
+        y = drop(F.relu(dense(x, self.linear1, dt)))
+        y = dense(y, self.linear2, dt)
+        return layer_norm(self.norm2, x + drop(y))
+
+
+class BatchNorm(nn.Module):
+    """flax `nn.BatchNorm` as the JAX package configures it (momentum 0.9,
+    epsilon 1e-5), over a channels-first input: the features on axis 1,
+    statistics over every other axis.
+
+    In training mode it normalises with the batch's statistics, computed
+    in float32 as flax's fast variance does (mean(x^2) - mean(x)^2,
+    clamped at 0: the biased variance), and moves the running buffers in
+    place, without gradient: mean <- 0.9 mean + 0.1 batch mean, var <-
+    0.9 var + 0.1 batch variance. torch.nn.BatchNorm* would move `var`
+    by the unbiased variance (x n/(n-1)), so it is not used. In eval mode
+    it normalises with the buffers and moves nothing. The normalisation is
+    float32, (x - mean) * (rsqrt(var + eps) * weight) + bias, returned in
+    `dtype`. Parameters `weight` and `bias` are flax's `scale` and `bias`
+    (1 and 0); buffers `mean` and `var` its `batch_stats` (0 and 1)."""
+
+    def __init__(self, features: int, dtype: torch.dtype,
+                 momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.dtype = dtype
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        if self.training:
+            axes = (0,) + tuple(range(2, x.ndim))
+            mean = xf.mean(axes)
+            var = torch.clamp(xf.square().mean(axes) - mean.square(), min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.mul_(m).add_(mean * (1.0 - m))
+                self.var.mul_(m).add_(var * (1.0 - m))
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(self.dtype)

@@ -13,13 +13,20 @@ from sie_tpu_torch.device import DeviceLike, resolve_device
 from sie_tpu_torch.models.info import ModelInfo
 from sie_tpu_torch.models.layers import not_ported
 
-MODELS = ("InterpGN", "SBM", "LTS", "DNN")
-DNNS = ("Transformer",)
+MODELS = ("InterpGN", "SBM", "LTS", "DNN", "EEGCNN")
+DNNS = ("Transformer", "FCN", "ResNet")
 
 
 def build_dnn(cfg: Config, g: torch.Generator) -> nn.Module:
+    """The backbone `cfg.dnn_type`, one of DNNS."""
     if cfg.dnn_type not in DNNS:
         raise not_ported(f"dnn_type={cfg.dnn_type!r}")
+    if cfg.dnn_type == "FCN":
+        from sie_tpu_torch.models.fcn import FullyConvNetwork
+        return FullyConvNetwork(cfg, g)
+    if cfg.dnn_type == "ResNet":
+        from sie_tpu_torch.models.resnet import ResNet
+        return ResNet(cfg, g)
     from sie_tpu_torch.models.transformer import Transformer
     return Transformer(cfg, g)
 
@@ -53,6 +60,9 @@ def build_model(cfg: Config, device: DeviceLike = None,
         model = ShapeBottleneckModel(cfg, g, variant=cfg.model.lower())
     elif cfg.model == "DNN":
         model = DNNWrapper(cfg, g)
+    elif cfg.model == "EEGCNN":
+        from sie_tpu_torch.models.eegcnn import EEGCNNTransformer
+        model = EEGCNNTransformer(cfg, g)
     else:
         raise not_ported(f"model={cfg.model!r}")
     return model.to(dev).eval()

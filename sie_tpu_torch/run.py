@@ -56,7 +56,7 @@ def get_args(argv=None):
                    choices=["standardization", "minmax", "per_sample_std",
                             "per_sample_minmax"],
                    help="UEA whole-set/per-sample normalization mode")
-    # ===== EEGCNN (not ported: --model EEGCNN raises) =====
+    # ===== EEGCNN =====
     p.add_argument("--eegcnn_layers", type=int, default=2)
     p.add_argument("--eegcnn_pooling", type=str, default="mean",
                    choices=["none", "mean", "sum", "top"])
@@ -77,7 +77,8 @@ def get_args(argv=None):
                    choices=["FCN", "Transformer", "TimesNet", "PatchTST",
                             "ResNet", "Autoformer", "FEDformer", "ETSformer",
                             "Pyraformer", "Crossformer"],
-                   help="Transformer is ported; the others raise")
+                   help="Transformer, FCN and ResNet are ported; the "
+                        "others raise")
     p.add_argument("--dataset", type=str, default="BasicMotions")
     p.add_argument("--lambda_reg", type=float, default=0.1)
     p.add_argument("--lambda_div", type=float, default=0.1)

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from sie_tpu_torch.compat.from_jax import load_jax_params
+from sie_tpu_torch.compat.from_jax import load_jax_variables
 from sie_tpu_torch.config import Config, config_from_json, config_to_json
 from sie_tpu_torch.device import DeviceLike, resolve_device
 from sie_tpu_torch.models.registry import build_model
@@ -58,8 +58,10 @@ def _softmax_probs(logits: np.ndarray, temperature: float = 1.0
 
 
 class Predictor:
-    """Flax parameters (`variables = {"params": ...}` as numpy) ->
-    bucket-padded batch inference on `device` (default the card)."""
+    """Flax variables (`{"params": ..., "batch_stats": ...}` as numpy;
+    batch_stats may be absent for a model without BatchNorm) ->
+    bucket-padded batch inference on `device` (default the card), in eval
+    mode: BatchNorm normalises with the running statistics."""
 
     _INFO_FIELDS = ("eta", "p", "d", "shapelet_preds", "dnn_preds")
 
@@ -67,7 +69,7 @@ class Predictor:
                  device: DeviceLike = None, max_batch: int = 256,
                  temperature: float = 1.0):
         dev = resolve_device(device)
-        model = load_jax_params(build_model(cfg, "cpu"), variables["params"])
+        model = load_jax_variables(build_model(cfg, "cpu"), variables)
         self._init(cfg, model.to(dev), dev, max_batch, temperature)
 
     @classmethod
@@ -75,7 +77,7 @@ class Predictor:
                     device: DeviceLike = None, max_batch: int = 256,
                     temperature: float = 1.0) -> "Predictor":
         """Serve a model built by `build_model` (weights initialised or
-        loaded in PyTorch)."""
+        loaded in PyTorch), with its BatchNorm buffers as they are."""
         self = cls.__new__(cls)
         dev = resolve_device(device)
         self._init(cfg, module.to(dev).eval(), dev, max_batch, temperature)

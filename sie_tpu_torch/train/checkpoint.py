@@ -4,8 +4,10 @@ sie_tpu/train/checkpoint.py), in flax's msgpack format
 `checkpoint.msgpack`.
 
 - `checkpoint.msgpack` holds {"params": the flax parameter tree,
-  "batch_stats": {}} (`compat.from_jax.to_jax_params` of the model), and
-  `meta.json` the epoch and validation accuracy it was taken at;
+  "batch_stats": the BatchNorm running statistics under the flax names, {}
+  for a model without BatchNorm} (`compat.from_jax.to_jax_variables` of
+  the model), and `meta.json` the epoch and validation accuracy it was
+  taken at;
 - `train_state.msgpack` is the port's own snapshot for resuming exactly:
   step, params, batch_stats, the optimizer's state, the dropout
   generator's state, the epoch and the early-stopping state
@@ -100,9 +102,9 @@ def wait_pending(ckpt_dir: Optional[str] = None):
 def save_checkpoint(ckpt_dir: str, params: Dict[str, Any],
                     batch_stats: Optional[Dict[str, Any]] = None,
                     meta: Any = None, background: bool = False):
-    """params: the flax-layout tree of host arrays (`to_jax_params`);
-    batch_stats defaults to the empty collection the JAX package writes
-    for models without batch norm."""
+    """params and batch_stats: the flax-layout trees of host arrays
+    (`to_jax_variables`); batch_stats defaults to the empty collection
+    the JAX package writes for models without batch norm."""
     os.makedirs(ckpt_dir, exist_ok=True)
 
     def do_save():

@@ -3,8 +3,8 @@
 Lifecycle: load the splits -> derive the model's shape from the data ->
 build the trainer on the device (the card unless the caller asks for the
 CPU) -> epoch loop with validation and early stopping on the validation
-accuracy, the best parameters checkpointed in the JAX package's format ->
-reload the best -> test with hard gating, the interpretability outputs and
+accuracy, the best variables (parameters and BatchNorm statistics)
+checkpointed in the JAX package's format -> reload the best, in place -> test with hard gating, the interpretability outputs and
 a one-row CSV summary.
 
 While the three splits together stay below 4 GiB they are held on the
@@ -32,7 +32,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sie_tpu_torch.compat.from_jax import load_jax_params, to_jax_params
+from sie_tpu_torch.compat.from_jax import (load_jax_variables, to_jax_params,
+                                           to_jax_variables)
 from sie_tpu_torch.config import Config
 from sie_tpu_torch.data.provider import data_provider
 from sie_tpu_torch.device import DeviceLike, resolve_device
@@ -100,7 +101,7 @@ class Experiment:
         """resume=True continues an interrupted run from the full-state
         snapshot (optimizer, generator and loop position); snapshot_every=k
         writes that snapshot every k epochs (0 = off). Returns the model,
-        holding the best parameters."""
+        holding the best parameters and BatchNorm statistics."""
         cfg, tr = self.cfg, self.trainer
         early = EarlyStopping(patience=cfg.patience)
         start_epoch = 0
@@ -111,11 +112,9 @@ class Experiment:
                 start_epoch, early_state = restored
                 early.load_state_dict(early_state)
                 self._log(f"resumed at epoch {start_epoch}")
-                best_ckpt = ckpt.load_checkpoint(self.checkpoint_dir)
-                if best_ckpt is not None:
-                    best = best_ckpt["params"]
+                best = ckpt.load_checkpoint(self.checkpoint_dir)
         if best is None:
-            best = to_jax_params(tr.model)
+            best = to_jax_variables(tr.model)
         t0 = time.time()
 
         dev_train = (tr.device_data("train", self.train_data)
@@ -155,9 +154,10 @@ class Experiment:
                                    "seconds": time.time() - t0})
             if epoch >= cfg.min_epochs:
                 if early(-val_acc):
-                    best = to_jax_params(tr.model)
+                    best = to_jax_variables(tr.model)
                     # the write overlaps the next epoch; loads wait for it
-                    ckpt.save_checkpoint(self.checkpoint_dir, best,
+                    ckpt.save_checkpoint(self.checkpoint_dir, best["params"],
+                                         best["batch_stats"],
                                          meta={"epoch_stop": epoch,
                                                "val_accuracy": float(val_acc)},
                                          background=True)
@@ -173,14 +173,14 @@ class Experiment:
         ckpt.wait_pending(self.checkpoint_dir)
         if tr.captures:
             self._log(f"CUDA graphs captured: {len(tr.captures)}")
-        load_jax_params(tr.model, best)   # in place: graphs stay valid
+        load_jax_variables(tr.model, best)   # in place: graphs stay valid
         return tr.model
 
     def load_checkpoint(self) -> bool:
         restored = ckpt.load_checkpoint(self.checkpoint_dir)
         if restored is None:
             return False
-        load_jax_params(self.trainer.model, restored["params"])
+        load_jax_variables(self.trainer.model, restored)
         self.epoch_stop = ckpt.load_meta(self.checkpoint_dir).get(
             "epoch_stop", self.epoch_stop)
         return True

@@ -7,6 +7,11 @@ backward (through kernels K2 and K6 on the card), then the optimizer of
 `make_optimizer` and, under `pos_weight`, the non-negative projection of
 the SBM classifier. The model's parameters are the state; the step returns
 the loss and logits as device tensors, with no host synchronisation.
+BatchNorm's running statistics (the JAX package's `batch_stats`) are
+buffers, not parameters: each train step's forward moves them once, in
+place, as `new_stats` replaces them in the JAX package (every micro-step
+under accumulation too); the eval paths read them and move nothing; they
+are outside Adam and the global-norm clip.
 
 The epoch-staged paths (`stage_steps`, `train_step_staged`,
 `train_epoch_staged`, `eval_step_staged`, `eval_step_indexed`,
@@ -16,7 +21,9 @@ card: the first call of a (path, shapes, buffers) key runs eagerly on the
 trainer's graph stream (the warm-up, which builds the kernels and lets
 cuBLAS and the optimizer allocate their state outside any graph), the
 second captures the same work and replays it, and later calls replay. The
-graph reads its batch from static buffers that the trainer owns:
+graph reads its batch from static buffers that the trainer owns (and the
+model's parameters and BatchNorm buffers, whose in-place updates it
+captures, so a replay moves them as the eager step does):
 `stage_steps` copies an epoch's (index, weight) schedule and beta into the
 buffers of its (steps, batch) shape, and a step index goes to the card as a
 device scalar. The dropout generator is registered with every graph, so a
@@ -52,8 +59,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sie_tpu_torch.compat.from_jax import (load_jax_params, port_layout,
-                                           to_jax_params, to_jax_tree)
+from sie_tpu_torch.compat.from_jax import (load_jax_variables, port_layout,
+                                           to_jax_tree, to_jax_variables)
 from sie_tpu_torch.config import Config
 from sie_tpu_torch.device import DeviceLike, resolve_device
 from sie_tpu_torch.models.info import ModelInfo
@@ -566,8 +573,7 @@ class Trainer:
         opt = self.optimizer.state()
         tree = lambda ts: to_jax_tree(self.model, dict(zip(self._named(),
                                                            ts)))
-        return {"step": self.step, "params": to_jax_params(self.model),
-                "batch_stats": {},
+        return {"step": self.step, **to_jax_variables(self.model),
                 "opt_state": {"count": opt["count"],
                               "mini_step": opt["mini_step"],
                               "mu": tree(opt["mu"]), "nu": tree(opt["nu"]),
@@ -579,7 +585,7 @@ class Trainer:
         read the optimizer state that this replaces."""
         self._graphs.clear()
         self._warm.clear()
-        load_jax_params(self.model, tree["params"])
+        load_jax_variables(self.model, tree)
         opt = tree["opt_state"]
         per_param = {k: port_layout(self.model, opt[k])
                      for k in ("mu", "nu", "acc")}

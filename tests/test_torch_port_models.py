@@ -209,9 +209,11 @@ def test_use_flash_attention_builds_and_matches_jax(use_fused, amp):
 
 def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(Config(**dict(BASE, model="EEGCNN")), "cpu")
+        build_model(Config(**dict(BASE, model="DNN", dnn_type="PatchTST")),
+                    "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(Config(**dict(BASE, model="DNN", dnn_type="FCN")), "cpu")
+        build_model(Config(**dict(BASE, model="DNN", dnn_type="TimesNet")),
+                    "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(Config(**dict(BASE, model="DNN", moe_experts=2)), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
