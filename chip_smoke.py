@@ -116,15 +116,47 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      each trains with finite losses and tests, its checkpoint holds
      batch_stats under the flax names, and a re-run skips training at the
      same test accuracy;
- 20. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
-     timed training steps of each kernel's path, K1 and K2 adding those of
-     phases 16, 17 and 19's UEA run, split in `launches_by_path`), then the
-     device line.
+ 20. bundles: phase 15's command again (training skipped) with
+     --export_bundle and with --quantize_bundle; both loaded with
+     `Predictor.load_bundle` on the card (max_batch 64), their device bytes
+     after load beside the parameter count (the int8 leaves must hold
+     <= 0.3 of their f32 bytes); requests of 1, 5, 64 and 150 rows (K1 6,
+     K5 2 a chunk, no other kernel); the f32 bundle's logits bit-equal to
+     the experiment's checkpoint served in this process
+     (`Predictor.from_checkpoint`), the int8 bundle's within
+     tests/test_quant.py's limits (logits 0.05 abs + 0.05 rel, probs 0.02)
+     and no class flipped where f32's top two logits are further apart
+     than twice the error; `calibrate` on the validation rows, saved and
+     reloaded at the same T; median ms a request of each bundle;
+ 21. HTTP: `python -m sie_tpu_torch.serve_http --bundle DIR --max_batch 64
+     --warmup 1 64` on a free local port: /healthz, /config; JSON-list,
+     x_b64 and npz requests of 1, 5, 64 and 150 rows, every output within
+     1e-6 of the in-process bundle predictor;
+     fields=["probs"]; a malformed body answered 400; /metrics counting
+     the requests and the error; the port's InferenceClient; median ms at
+     1 row (JSON lists) and 1 and 64 rows (x_b64 in a JSON body, and npz)
+     beside the in-process times; then a batching server in this process
+     (window 20 ms): 8 concurrent 8-row requests in fewer dispatches, one
+     K1/K5 set each, each request's logits within 5e-2 of it served alone;
+ 22. export: the f32 bundle's predictor through `export_stablehlo` for
+     buckets (1, 64); a fresh process that imports sie_tpu_torch.ops and
+     sie_tpu_torch.serve and no model code (checked on sys.modules) serves
+     it through `CompiledPredictor`: 6 `sie_tpu_torch::l1_fwd` and 2
+     `attention_fwd` nodes in the graph, K1 6 and K5 2 launches a chunk,
+     logits within 5e-2 of the live predictor with the same classes; then
+     `serve_http --stablehlo DIR` answers one request within 1e-6 of it;
+ 23. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
+     timed training steps of each kernel's path, plus, split in
+     `launches_by_path`, phases 16, 17 and 19's UEA run for K1 and K2, and
+     the serving paths for K1, K3 and K5: phase 5, phase 11's requests,
+     phase 20's bundles and phase 22's exported program), then the device
+     line.
 
-The K5 and K6 phases (4, 6, 8, 12) run under a time limit that ends the
-process, so that a kernel that hangs fails the run instead of holding the
-card. Times are CUDA-event times after warm-up (kernels) or host-clock times of
-work that ends in a synchronisation (requests, steps). Bounds use the
+The K5 and K6 phases (4, 6, 8, 12) and the serving phases (20-22) run
+under a time limit that ends the process (and the servers it started), so
+that a kernel that hangs fails the run instead of holding the card. Times
+are CUDA-event times after warm-up (kernels) or host-clock times of work
+that ends in a synchronisation (requests, steps). Bounds use the
 published H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32, 989 TFLOP/s bf16,
 495 TFLOP/s TF32. An f32 attention product is bound by the smaller of the
 FP32-FMA time and that of three TF32 products (3xTF32, the f32 kernels'
@@ -171,6 +203,10 @@ LONG_BH, LONG_T, LONG_DK = 64, 17984, 64   # its attention: 8 rows x 8 heads
 LONG_HEADS = 2     # heads held against the chunked plain versions
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CHILDREN = []   # server processes this run started, killed on any exit
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
@@ -186,6 +222,8 @@ class time_limit:
     def _expire(self) -> None:
         print(f"chip_smoke FAILED: {self.what} ran past {self.seconds} s",
               file=sys.stderr, flush=True)
+        for proc in CHILDREN:
+            proc.kill()
         os._exit(1)
 
     def __enter__(self):
@@ -553,12 +591,13 @@ class Counts:
 SERVE_SIZES = (1, 5, 64, 150)
 
 
-def serve_requests(cfg, model, want: dict, tag: str):
-    """Requests of SERVE_SIZES rows through `Predictor` on the card, each
-    checked for `want` launches per chunk of max_batch rows and none of
-    the other kernels; returns the outputs by size and the median ms."""
-    from sie_tpu_torch.serve import Predictor
-    pred = Predictor.from_module(cfg, model, device="cuda", max_batch=64)
+def serve_requests(pred, want: dict, tag: str):
+    """Requests of SERVE_SIZES rows through the predictor `pred` (max_batch
+    64) on the card, each checked for `want` launches per chunk of
+    max_batch rows and none of the other kernels; returns the outputs by
+    size, the inputs, the median ms by size and the launches over the
+    run."""
+    cfg = pred.cfg
     counts = Counts()
     rng = np.random.default_rng(0)
     xs = {b: rng.normal(size=(b, cfg.seq_len, cfg.enc_in)).astype(np.float32)
@@ -581,7 +620,8 @@ def serve_requests(cfg, model, want: dict, tag: str):
                 fail(f"{tag} request of {b}: launches {got}, want {expect}")
         served_ms[b] = float(np.median(times))
         outs[b] = out
-    print(f"[{tag}] launches over the run: {counts.read()}")
+    launches = counts.read()
+    print(f"[{tag}] launches over the run: {launches}")
     for b, out in outs.items():
         if out.logits.shape != (b, cfg.num_class) or \
                 out.p.shape != (b, 7320) or out.eta.shape != (b, 1):
@@ -594,7 +634,14 @@ def serve_requests(cfg, model, want: dict, tag: str):
             fail(f"{tag} request of {b}: classes != argmax(logits)")
     print(f"[{tag}] ms per request (median of {REPEATS}): " + ", ".join(
         f"{b} rows {served_ms[b]:.3f}" for b in SERVE_SIZES))
-    return outs, xs
+    return outs, xs, served_ms, launches
+
+
+def serve_module(cfg, model, want: dict, tag: str):
+    """`serve_requests` through `Predictor.from_module(cfg, model)`."""
+    from sie_tpu_torch.serve import Predictor
+    return serve_requests(Predictor.from_module(cfg, model, device="cuda",
+                                                max_batch=64), want, tag)
 
 
 def phase_serve() -> dict:
@@ -602,7 +649,8 @@ def phase_serve() -> dict:
     from sie_tpu_torch.serve import Predictor
     cfg = flagship_config()
     model = build_model(cfg, "cuda", torch.Generator().manual_seed(0))
-    outs, xs = serve_requests(cfg, model, {"K1": 6, "K5": 2}, "serve")
+    outs, xs, _, launches = serve_module(cfg, model, {"K1": 6, "K5": 2},
+                                         "serve")
     cpu = Predictor.from_module(cfg, copy.deepcopy(model).cpu(),
                                 device="cpu", max_batch=64)
     ref = cpu.predict(xs[5][:2])
@@ -612,7 +660,7 @@ def phase_serve() -> dict:
           f"classes {got.argmax(-1).tolist()} vs {ref.classes.tolist()}")
     if not e <= SERVE_TOL or not (got.argmax(-1) == ref.classes).all():
         fail(f"served logits differ from the CPU plain path: {e}")
-    return outs
+    return outs, launches
 
 
 def phase_k5_dropout() -> None:
@@ -1158,7 +1206,8 @@ def phase_fused(unfused_outs: dict) -> dict:
     from sie_tpu_torch.models.registry import build_model
     cfg = flagship_config().replace(fuse_short_banks=True)
     model = build_model(cfg, "cuda", torch.Generator().manual_seed(0))
-    outs, _ = serve_requests(cfg, model, {"K3": 1, "K5": 2}, "serve fused")
+    outs, _, _, serve_launches = serve_module(cfg, model, {"K3": 1, "K5": 2},
+                                              "serve fused")
     e = max(float(np.abs(outs[b].logits - unfused_outs[b].logits).max())
             for b in SERVE_SIZES)
     print(f"[serve fused] against the unfused predictor on the card: max "
@@ -1185,7 +1234,7 @@ def phase_fused(unfused_outs: dict) -> dict:
         fail(f"fused gradients differ from unfused ones in {differ}")
     print(f"[train fused] against the unfused card path, 2 rows: all "
           f"{len(want)} parameter gradients equal bit for bit")
-    return launches
+    return launches, serve_launches
 
 
 def profile_ms(fn, names, reps: int = 2) -> dict:
@@ -1556,51 +1605,55 @@ def run_cli(argv) -> tuple:
     return text, results
 
 
-def phase_cli() -> dict:
+def cli_args(tmp: str) -> list:
+    """Phase 15's flagship command line with its directories under tmp."""
+    return CLI_FLAGS.split() + [
+        "--data_root", os.path.join(tmp, "no_chisco"),
+        "--result_dir", os.path.join(tmp, "result"),
+        "--cache_dir", os.path.join(tmp, "cache")]
+
+
+def phase_cli(tmp: str) -> dict:
     """The flagship experiment through the command line on synthetic
     CHISCO: train, checkpoint and test; a re-run that skips training and
     reproduces the test accuracy; a run under --scan_epoch. The kernels'
-    counts are read over the first run, the path's main run."""
-    import tempfile
+    counts are read over the first run, the path's main run. Its
+    checkpoint stays in tmp/ck for the bundle phase."""
     counts = Counts()
-    with tempfile.TemporaryDirectory() as tmp:
-        common = CLI_FLAGS.split() + [
-            "--data_root", os.path.join(tmp, "no_chisco"),
-            "--result_dir", os.path.join(tmp, "result"),
-            "--cache_dir", os.path.join(tmp, "cache")]
-        first = common + ["--checkpoint_dir", os.path.join(tmp, "ck")]
-        t0 = time.perf_counter()
-        counts.zero()   # the path's main run
-        text, res = run_cli(first)
-        launches = counts.read()
-        secs = time.perf_counter() - t0
-        epochs = re.findall(r"Epoch \d+/3 \| Train Loss (\S+) \| Val Loss "
-                            r"(\S+)", text)
-        if len(epochs) != 3 or not all(np.isfinite(float(v)) for e in epochs
-                                       for v in e):
-            fail(f"the CLI run logged epochs {epochs}")
-        csv_path = re.search(r"Test summary saved at: (\S+)", text)
-        if "Test accuracy" not in text or not csv_path or \
-                not os.path.exists(csv_path.group(1)):
-            fail("the CLI run wrote no test accuracy or CSV")
-        graphs = re.search(r"CUDA graphs captured: (\d+)", text)
-        if not graphs or int(graphs.group(1)) < 2:
-            fail("the CLI run captured no train and eval graphs")
-        for k in ("K1", "K2", "K5", "K6"):
-            if not launches[k]:
-                fail(f"the CLI run launched no {k}: {launches}")
-        acc = res[0][2]["accuracy"]
-        text2, res2 = run_cli(first)
-        if "checkpoint exists — skipping training" not in text2 or \
-                res2[0][2]["accuracy"] != acc or res2[0][1] != res[0][1]:
-            fail(f"the re-run did not skip training or gave accuracy "
-                 f"{res2[0][2]['accuracy']} (loss {res2[0][1]}), not {acc} "
-                 f"({res[0][1]})")
-        text3, res3 = run_cli(common + ["--scan_epoch", "--checkpoint_dir",
-                                        os.path.join(tmp, "ck_scan")])
-        if len(re.findall(r"Epoch \d+/3 \| Train Loss", text3)) != 3 or \
-                "Test accuracy" not in text3:
-            fail("the --scan_epoch run did not train and test")
+    common = cli_args(tmp)
+    first = common + ["--checkpoint_dir", os.path.join(tmp, "ck")]
+    t0 = time.perf_counter()
+    counts.zero()   # the path's main run
+    text, res = run_cli(first)
+    launches = counts.read()
+    secs = time.perf_counter() - t0
+    epochs = re.findall(r"Epoch \d+/3 \| Train Loss (\S+) \| Val Loss "
+                        r"(\S+)", text)
+    if len(epochs) != 3 or not all(np.isfinite(float(v)) for e in epochs
+                                   for v in e):
+        fail(f"the CLI run logged epochs {epochs}")
+    csv_path = re.search(r"Test summary saved at: (\S+)", text)
+    if "Test accuracy" not in text or not csv_path or \
+            not os.path.exists(csv_path.group(1)):
+        fail("the CLI run wrote no test accuracy or CSV")
+    graphs = re.search(r"CUDA graphs captured: (\d+)", text)
+    if not graphs or int(graphs.group(1)) < 2:
+        fail("the CLI run captured no train and eval graphs")
+    for k in ("K1", "K2", "K5", "K6"):
+        if not launches[k]:
+            fail(f"the CLI run launched no {k}: {launches}")
+    acc = res[0][2]["accuracy"]
+    text2, res2 = run_cli(first)
+    if "checkpoint exists — skipping training" not in text2 or \
+            res2[0][2]["accuracy"] != acc or res2[0][1] != res[0][1]:
+        fail(f"the re-run did not skip training or gave accuracy "
+             f"{res2[0][2]['accuracy']} (loss {res2[0][1]}), not {acc} "
+             f"({res[0][1]})")
+    text3, res3 = run_cli(common + ["--scan_epoch", "--checkpoint_dir",
+                                    os.path.join(tmp, "ck_scan")])
+    if len(re.findall(r"Epoch \d+/3 \| Train Loss", text3)) != 3 or \
+            "Test accuracy" not in text3:
+        fail("the --scan_epoch run did not train and test")
     print(f"[cli] {secs:.1f} s for the first run; test accuracy {acc:.2f}%, "
           f"the same on the re-run; --scan_epoch {res3[0][2]['accuracy']:.2f}"
           f"%; launches over the first run {launches}")
@@ -1898,13 +1951,475 @@ def phase_cli_bn() -> dict:
     return uea
 
 
+# ---- serving: bundles, the HTTP server, ahead-of-time programs -----------
+Q_ATOL, Q_RTOL = 0.05, 0.05   # int8 against f32 bundle logits, and
+Q_PROBS = 0.02                # probabilities: tests/test_quant.py's limits
+Q_BYTES = 0.3      # bytes the int8 leaves hold (q and scale) / their f32 bytes
+WIRE_TOL = 1e-6    # the server's outputs against the in-process predictor
+WINDOW_MS = 20     # micro-batching window of the batching server
+WINDOW_REQS, WINDOW_ROWS = 8, 8   # concurrent requests and their rows
+OUT_FIELDS = ("logits", "probs", "classes", "eta", "p", "d",
+              "shapelet_preds", "dnn_preds")
+
+
+def int8_bytes(model) -> tuple:
+    """(bytes the quantised leaves of `model` hold as q and scale, their
+    bytes as f32)."""
+    state = model.state_dict()
+    held = f32 = 0
+    for k, q in state.items():
+        if q.dtype == torch.int8:
+            scale = state[k[:-1] + "1"]   # original0 -> original1
+            held += q.numel() + 4 * scale.numel()
+            f32 += 4 * q.numel()
+    return held, f32
+
+
+def phase_bundle(tmp: str):
+    """Phase 15's command (its checkpoint: training is skipped) with
+    --export_bundle and with --quantize_bundle; both bundles loaded on the
+    card and served (launches per chunk, f32 logits equal to the
+    experiment's weights served in this process, int8 within
+    test_quant.py's limits), their resident bytes, and a calibration
+    saved and reloaded. Returns (the f32 bundle's predictor, its directory,
+    the served inputs, its median ms by size, the launches of both
+    bundles' runs)."""
+    from sie_tpu_torch.data.provider import data_provider
+    from sie_tpu_torch.serve import Predictor
+    first = cli_args(tmp) + ["--checkpoint_dir", os.path.join(tmp, "ck")]
+    dirs = {"f32": os.path.join(tmp, "bundle"),
+            "int8": os.path.join(tmp, "bundle_int8")}
+    for kind, d in dirs.items():
+        flags = ["--export_bundle", d] + (
+            ["--quantize_bundle"] if kind == "int8" else [])
+        text, _ = run_cli(first + flags)
+        if "checkpoint exists — skipping training" not in text or \
+                f"serving bundle exported to {d}" not in text:
+            fail(f"the {kind} export did not skip training and export")
+    preds, mem = {}, {}
+    for kind, d in dirs.items():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        preds[kind] = Predictor.load_bundle(d, max_batch=64)  # on the card
+        torch.cuda.synchronize()
+        mem[kind] = torch.cuda.memory_allocated() - before
+    n_params = sum(p.numel() for p in preds["f32"].model.parameters())
+    held, f32_bytes = int8_bytes(preds["int8"].model)
+    print(f"[bundle] device bytes after load (torch.cuda.memory_allocated "
+          f"delta): f32 {mem['f32']} B, int8 {mem['int8']} B, for "
+          f"{n_params} parameters; the int8 leaves hold {held} B of their "
+          f"{f32_bytes} f32 B ({held / max(f32_bytes, 1):.4f})")
+    if preds["f32"].quantized or not preds["int8"].quantized or \
+            not 0 < held <= Q_BYTES * f32_bytes:
+        fail(f"the int8 bundle is not resident as int8: {held} B of "
+             f"{f32_bytes}")
+    # the experiment's weights in this process: its checkpoint, from the
+    # bundle's config (checkpoint_dir and key)
+    ref = Predictor.from_checkpoint(preds["f32"].cfg, max_batch=64)
+    results, launches = {}, Counts.full({})
+    for kind in ("f32", "int8"):
+        outs, xs, ms, counted = serve_requests(
+            preds[kind], {"K1": 6, "K5": 2}, f"bundle {kind}")
+        results[kind] = outs, ms
+        launches = {k: launches[k] + counted[k] for k in launches}
+    e_q = p_q = 0.0
+    agree = rows = 0
+    for b in SERVE_SIZES:
+        f32, q = results["f32"][0][b], results["int8"][0][b]
+        if not np.array_equal(f32.logits, ref.predict(xs[b]).logits):
+            fail(f"the f32 bundle's logits of {b} rows differ from the "
+                 f"experiment's weights served in this process")
+        e_q = max(e_q, float(np.abs(q.logits - f32.logits).max()))
+        p_q = max(p_q, float(np.abs(q.probs - f32.probs).max()))
+        if not np.allclose(q.logits, f32.logits, atol=Q_ATOL, rtol=Q_RTOL) \
+                or not np.allclose(q.probs, f32.probs, atol=Q_PROBS):
+            fail(f"int8 bundle of {b} rows: max |dlogits| {e_q}, |dprobs| "
+                 f"{p_q}")
+        # a class may flip only where f32's top two logits are closer than
+        # twice the logit error
+        top2 = np.sort(f32.logits, -1)[:, -2:]
+        sure = top2[:, 1] - top2[:, 0] > 2 * e_q
+        if (q.classes != f32.classes)[sure].any():
+            fail(f"int8 bundle of {b} rows changes a clear class")
+        agree += int((q.classes == f32.classes).sum())
+        rows += b
+    print(f"[bundle] f32 bundle bit-equal to the experiment's weights at "
+          f"{SERVE_SIZES} rows; int8 against f32: max |dlogits| {e_q:.3e}, "
+          f"|dprobs| {p_q:.3e}, classes agree on {agree}/{rows}")
+    val, _ = data_provider(preds["f32"].cfg, "val")
+    t = preds["f32"].calibrate(val.x, val.y)
+    cal_dir = os.path.join(tmp, "bundle_calibrated")
+    preds["f32"].save_bundle(cal_dir)
+    back = Predictor.load_bundle(cal_dir, max_batch=64).temperature
+    preds["f32"].temperature = 1.0
+    if back != t or not os.path.exists(os.path.join(cal_dir,
+                                                    "calibration.json")):
+        fail(f"calibration T {t} came back as {back}")
+    print(f"[bundle] calibrate on {len(val.y)} held-out rows: T {t:.6f}, "
+          f"the same after save_bundle and load_bundle")
+    for kind in ("f32", "int8"):
+        print(f"[bundle {kind}] ms per request: " + ", ".join(
+            f"{b} rows {results[kind][1][b]:.3f}" for b in SERVE_SIZES))
+    del preds["int8"], ref
+    return preds["f32"], dirs["f32"], xs, results["f32"][1], launches
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http(base: str, path: str, body: bytes = None,
+         ctype: str = "application/json", accept: str = "*/*"):
+    """(status, content type, body) of one request to the server."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        base + path, data=body,
+        headers={"Content-Type": ctype, "Accept": accept})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.headers.get("Content-Type", ""), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type", ""), e.read()
+
+
+def start_server(args: list, tmp: str, tag: str):
+    """`python -m sie_tpu_torch.serve_http *args` on a free local port;
+    returns (the process, its base URL) once /healthz answers."""
+    port = free_port()
+    log = open(os.path.join(tmp, f"{tag}.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sie_tpu_torch.serve_http", *args, "--port",
+         str(port)], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    CHILDREN.append(proc)
+    base = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    while True:
+        if proc.poll() is not None:
+            with open(os.path.join(tmp, f"{tag}.log")) as f:
+                fail(f"the {tag} server exited with {proc.returncode}:\n"
+                     f"{f.read()[-3000:]}")
+        try:
+            if http(base, "/healthz")[0] == 200:
+                break
+        except OSError:
+            pass
+        if time.perf_counter() - t0 > 300:
+            fail(f"the {tag} server did not answer within 300 s")
+        time.sleep(0.2)
+    print(f"[{tag}] server up in {time.perf_counter() - t0:.1f} s: "
+          f"{' '.join(args)}")
+    return proc, base
+
+
+def stop_server(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    CHILDREN.remove(proc)
+
+
+def npz_bytes(**arrays) -> bytes:
+    import io
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def decode(ctype: str, body: bytes) -> dict:
+    """The arrays of a /predict response, npz or JSON."""
+    import io
+    if "npz" in ctype:
+        with np.load(io.BytesIO(body), allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}
+    return {k: np.asarray(v) for k, v in json.loads(body).items()}
+
+
+def request(base: str, x: np.ndarray, how: str, **extra):
+    """One /predict of rows x: 'json' (nested lists), 'b64' (x_b64 in a
+    JSON body, JSON response, as the client sends bulk rows) or 'npz'
+    (npz both ways) -> (status, arrays or error, ms)."""
+    import base64
+    t0 = time.perf_counter()
+    if how == "npz":
+        code, ctype, body = http(base, "/predict", npz_bytes(x=x, **extra),
+                                 "application/x-npz", "application/x-npz")
+    else:
+        payload = dict(extra)
+        if how == "json":
+            payload["x"] = x.tolist()
+        else:
+            payload.update(x_b64=base64.b64encode(
+                x.astype("<f4").tobytes()).decode(), shape=list(x.shape))
+        code, ctype, body = http(base, "/predict",
+                                 json.dumps(payload).encode())
+    ms = 1e3 * (time.perf_counter() - t0)
+    return code, (decode(ctype, body) if code == 200 else body), ms
+
+
+def same_outputs(got: dict, want, tag: str, fields=OUT_FIELDS) -> float:
+    """Max abs difference of the response arrays against a PredictOutput;
+    fails above WIRE_TOL or on a missing field."""
+    e = 0.0
+    for f in fields:
+        w = getattr(want, f)
+        if w is None:
+            continue
+        if f not in got or got[f].shape != w.shape:
+            fail(f"{tag}: field {f} missing or of another shape")
+        e = max(e, float(np.abs(got[f].astype(np.float64) - w).max()))
+    if not e <= WIRE_TOL:
+        fail(f"{tag}: max |d| {e} against the in-process predictor")
+    return e
+
+
+def phase_http(tmp: str, pred, bundle_dir: str, xs: dict,
+               inproc_ms: dict) -> None:
+    """`python -m sie_tpu_torch.serve_http --bundle DIR` on the card:
+    health, config, JSON / x_b64 / npz requests against the in-process
+    bundle predictor, fields, a malformed body, the metrics; the port's
+    client; request times. Then a batching server (in this process, so
+    that its dispatches and launches can be read) under concurrent
+    requests."""
+    from sie_tpu_torch.client import InferenceClient
+    proc, base = start_server(["--bundle", bundle_dir, "--max_batch", "64",
+                               "--warmup", "1", "64"], tmp, "http")
+    sent = errors = 0
+    try:
+        code, _, body = http(base, "/healthz")
+        health = json.loads(body)
+        code2, _, body2 = http(base, "/config")
+        if code != 200 or health["serving"] != "live" or \
+                health["max_batch"] != 64 or health["quantized"] or \
+                code2 != 200 or json.loads(body2)["d_model"] != 512:
+            fail(f"/healthz or /config: {health}")
+        e = 0.0
+        plan = [(how, b) for how in ("json", "b64", "npz")
+                for b in SERVE_SIZES]
+        for how, b in plan:
+            code, got, _ = request(base, xs[b], how)
+            sent += 1
+            if code != 200:
+                fail(f"{how} request of {b} rows: HTTP {code} {got}")
+            e = max(e, same_outputs(got, pred.predict(xs[b]),
+                                    f"{how} request of {b} rows"))
+        code, got, _ = request(base, xs[5], "b64", fields=["probs"])
+        sent += 1
+        if code != 200 or set(got) != {"probs", "classes"}:
+            fail(f"fields=['probs'] gave {code} {sorted(got)}")
+        code, _, body = http(base, "/predict", b"{not json")
+        sent += 1
+        errors += 1
+        if code != 400 or "error" not in json.loads(body):
+            fail(f"a malformed body gave HTTP {code}")
+        times = {}
+        for how in ("json", "b64", "npz"):
+            for b in ((1,) if how == "json" else (1, 64)):
+                ms = []
+                for _ in range(REPEATS):
+                    code, _, t = request(base, xs[b], how)
+                    sent += 1
+                    ms.append(t)
+                times[how, b] = ms
+        client = InferenceClient(base, encoding="npz")
+        out = client.predict(xs[5])
+        sent += 1
+        e = max(e, same_outputs({f: getattr(out, f) for f in OUT_FIELDS
+                                 if getattr(out, f) is not None},
+                                pred.predict(xs[5]), "the port's client"))
+        if client.health()["status"] != "ok":
+            fail("the client's health call")
+        metrics = dict(line.rsplit(" ", 1) for line in
+                       client.metrics().splitlines()
+                       if line.strip() and not line.startswith("#"))
+        if int(metrics["sie_tpu_requests_total"]) != sent or \
+                int(metrics['sie_tpu_errors_total{code="400"}']) != errors:
+            fail(f"/metrics counts {metrics} after {sent} requests, "
+                 f"{errors} errors")
+    finally:
+        stop_server(proc)
+    print(f"[http] {len(plan)} requests (JSON lists, x_b64 and npz at "
+          f"{SERVE_SIZES} rows) equal to the in-process bundle predictor: "
+          f"max |d| {e:.3e}; fields, 400, /metrics ({sent} requests, "
+          f"{errors} error) and the port's client checked")
+    for (how, b), ms in times.items():
+        print(f"[http] {how} {b} rows: median {np.median(ms):.3f} ms (min "
+              f"{min(ms):.3f}, max {max(ms):.3f}) of {REPEATS}; in process "
+              f"{inproc_ms[b]:.3f} ms")
+    window_batching(pred, xs)
+
+
+def window_batching(pred, xs: dict) -> None:
+    """PredictorServer(batch_window_ms=WINDOW_MS) in this process:
+    WINDOW_REQS concurrent requests of WINDOW_ROWS rows take fewer
+    dispatches than requests, one K1 set per dispatch, and give each
+    request's outputs."""
+    from http.server import ThreadingHTTPServer
+    from sie_tpu_torch.serve_http import PredictorServer
+    srv = PredictorServer(pred, batch_window_ms=WINDOW_MS)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), srv.make_handler())
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    x = xs[150][: WINDOW_REQS * WINDOW_ROWS]
+    parts = [x[i * WINDOW_ROWS: (i + 1) * WINDOW_ROWS]
+             for i in range(WINDOW_REQS)]
+    results = [None] * WINDOW_REQS
+    counts = Counts()
+    try:
+        request(base, parts[0], "npz")
+        before, c0 = srv.batched_dispatches, counts.read()
+        threads = [threading.Thread(
+            target=lambda i=i: results.__setitem__(
+                i, request(base, parts[i], "npz")))
+            for i in range(WINDOW_REQS)]
+        [t.start() for t in threads]
+        [t.join(timeout=300) for t in threads]
+        dispatches = srv.batched_dispatches - before
+        got = counts.since(c0)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    if any(r is None or r[0] != 200 for r in results):
+        fail(f"batching server: {[r and r[0] for r in results]}")
+    if not 1 <= dispatches < WINDOW_REQS or \
+            got != Counts.full({"K1": 6, "K5": 2}, dispatches):
+        fail(f"batching server: {dispatches} dispatches for {WINDOW_REQS} "
+             f"requests, launches {got}")
+    e = 0.0
+    for part, (_, arrays, _) in zip(parts, results):
+        want = pred.predict(part)
+        e = max(e, float(np.abs(arrays["logits"] - want.logits).max()))
+        # a request served inside a larger bucket runs other GEMM shapes
+        if not e <= SERVE_TOL or not np.array_equal(arrays["classes"],
+                                                    want.classes):
+            fail(f"batching server: max |dlogits| {e} against the request "
+                 f"served alone")
+    print(f"[http] batching server (window {WINDOW_MS} ms): "
+          f"{WINDOW_REQS} concurrent {WINDOW_ROWS}-row requests in "
+          f"{dispatches} dispatches, launches {got}; against each request "
+          f"served alone max |dlogits| {e:.3e}, same classes")
+
+
+EXPORT_CHILD = r"""
+import json, sys, time
+import numpy as np
+import sie_tpu_torch.ops
+from sie_tpu_torch.ops import attention as A, shapelet_l1 as S
+from sie_tpu_torch.serve import CompiledPredictor
+aot, inputs, outputs = sys.argv[1:4]
+t0 = time.perf_counter()
+cp = CompiledPredictor(aot)
+load_s = time.perf_counter() - t0
+with np.load(inputs) as z:
+    xs = {int(k): z[k] for k in z.files}
+fns = {"K1": S.l1_sliding_distance, "K2": S.l1_sliding_distance_bwd,
+       "K3": S.l1_sliding_distance_grouped,
+       "K4": S.l1_sliding_distance_grouped_bwd, "K5": A.fused_attention,
+       "K6": A.attention_bwd}
+read = lambda: {k: f.launches for k, f in fns.items()}
+for b, x in xs.items():
+    cp.predict(x[: min(b, 64)])                      # warm-up
+launches, ms, outs = {}, {}, {}
+for b, x in sorted(xs.items()):
+    c0, times = read(), []
+    for _ in range(3):
+        t = time.perf_counter()
+        out = cp.predict(x)
+        times.append(1e3 * (time.perf_counter() - t))
+    launches[b] = {k: (v - c0[k]) // 3 for k, v in read().items()}
+    ms[b] = float(np.median(times))
+    outs[f"logits_{b}"], outs[f"classes_{b}"] = out.logits, out.classes
+np.savez(outputs, **outs)
+code = cp.programs[64].graph_module.code
+print(json.dumps({
+    "models": sorted(m for m in sys.modules
+                     if m.startswith("sie_tpu_torch.models")),
+    "jax": "jax" in sys.modules, "load_s": load_s,
+    "ops": {op: code.count(f"torch.ops.sie_tpu_torch.{op}.default(")
+            for op in ("l1_fwd", "l1_grouped_fwd", "attention_fwd")},
+    "launches": launches, "ms": ms,
+    "total": {k: sum(l[k] for l in launches.values()) * 3 for k in fns}}))
+"""
+
+
+def phase_export(tmp: str, pred, xs: dict) -> dict:
+    """The f32 bundle's predictor exported for buckets (1, 64); a fresh
+    process that imports sie_tpu_torch.ops and sie_tpu_torch.serve and no
+    model code serves it through CompiledPredictor: launches per chunk,
+    the registered ops in the graph, outputs against the live predictor;
+    then `serve_http --stablehlo DIR` with one request. Returns the
+    child's launches."""
+    aot = os.path.join(tmp, "aot")
+    t0 = time.perf_counter()
+    pred.export_stablehlo(aot, batch_sizes=(1, 64))
+    export_s = time.perf_counter() - t0
+    inputs, outputs = os.path.join(tmp, "aot_in.npz"), os.path.join(
+        tmp, "aot_out.npz")
+    np.savez(inputs, **{str(b): x for b, x in xs.items()})
+    r = subprocess.run([sys.executable, "-c", EXPORT_CHILD, aot, inputs,
+                        outputs], cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        fail(f"the CompiledPredictor process failed:\n{r.stderr[-3000:]}")
+    info = json.loads(r.stdout.strip().splitlines()[-1])
+    if info["models"] or info["jax"]:
+        fail(f"the CompiledPredictor process imported {info['models']} "
+             f"(jax: {info['jax']})")
+    if info["ops"] != {"l1_fwd": 6, "l1_grouped_fwd": 0, "attention_fwd": 2}:
+        fail(f"the exported graph holds the ops {info['ops']}")
+    e = 0.0
+    with np.load(outputs) as z:
+        for b in SERVE_SIZES:
+            chunks = -(-b // 64)
+            if info["launches"][str(b)] != Counts.full(
+                    {"K1": 6, "K5": 2}, chunks):
+                fail(f"exported program, {b} rows: launches "
+                     f"{info['launches'][str(b)]}")
+            want = pred.predict(xs[b])
+            e = max(e, float(np.abs(z[f"logits_{b}"] - want.logits).max()))
+            if not e <= SERVE_TOL or not np.array_equal(z[f"classes_{b}"],
+                                                        want.classes):
+                fail(f"exported program, {b} rows: max |dlogits| {e}")
+        aot_logits = z["logits_5"]
+    print(f"[export] buckets (1, 64) exported in {export_s:.1f} s; a process "
+          f"with no model code loaded them in {info['load_s']:.1f} s; graph "
+          f"ops {info['ops']}; launches per request {info['launches']}; "
+          f"against the live predictor max |dlogits| {e:.3e} (limit "
+          f"{SERVE_TOL}), same classes; ms per request "
+          + ", ".join(f"{b} rows {t:.3f}" for b, t in info["ms"].items()))
+    proc, base = start_server(["--stablehlo", aot], tmp, "http aot")
+    try:   # the first request is the server's first call of its program
+        (code, got, first), (code2, _, second) = (
+            request(base, xs[5], "npz") for _ in range(2))
+    finally:
+        stop_server(proc)
+    if code != 200 or code2 != 200:
+        fail(f"serve_http --stablehlo: HTTP {code}, {code2}: {got}")
+    e = float(np.abs(got["logits"] - aot_logits).max())
+    if not e <= WIRE_TOL:
+        fail(f"serve_http --stablehlo: max |dlogits| {e} against "
+             f"CompiledPredictor")
+    print(f"[export] serve_http --stablehlo: 5 rows in {first:.3f} ms (the "
+          f"first request), {second:.3f} ms (the second); max |dlogits| "
+          f"{e:.3e} against CompiledPredictor")
+    return info["total"]
+
+
 def main() -> None:
+    import tempfile
     smi = phase_device()
     phase_build()
     k1 = phase_k1()
     with time_limit(300, "the K5 phase"):
         k5 = phase_k5()
-    served = phase_serve()
+    served, serve_launches = phase_serve()
     with time_limit(300, "the K5 dropout phase"):
         phase_k5_dropout()
     k2 = phase_k2()
@@ -1912,21 +2427,37 @@ def main() -> None:
         k6 = phase_k6()
     launches = phase_train()
     k3, k4 = phase_k3_k4()
-    fused = phase_fused(served)
+    fused, fused_serve = phase_fused(served)
     del served
     with time_limit(600, "the long-sequence K5/K6 phase"):
         k7, k8a, k8b = phase_long_attention()
     long_launches = phase_train_long()
     phase_graphs(smi)
-    phase_cli()
-    uea_fcn = phase_uea("FCN", UEA_STEPS, True, "uea_fcn")
-    uea_resnet = phase_uea("ResNet", RESNET_STEPS, False, "uea_resnet")
-    phase_eegcnn(smi)
-    cli_uea = phase_cli_bn()
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        phase_cli(work)
+        uea_fcn = phase_uea("FCN", UEA_STEPS, True, "uea_fcn")
+        uea_resnet = phase_uea("ResNet", RESNET_STEPS, False, "uea_resnet")
+        phase_eegcnn(smi)
+        cli_uea = phase_cli_bn()
+        with time_limit(600, "the serving phases"):
+            pred, bundle_dir, xs, bundle_ms, bundle = phase_bundle(work)
+            phase_http(work, pred, bundle_dir, xs, bundle_ms)
+            exported = phase_export(work, pred, xs)
+    finally:
+        for proc in list(CHILDREN):
+            stop_server(proc)
+        shutil.rmtree(work, ignore_errors=True)
     # each row's launches: the timed training steps of its own path, and
-    # for K1/K2 also the runs of the BatchNorm backbones' paths
-    bn_paths = {"uea_fcn": uea_fcn, "uea_resnet": uea_resnet,
-                "cli_uea_fcn": cli_uea}
+    # the runs of the other paths that launch it (launches_by_path)
+    others = {"K1": {"uea_fcn": uea_fcn, "uea_resnet": uea_resnet,
+                     "cli_uea_fcn": cli_uea, "serve": serve_launches,
+                     "serve_bundle": bundle, "serve_export": exported},
+              "K2": {"uea_fcn": uea_fcn, "uea_resnet": uea_resnet,
+                     "cli_uea_fcn": cli_uea},
+              "K3": {"serve_fused": fused_serve},
+              "K5": {"serve": serve_launches, "serve_bundle": bundle,
+                     "serve_export": exported}}
     paths = ((k1, launches, "K1"), (k2, launches, "K2"),
              (k3, fused, "K3"), (k4, fused, "K4"), (k5, launches, "K5"),
              (k6, launches, "K6"), (k7, long_launches, "K5"),
@@ -1936,10 +2467,13 @@ def main() -> None:
         d["launches"] = counted[key]
         if not d["launches"]:
             fail(f"{d['name']} was not launched on its path")
-        if key in ("K1", "K2"):
-            d["launches_by_path"] = {"train": counted[key], **{
-                p: c[key] for p, c in bn_paths.items()}}
-            d["launches"] += sum(c[key] for c in bn_paths.values())
+        if d is not k7 and key in others:
+            by_path = {p: c[key] for p, c in others[key].items()}
+            if not all(by_path.values()):
+                fail(f"{d['name']} was not launched on every path: "
+                     f"{by_path}")
+            d["launches_by_path"] = {"train": counted[key], **by_path}
+            d["launches"] += sum(by_path.values())
         kernels.append(d)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

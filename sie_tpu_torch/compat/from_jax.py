@@ -24,6 +24,15 @@ graph that reads them stays valid. `to_jax_params` and
 `to_jax_variables` are the reverse: the same renames and transposes
 undone, every tensor consumed exactly once, so a flax tree survives a load
 and the reverse unchanged.
+
+A params leaf may be a `quant.QTensor` (int8 `q`, f32 per-channel `scale`
+along flax's last axis). Its q and scale take the f32 leaf's layout, so the
+scale keeps broadcasting along the same axis (dim 0 of a Linear or Conv
+weight, L of a shapelet bank), and the parameter becomes a `Dequantize`
+parametrization: q and scale are what the module holds, and each use of
+the weight computes q.float() * scale, the JAX package's
+`dequantize_tensor`. Such a module has no f32 copy of the weight and is for
+inference only.
 """
 
 from __future__ import annotations
@@ -35,8 +44,10 @@ from typing import Any, Dict, Mapping as MappingT, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.utils import parametrize
 
 from sie_tpu_torch.models.layers import BatchNorm
+from sie_tpu_torch.quant import QTensor
 
 
 class ParamLoadError(ValueError):
@@ -47,7 +58,9 @@ _RENAMES = {"TokenEmbedding_0": "token_embedding",
             "FullAttentionLayer_0": "attention"}
 
 
-def _flatten(tree: Any, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
+def _flatten(tree: Any, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
+    if isinstance(tree, QTensor):
+        return {prefix: tree}
     if isinstance(tree, Mapping):
         out = {}
         for k, v in tree.items():
@@ -64,9 +77,9 @@ def _scope(part: str) -> str:
 
 
 def _target(module: nn.Module, path: Tuple[str, ...],
-            value: np.ndarray) -> Tuple[str, np.ndarray]:
-    """The PyTorch parameter name for a flax leaf, and the value laid out
-    for it."""
+            value: Any) -> Tuple[str, Any]:
+    """The PyTorch parameter name for a flax leaf, and the value (an array
+    or a QTensor, whose q and scale alike) laid out for it."""
     owner_name = ".".join(_scope(p) for p in path[:-1])
     leaf = path[-1]
     try:
@@ -76,15 +89,17 @@ def _target(module: nn.Module, path: Tuple[str, ...],
                              f"{owner_name!r} in the port") from None
     if leaf == "kernel":
         if isinstance(owner, nn.Linear):
-            value = value.T
+            lay = lambda v: v.T
         elif isinstance(owner, nn.Conv1d):
-            value = value.transpose(2, 1, 0)
+            lay = lambda v: v.transpose(2, 1, 0)
         elif isinstance(owner, nn.Conv2d):
-            value = value.transpose(3, 2, 0, 1)
+            lay = lambda v: v.transpose(3, 2, 0, 1)
         else:
             raise ParamLoadError(f"flax kernel {path} maps to "
                                  f"{type(owner).__name__}, not a Linear or "
                                  f"Conv1d/Conv2d")
+        value = (QTensor(lay(value.q), lay(value.scale))
+                 if isinstance(value, QTensor) else lay(value))
         leaf = "weight"
     elif leaf == "scale":
         if not isinstance(owner, (nn.LayerNorm, BatchNorm)):
@@ -103,10 +118,47 @@ def batch_stats_buffers(module: nn.Module) -> Dict[str, torch.Tensor]:
             for leaf in ("mean", "var")}
 
 
+class Dequantize(nn.Module):
+    """Parametrization of a weight held as int8 `q` and f32 `scale` laid
+    out like it: the weight is q.float() * scale, computed at each use."""
+
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor):
+        super().__init__()
+        self._pending = (q, scale)
+
+    def forward(self, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        return q.float() * scale
+
+    def right_inverse(self, _):
+        """The (q, scale) to hold, once, at registration: the weight cannot
+        be assigned afterwards."""
+        pending, self._pending = self._pending, None
+        if pending is None:
+            raise RuntimeError("a quantised weight cannot be assigned")
+        return pending
+
+
+def _hold_int8(module: nn.Module, name: str, value: QTensor) -> None:
+    """Replaces parameter `name` by a `Dequantize` parametrization of
+    value's q and scale; the f32 parameter is dropped."""
+    owner_name, _, leaf = name.rpartition(".")
+    owner = module.get_submodule(owner_name)
+    getattr(owner, leaf).requires_grad_(False)
+    parametrize.register_parametrization(owner, leaf, Dequantize(
+        torch.from_numpy(np.ascontiguousarray(value.q, np.int8)),
+        torch.from_numpy(np.ascontiguousarray(value.scale, np.float32))))
+
+
+def is_quantized(module: nn.Module) -> bool:
+    """True when a weight of `module` is held as int8 (`Dequantize`)."""
+    return any(isinstance(m, Dequantize) for m in module.modules())
+
+
 def _fill(module: nn.Module, tree: Any, targets: Dict[str, torch.Tensor],
           what: str) -> None:
-    """Copies every leaf of the flax tree into its target tensor in place;
-    each target filled exactly once."""
+    """Copies every leaf of the flax tree into its target tensor in place
+    (a QTensor leaf becomes a `Dequantize` parametrization); each target
+    filled exactly once."""
     filled: Dict[str, Tuple[str, ...]] = {}
     with torch.no_grad():
         for path, value in _flatten(tree).items():
@@ -122,7 +174,13 @@ def _fill(module: nn.Module, tree: Any, targets: Dict[str, torch.Tensor],
                 raise ParamLoadError(f"flax leaf {path} has shape "
                                      f"{value.shape}; {name!r} has "
                                      f"{tuple(t.shape)}")
-            t.copy_(torch.tensor(value, dtype=torch.float32))
+            if isinstance(value, QTensor):
+                if not isinstance(t, nn.Parameter):
+                    raise ParamLoadError(f"flax leaf {path} is quantised; "
+                                         f"only parameters can be")
+                _hold_int8(module, name, value)
+            else:
+                t.copy_(torch.tensor(value, dtype=torch.float32))
             filled[name] = path
     missing = sorted(set(targets) - set(filled))
     if missing:

@@ -10,6 +10,14 @@ Pallas kernels `_fwd_kernel` and `_bwd_kernel` of
 sie_tpu/ops/pallas/attention_pallas.py; the sources say what bounds them
 and how they are laid out). There is no other route.
 
+The forward K5 is the registered PyTorch op `sie_tpu_torch::attention_fwd`
+(`torch.library.custom_op`, returning the output and the row log-sum-exp,
+empty when not wanted): the CPU implementation is the plain version, the
+CUDA implementation the kernel's launch (which counts it), and a fake
+implementation gives the output shapes, so `torch.export` keeps each
+launch as one node of the graph. `FusedAttention` calls it in its forward.
+The dropout seed goes to the op as one int32 tensor, or None at rate 0.
+
 Dropout follows the Pallas kernels: a keep mask from a murmur3 counter hash
 of (seed, bh, global query row, global key column) (`dropout_keep`), the
 same bits in the forward and the backward, the kernels and the plain
@@ -322,20 +330,63 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 attention_bwd.launches = 0   # K6 launches in this process
 
 
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                        scale: float) -> torch.Tensor:
+    """The row log-sum-exp (BH, T) f32 of scale * Q K^T, with `_probs`'s
+    rounding of the scores."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if q.dtype == torch.bfloat16:
+        s = s.to(torch.bfloat16).float()
+    return torch.logsumexp(s * scale, dim=-1)
+
+
+def _no_lse(q: torch.Tensor) -> torch.Tensor:
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+@torch.library.custom_op("sie_tpu_torch::attention_fwd", mutates_args=(),
+                         device_types="cpu")
+def attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float, rate: float, seed: Optional[torch.Tensor],
+                     want_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 as a registered op: (out, row log-sum-exp (BH, T) f32, or an
+    empty tensor unless want_lse); on the CPU the plain versions."""
+    out = attention_plain(q, k, v, scale, rate, 0 if seed is None else seed)
+    return out, (attention_lse_plain(q, k, scale) if want_lse
+                 else _no_lse(q))
+
+
+@attention_fwd_op.register_kernel("cuda")
+def _attention_fwd_cuda(q, k, v, scale, rate, seed, want_lse):
+    out, lse = attention_fwd(q, k, v, scale, rate,
+                             0 if seed is None else seed, want_lse)
+    return out, (lse if want_lse else _no_lse(q))
+
+
+@attention_fwd_op.register_fake
+def _attention_fwd_fake(q, k, v, scale, rate, seed, want_lse):
+    lse = (q.new_empty(q.shape[:2], dtype=torch.float32) if want_lse
+           else _no_lse(q))
+    return torch.empty_like(q), lse
+
+
 class FusedAttention(torch.autograd.Function):
-    """out = fused_attention(q, k, v, scale, rate, seed); forward K5,
-    backward K6 (or their plain versions for CPU tensors). The forward
-    writes K5's row log-sum-exp only when a gradient is wanted."""
+    """out = fused_attention(q, k, v, scale, rate, seed) through the op
+    `attention_fwd` (K5); backward K6 (or the plain versions for CPU
+    tensors). The forward writes K5's row log-sum-exp only when a gradient
+    is wanted and the kernel reads it."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, rate, seed):
         ctx.scale, ctx.rate, ctx.seed = scale, rate, seed
-        if q.device.type == "cpu":
-            out, lse = attention_plain(q, k, v, scale, rate, seed), None
-        else:
-            out, lse = attention_fwd(q, k, v, scale, rate, seed,
-                                     want_lse=any(ctx.needs_input_grad[:3]))
-        ctx.save_for_backward(q, k, v, out, lse)
+        want_lse = q.device.type != "cpu" and any(ctx.needs_input_grad[:3])
+        seed_t = None
+        if rate > 0.0:   # an int seed as the int32 of its low 32 bits
+            seed_t = seed if torch.is_tensor(seed) else torch.tensor(
+                [(int(seed) + 2 ** 31) % 2 ** 32 - 2 ** 31],
+                dtype=torch.int32, device=q.device)
+        out, lse = attention_fwd_op(q, k, v, scale, rate, seed_t, want_lse)
+        ctx.save_for_backward(q, k, v, out, lse if want_lse else None)
         return out
 
     @staticmethod

@@ -22,6 +22,15 @@ shapelet_pallas.py. They run K1's and K2's per-block code
 are the per-bank kernels' bit for bit; the plain versions are the per-bank
 plain versions.
 
+The forwards K1 and K3 are registered PyTorch ops, `sie_tpu_torch::l1_fwd`
+and `sie_tpu_torch::l1_grouped_fwd` (`torch.library.custom_op`): the CPU
+implementation is the plain version, the CUDA implementation the kernel's
+launch (which counts it), and a fake implementation gives the output
+shapes, so `torch.export` keeps each launch as one node of the graph. The
+autograd functions call these ops in their forward, so training, serving
+and an exported program take one path. The backwards need no op: export
+is inference only.
+
 The gradient with respect to x is None: the JAX package returns zeros, and
 the input is always instance-normalised data with no parameters upstream.
 """
@@ -29,7 +38,7 @@ the input is always instance-normalised data with no parameters upstream.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -78,17 +87,34 @@ def l1_sliding_distance_bwd_plain(x: torch.Tensor, s: torch.Tensor,
     return out * ((2.0 if metric == "sqeuclidean" else 1.0) / l)
 
 
+@torch.library.custom_op("sie_tpu_torch::l1_fwd", mutates_args=(),
+                         device_types="cpu")
+def l1_fwd(x: torch.Tensor, s: torch.Tensor, metric: str) -> torch.Tensor:
+    """K1 as a registered op; on the CPU its plain version."""
+    return l1_sliding_distance_plain(x, s, metric)
+
+
+@l1_fwd.register_kernel("cuda")
+def _l1_fwd_cuda(x, s, metric):
+    return _k1(x, s, metric)
+
+
+@l1_fwd.register_fake
+def _l1_fwd_fake(x, s, metric):
+    return x.new_empty((x.shape[0], s.shape[0], x.shape[1],
+                        x.shape[2] - s.shape[2] + 1), dtype=torch.float32)
+
+
 class L1Distance(torch.autograd.Function):
-    """d = l1_sliding_distance(x, s, metric); the backward gives s its
-    gradient through K2 (or its plain version) and x none."""
+    """d = l1_sliding_distance(x, s, metric) through the op `l1_fwd`; the
+    backward gives s its gradient through K2 (or its plain version) and x
+    none."""
 
     @staticmethod
     def forward(ctx, x, s, metric):
         ctx.metric = metric
         ctx.save_for_backward(x, s)
-        if x.device.type == "cpu":
-            return l1_sliding_distance_plain(x, s, metric)
-        return _k1(x, s, metric)
+        return l1_fwd(x, s, metric)
 
     @staticmethod
     def backward(ctx, g):
@@ -232,16 +258,35 @@ def l1_sliding_distance_grouped_bwd_plain(
                  for s, g in zip(banks, gs))
 
 
+@torch.library.custom_op("sie_tpu_torch::l1_grouped_fwd", mutates_args=(),
+                         device_types="cpu")
+def l1_grouped_fwd(x: torch.Tensor,
+                   banks: List[torch.Tensor]) -> List[torch.Tensor]:
+    """K3 as a registered op; on the CPU its plain version."""
+    return list(l1_sliding_distance_grouped_plain(x, banks))
+
+
+@l1_grouped_fwd.register_kernel("cuda")
+def _l1_grouped_fwd_cuda(x, banks):
+    return list(_k3(x, banks))
+
+
+@l1_grouped_fwd.register_fake
+def _l1_grouped_fwd_fake(x, banks):
+    return [x.new_empty((x.shape[0], s.shape[0], x.shape[1],
+                         x.shape[2] - s.shape[2] + 1), dtype=torch.float32)
+            for s in banks]
+
+
 class GroupedL1Distance(torch.autograd.Function):
-    """ds = l1_sliding_distance_grouped(x, banks); the backward gives every
-    bank its gradient through K4 (or its plain version) and x none."""
+    """ds = l1_sliding_distance_grouped(x, banks) through the op
+    `l1_grouped_fwd`; the backward gives every bank its gradient through K4
+    (or its plain version) and x none."""
 
     @staticmethod
     def forward(ctx, x, *banks):
         ctx.save_for_backward(x, *banks)
-        if x.device.type == "cpu":
-            return l1_sliding_distance_grouped_plain(x, banks)
-        return _k3(x, banks)
+        return tuple(l1_grouped_fwd(x, list(banks)))
 
     @staticmethod
     def backward(ctx, *gs):

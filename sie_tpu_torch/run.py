@@ -6,12 +6,16 @@ It takes run.py's flags, plus `--device` (default `cuda`; `--device cpu`
 runs the plain PyTorch versions of the kernels). Per seed of {0, 42, 1234,
 8237, 2023} (or `--seed`): build the experiment -> skip training when its
 checkpoint exists -> train -> reload the best -> test (CSV summary and
-`test_results.pkl`) -> accuracy against the random baseline.
+`test_results.pkl`) -> `--export_bundle DIR` (a serving bundle,
+int8 weights under `--quantize_bundle`) and `--export_stablehlo DIR`
+(`torch.export` programs for `--stablehlo_batch_sizes`), in `seed-<n>`
+subdirectories when there are several seeds -> accuracy against the random
+baseline. Serve a bundle with `python -m sie_tpu_torch.serve_http --bundle
+DIR`.
 
 The flags of paths the port does not have yet raise NotImplementedError
 naming ROADMAP.md: `--loso`, `--mesh`, a `--task_name` other than
-classification, `--augment`, `--stream_from_disk`, `--export_bundle`,
-`--export_stablehlo`, `--quantize_bundle`, `--export_torch_ckpt`,
+classification, `--augment`, `--stream_from_disk`, `--export_torch_ckpt`,
 `--import_torch_ckpt`, `--profile_dir` and `--debug_nans`. Models,
 backbones, attention variants and data families that are not ported raise
 where they are built. `--no_pallas`, `--multi_gpu` and `--num_workers` are
@@ -188,7 +192,9 @@ def get_args(argv=None):
     p.add_argument("--profile_dir", type=str, default=None,
                    help="not ported yet (ROADMAP.md)")
     p.add_argument("--export_bundle", type=str, default=None,
-                   help="not ported yet (ROADMAP.md)")
+                   help="write a serving bundle of the tested weights here "
+                        "(serve it with python -m "
+                        "sie_tpu_torch.serve_http --bundle DIR)")
     p.add_argument("--augment", type=str, default="",
                    help="not ported yet (ROADMAP.md)")
     p.add_argument("--augment_noise_std", type=float, default=0.1)
@@ -199,11 +205,15 @@ def get_args(argv=None):
                    help="append one JSON line per epoch (epoch, train_loss, "
                         "val_loss, val_accuracy, beta, seconds, seed)")
     p.add_argument("--export_stablehlo", type=str, default=None,
-                   help="not ported yet (ROADMAP.md)")
+                   help="write ahead-of-time programs (torch.export, one "
+                        "per bucket of --stablehlo_batch_sizes) here; "
+                        "serve them with serve.CompiledPredictor or "
+                        "serve_http --stablehlo DIR")
     p.add_argument("--stablehlo_batch_sizes", type=int, nargs="+",
                    default=[1, 32])
     p.add_argument("--quantize_bundle", action="store_true",
-                   help="not ported yet (ROADMAP.md)")
+                   help="--export_bundle with int8 weights "
+                        "(weights_q.npz)")
     p.add_argument("--export_torch_ckpt", type=str, default=None,
                    help="not ported yet (ROADMAP.md)")
     p.add_argument("--import_torch_ckpt", type=str, default=None,
@@ -219,9 +229,6 @@ _UNPORTED = {
     "mesh": "training on a device mesh (--mesh)",
     "augment": "on-device augmentation (--augment)",
     "stream_from_disk": "streaming splits from disk (--stream_from_disk)",
-    "export_bundle": "serving bundles (--export_bundle)",
-    "export_stablehlo": "StableHLO export (--export_stablehlo)",
-    "quantize_bundle": "quantised bundles (--quantize_bundle)",
     "export_torch_ckpt": "reference checkpoint export (--export_torch_ckpt)",
     "import_torch_ckpt": "reference checkpoint import (--import_torch_ckpt)",
     "profile_dir": "profiler traces (--profile_dir)",
@@ -257,6 +264,26 @@ def args_to_config(args, seed: int) -> Config:
         # label artifacts by the EEG workload, not the UEA-only --dataset
         kw["dataset"] = args.data
     return Config(**kw)
+
+
+def export(experiment, args, seed: int, n_seeds: int) -> None:
+    """The tested weights as a serving bundle (--export_bundle,
+    --quantize_bundle) and as ahead-of-time programs (--export_stablehlo),
+    each under seed-<n> when there are several seeds."""
+    from sie_tpu_torch.serve import Predictor
+    pred = Predictor.from_module(experiment.cfg, experiment.trainer.model,
+                                 device=args.device)
+    sub = lambda d: os.path.join(d, f"seed-{seed}") if n_seeds > 1 else d
+    if args.export_bundle:
+        bundle_dir = sub(args.export_bundle)
+        pred.save_bundle(bundle_dir, quantize=args.quantize_bundle)
+        print(f"serving bundle exported to {bundle_dir}"
+              + (" (int8 weights)" if args.quantize_bundle else ""))
+    if args.export_stablehlo:
+        hlo_dir = sub(args.export_stablehlo)
+        pred.export_stablehlo(hlo_dir,
+                              batch_sizes=tuple(args.stablehlo_batch_sizes))
+        print(f"StableHLO serving artifacts exported to {hlo_dir}")
 
 
 def main(argv=None):
@@ -301,6 +328,9 @@ def main(argv=None):
             pickle.dump({"test_loss": test_loss, "test_metrics": test_metrics,
                          "result": test_result, "args": vars(args)}, f)
         print(f"results pickled to {result_file}")
+
+        if args.export_bundle or args.export_stablehlo:
+            export(experiment, args, seed, len(seeds))
 
         acc = test_metrics["accuracy"]
         baseline = test_metrics["random_baseline"]

@@ -168,8 +168,9 @@ def test_parser_takes_run_py_options_plus_device():
 
 UNPORTED = [["--loso"], ["--mesh", "8"], ["--task_name", "regression"],
             ["--task_name", "long_term_forecast"], ["--augment", "noise"],
-            ["--stream_from_disk"], ["--export_bundle", "b"],
-            ["--export_stablehlo", "h"], ["--quantize_bundle"],
+            ["--stream_from_disk"], ["--task_name", "short_term_forecast"],
+            ["--task_name", "imputation"],
+            ["--task_name", "anomaly_detection"],
             ["--export_torch_ckpt", "t.pth"], ["--import_torch_ckpt", "t.pth"],
             ["--profile_dir", "p"], ["--debug_nans"], ["--data", "Monash"]]
 

@@ -43,6 +43,7 @@ def test_the_list_covers_the_port():
     assert "scripts/port_profile_kernels.py" in FILES
     for new in ("run.py", "train/experiment.py", "train/checkpoint.py",
                 "compat/flax_msgpack.py", "data/preprocess.py", "data/eeg.py",
-                "data/provider.py", "utils/shapelet_util.py"):
+                "data/provider.py", "utils/shapelet_util.py",
+                "serve_http.py", "quant.py", "client.py"):
         assert f"sie_tpu_torch/{new}" in FILES
     assert len(FILES) >= 35
