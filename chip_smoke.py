@@ -145,16 +145,47 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      `attention_fwd` nodes in the graph, K1 6 and K5 2 launches a chunk,
      logits within 5e-2 of the live predictor with the same classes; then
      `serve_http --stablehlo DIR` answers one request within 1e-6 of it;
- 23. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
+ 23. augmentation: the flagship at dropout 0.1 with `augment` noise,
+     scale, chdrop and tshift: 5 eager indexed steps against the same
+     steps through `train_step_staged` (warm-up, capture, replays) from the
+     same weights and generators, losses and parameters bit-equal; K1 6,
+     K2 6, K5 2, K6 2 a step (warm-up and capture too; none at a replay);
+     one batch's draws within 5-sigma normal and binomial bounds (noise
+     mean and std, the chdrop keep rate, offsets in [-16, 16]), the added
+     noise's std against 0.1 x each row's valid-region std, padding exactly
+     zero; eval logits with and without augment bit-equal; the median
+     replayed step with and without augment, in turns;
+ 24. regression through the command line: `--task_name regression --data
+     Monash` on a synthetic archive at BIDMC32HR's shape (2 x 4000,
+     subsampled x4 to T = 1000; 512/256 cases), InterpGN + Transformer at
+     full width, 10 bins, amp, B=64, 3 epochs: each train step K1 6, K2 6,
+     K5 2, K6 2; finite CRPS losses that move (lr 1e-5: at 5e-3 the head
+     saturates in one step); CSV and checkpoint.msgpack; a re-run that
+     skips training with the same test loss; logits and CRPS of 2 test
+     rows against the CPU plain path within 5e-2 at the seed-0 weights
+     (at the trained ones the CRPS within 5e-2 and the logits within 5e-2
+     x their largest magnitude); K1/K2 against their
+     plain versions at C = 2, T = 1000 and the six banks (L 50 ... 800);
+     the median step;
+ 25. reference checkpoints: phase 15's and phase 24's checkpoints through
+     `--export_torch_ckpt`, read back through `--import_torch_ckpt` on the
+     card (no training): the same test accuracy / test loss, and the
+     file's keys and shapes equal to `export_state_dict` on the CPU;
+ 26. LOSO: `--loso --max_subjects 3` on synthetic CHISCO (384 trials) at
+     the flagship's width, 1 epoch a fold: three folds with finite losses,
+     each fold's test rows exactly its subject's, checkpoints under
+     loso-<subject>, the fold mean printed;
+ 27. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
      timed training steps of each kernel's path, plus, split in
-     `launches_by_path`, phases 16, 17 and 19's UEA run for K1 and K2, and
-     the serving paths for K1, K3 and K5: phase 5, phase 11's requests,
-     phase 20's bundles and phase 22's exported program), then the device
-     line.
+     `launches_by_path`, phases 16, 17 and 19's UEA run for K1 and K2, the
+     serving paths for K1, K3 and K5: phase 5, phase 11's requests, phase
+     20's bundles and phase 22's exported program, and phases 23, 24 and
+     26 for K1, K2, K5 and K6), then the device line.
 
-The K5 and K6 phases (4, 6, 8, 12) and the serving phases (20-22) run
-under a time limit that ends the process (and the servers it started), so
-that a kernel that hangs fails the run instead of holding the card. Times
+The K5 and K6 phases (4, 6, 8, 12), the serving phases (20-22) and
+phases 23-26 run under a time limit that ends the process (and the
+servers it started), so that a kernel that hangs fails the run instead of
+holding the card. Times
 are CUDA-event times after warm-up (kernels) or host-clock times of work
 that ends in a synchronisation (requests, steps). Bounds use the
 published H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32, 989 TFLOP/s bf16,
@@ -2412,6 +2443,439 @@ def phase_export(tmp: str, pred, xs: dict) -> dict:
     return info["total"]
 
 
+# ---- run.py's options past classification ---------------------------------
+AUG_ALL = ("noise", "scale", "chdrop", "tshift")
+AUG_STEPS = 5          # eager steps against graph steps, augmented
+AUG_TIMED = 10         # graph replays timed with and without augmentation
+TRAIN_WANT = {"K1": 6, "K2": 6, "K5": 2, "K6": 2}   # a flagship-like step
+
+
+def padded_rows(cfg, n: int):
+    """n CHISCO-shaped rows from np.random.default_rng(5), row i padded
+    after 845 - 100 i steps (zero there), and their mask, on the card."""
+    rng = np.random.default_rng(5)
+    t = cfg.seq_len
+    lengths = np.maximum(t - 100 * np.arange(n), 1)
+    mask = (np.arange(t)[None] < lengths[:, None]).astype(np.float32)
+    x = (rng.normal(size=(n, t, cfg.enc_in)) * 1.5 + 0.3).astype(np.float32)
+    return (torch.from_numpy(x * mask[:, :, None]).cuda(),
+            torch.from_numpy(mask).cuda())
+
+
+def check_draws(cfg) -> None:
+    """One flagship batch's draws on the card within normal and binomial
+    bounds (5 sigma), the noise's sigma from the valid region, the padding
+    still exactly zero after all four augmentations."""
+    from sie_tpu_torch.data.augment import apply_augmentations, draw
+    b, t, c = cfg.batch_size, cfg.seq_len, cfg.enc_in
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    noise, scale, keep, off = draw(cfg, (b, t, c), gen)
+    n = noise.numel()
+    p = cfg.augment_chdrop_prob
+    rate = float(keep.float().mean())
+    checks = {
+        "noise mean": abs(float(noise.mean())) <= 5 / np.sqrt(n),
+        "noise std": abs(float(noise.std()) - 1) <= 5 / np.sqrt(2 * n),
+        "scale mean": abs(float(scale.mean())) <= 5 / np.sqrt(b),
+        "chdrop keep rate": abs(rate - (1 - p)) <= 5 * np.sqrt(
+            p * (1 - p) / keep.numel()),
+        "tshift range": (int(off.min()) >= -cfg.augment_tshift_max
+                         and int(off.max()) <= cfg.augment_tshift_max),
+        "tshift spread": len(set(off.tolist())) >= 10,
+    }
+    x, mask = padded_rows(cfg, b)
+    noisy, _ = apply_augmentations(cfg.replace(augment=("noise",)), x, mask,
+                                   [noise])
+    added = (noisy - x)
+    worst = 0.0   # |sample std / sigma - 1| over 5 / sqrt(2 n), per row
+    for i in range(0, b, 7):
+        valid = mask[i] > 0
+        want = cfg.augment_noise_std * float(x[i][valid].std(unbiased=False))
+        got = float(added[i][valid].std())
+        worst = max(worst, abs(got / want - 1) / (
+            5 / np.sqrt(2 * added[i][valid].numel())))
+        if not (added[i][~valid] == 0).all():
+            checks["noise leaves the padding"] = False
+    checks["noise sigma"] = worst <= 1.0
+    out, out_mask = apply_augmentations(cfg, x, mask, [noise, scale, keep,
+                                                       off])
+    checks["padding zero"] = bool((out[out_mask == 0] == 0).all()) and \
+        bool((out_mask == 0).any())
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"augmentation draws on the card: {bad}")
+    print(f"[augment] draws (B={b}): noise mean {float(noise.mean()):+.2e} "
+          f"std {float(noise.std()):.5f}; chdrop keep rate {rate:.4f} (want "
+          f"{1 - p:.2f}); offsets {int(off.min())}..{int(off.max())}; noise "
+          f"sigma against 0.1 x the valid region's std at {worst:.3f} of its "
+          f"5-sigma bound (worst row); padding exactly zero")
+
+
+def phase_augment(smi: str) -> dict:
+    """The flagship at dropout RATE with all four augmentations: eager
+    indexed steps against staged graph steps (warm-up, capture, replays)
+    from the same weights and both generators' state, bit for bit; the
+    launches of each step; the draws; eval logits with and without
+    augment equal; the median replayed step with and without augment.
+    Returns the launches over the eager steps, the warm-up and the
+    capture."""
+    cfg = train_config(dropout=RATE, augment=AUG_ALL)
+    ds = random_rows(cfg, 256)
+    b = cfg.batch_size
+    rng = np.random.default_rng(6)
+    steps = [(rng.permutation(len(ds.y))[:b], np.ones(b, np.float32))
+             for _ in range(AUG_STEPS)]
+    counts = Counts()
+    eager, dev_e = graph_trainer(cfg, ds)
+    graph, dev_g = graph_trainer(cfg, ds)
+    staged = graph.stage_steps(steps, 1.0)
+    want, none = Counts.full(TRAIN_WANT), Counts.full({})
+    eager_ms, losses = [], []
+    counts.zero()   # the path's main run
+    for k in range(AUG_STEPS):
+        c0 = counts.read()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        le, _ = eager.train_step_indexed(dev_e, steps[k][0], steps[k][1],
+                                         1.0)
+        torch.cuda.synchronize()
+        eager_ms.append(1e3 * (time.perf_counter() - t0))
+        got_e = counts.since(c0)
+        c0 = counts.read()
+        lg, _ = graph.train_step_staged(dev_g, staged, k)
+        got_g = counts.since(c0)
+        if got_e != want or got_g != (want if k < 2 else none):
+            fail(f"augmented step {k}: launches eager {got_e}, graph "
+                 f"{got_g}")
+        losses.append((float(le), float(lg)))
+        if not np.isfinite(losses[-1][0]) or losses[-1][0] != losses[-1][1]:
+            fail(f"augmented step {k}: eager loss {losses[-1][0]}, graph "
+                 f"{losses[-1][1]}")
+    launches = counts.read()
+    if len(graph.captures) != 1:
+        fail(f"augmented steps: {len(graph.captures)} captures, want 1")
+    pg = dict(graph.model.named_parameters())
+    differ = [n for n, p in eager.model.named_parameters()
+              if not torch.equal(p, pg[n])]
+    if differ:
+        fail(f"augmented graph steps: parameters differ from eager: "
+             f"{differ[:4]}")
+    if not torch.equal(eager.augment_generator.get_state(),
+                       graph.augment_generator.get_state()):
+        fail("augmented graph steps: the augmentation generators differ")
+    print(f"[augment] {AUG_STEPS} eager steps and their graph steps "
+          f"(warm-up, capture, replays): losses and parameters bit-equal; "
+          f"losses {losses[0][0]:.4f} .. {losses[-1][0]:.4f}; launches a "
+          f"step {TRAIN_WANT}")
+    check_draws(cfg)
+
+    # eval: the augmented trainer's model in a trainer without augment
+    plain_cfg = train_config(dropout=RATE)
+    plain, dev_p = graph_trainer(plain_cfg, ds)
+    plain.model.load_state_dict(eager.model.state_dict())
+    idx = steps[0][0]
+    batch = (ds.x[idx], ds.y[idx], ds.padding_mask[idx], steps[0][1])
+    if not torch.equal(eager.eval_step(batch)[0], plain.eval_step(batch)[0]):
+        fail("eval logits differ with and without augment")
+
+    # graph replays with and without augmentation, in turns
+    staged_p = plain.stage_steps(steps, 1.0)
+    for k in range(2):   # warm-up and capture
+        plain.train_step_staged(dev_p, staged_p, k)
+    times = {"augment": [], "plain": []}
+    for i in range(AUG_TIMED):
+        k = i % AUG_STEPS
+        for tag, t, dev, st in (("augment", graph, dev_g, staged),
+                                ("plain", plain, dev_p, staged_p)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.train_step_staged(dev, st, k)
+            torch.cuda.synchronize()
+            times[tag].append(1e3 * (time.perf_counter() - t0))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"[augment] eager augmented steps ms: " + ", ".join(
+        f"{t:.3f}" for t in eager_ms))
+    for tag, v in times.items():
+        print(f"[augment] graph replays ms, {tag}: " + ", ".join(
+            f"{t:.3f}" for t in v))
+    print(f"[augment] median replayed step (B={b}, dropout {RATE}): with "
+          f"augment {med['augment']:.3f} ms, without {med['plain']:.3f} ms, "
+          f"difference {med['augment'] - med['plain']:+.3f} ms ({smi})")
+    return launches
+
+
+REG_TRAIN, REG_TEST = 512, 256   # BIDMC32HR has 5550 / 2399 cases
+REG_DIMS, REG_LENGTH = 2, 4000   # BIDMC32HR's shape; subsampled x4 to 1000
+REG_EPOCHS = 3
+# lr 1e-5: at run.py's default 5e-3 Adam moves each of the 512000 inputs of
+# the Transformer's flatten-projection head by ~lr a step, and the logits
+# saturate within one step (0.7 -> 254 on the CPU at this width; every
+# epoch then has the same validation loss, so the checks below that a
+# reload keeps the test loss would hold for any weights)
+REG_CLI = ("--task_name regression --data Monash --dataset BIDMC32HR "
+           "--model InterpGN --dnn_type Transformer --num_shapelet 10 "
+           "--d_model 512 --d_ff 2048 --n_heads 8 --e_layers 2 "
+           "--batch_size 64 --lr 1e-5 --train_epochs 3 --patience 3 "
+           "--log_interval 1 --seed 0")
+
+
+def reg_args(tmp: str) -> list:
+    return REG_CLI.split() + [
+        "--data_root", os.path.join(tmp, "monash"),
+        "--checkpoint_dir", os.path.join(tmp, "ck_reg"),
+        "--result_dir", os.path.join(tmp, "result"),
+        "--cache_dir", os.path.join(tmp, "cache")]
+
+
+def kernels_at(x, banks, tag: str) -> None:
+    """K1 and K2 on the card against their plain versions on `banks`."""
+    from sie_tpu_torch.ops.shapelet_l1 import (
+        l1_sliding_distance, l1_sliding_distance_bwd,
+        l1_sliding_distance_bwd_plain, l1_sliding_distance_plain)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    worst = [0.0, 0.0]
+    for s in banks:
+        w = x.shape[-1] - s.shape[-1] + 1
+        g = torch.randn((x.shape[0], s.shape[0], x.shape[1], w),
+                        generator=gen, device="cuda")
+        for metric in ("euclidean", "sqeuclidean"):
+            e1 = float((l1_sliding_distance(x, s, metric)
+                        - l1_sliding_distance_plain(x, s, metric)
+                        ).abs().max())
+            want = l1_sliding_distance_bwd_plain(x, s, g, metric)
+            e2 = float((l1_sliding_distance_bwd(x, s, g, metric)
+                        - want).abs().max()) / float(want.abs().max())
+            worst = [max(worst[0], e1), max(worst[1], e2)]
+            if not (e1 <= K1_TOL and e2 <= K2_TOL):
+                fail(f"{tag} L={s.shape[-1]} {metric}: K1 err {e1}, K2 err "
+                     f"{e2} x max|want|")
+    print(f"[{tag}] K1 and K2 against their plain versions at x "
+          f"{tuple(x.shape)}, L = {[s.shape[-1] for s in banks]}: K1 max abs "
+          f"err {worst[0]:.3e}, K2 {worst[1]:.3e} x max|want|")
+
+
+def phase_regression(tmp: str) -> dict:
+    """--task_name regression --data Monash through the command line at
+    BIDMC32HR's shape: per-step launches, finite CRPS losses, CSV and
+    checkpoint, a re-run that skips training with the same test loss; the
+    card against the CPU plain path on 2 test rows; K1/K2 at C = 2. Returns
+    the launches over the first run."""
+    from sie_tpu_torch.compat.from_jax import load_jax_variables
+    from sie_tpu_torch.data.monash import load_monash_dataset
+    from sie_tpu_torch.data.synthetic import write_synthetic_monash
+    from sie_tpu_torch.models.registry import build_model
+    from sie_tpu_torch.models.sbm import bank_lengths
+    from sie_tpu_torch.run import args_to_config, get_args
+    from sie_tpu_torch.train import trainer as trainer_mod
+    from sie_tpu_torch.train.checkpoint import load_checkpoint
+    from sie_tpu_torch.train.regression import make_crps_head
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "monash")
+    write_synthetic_monash(root, "BIDMC32HR", n_train=REG_TRAIN,
+                           n_test=REG_TEST, n_dims=REG_DIMS,
+                           length=REG_LENGTH, seed=0)
+    print(f"[regression] synthetic BIDMC32HR-shaped archive ({REG_TRAIN}/"
+          f"{REG_TEST} cases, {REG_DIMS} x {REG_LENGTH}) written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    argv = reg_args(tmp)
+    counts = Counts()
+    real = trainer_mod.Trainer.train_step
+    per_step, step_ms = [], []
+
+    def counted(self, batch, beta):
+        c0 = counts.read()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = real(self, batch, beta)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+        per_step.append(counts.since(c0))
+        return out
+
+    trainer_mod.Trainer.train_step = counted
+    try:
+        t0 = time.perf_counter()
+        counts.zero()   # the path's main run
+        text, res = run_cli(argv)
+        launches = counts.read()
+        secs = time.perf_counter() - t0
+    finally:
+        trainer_mod.Trainer.train_step = real
+    steps = REG_EPOCHS * (REG_TRAIN // 64)
+    if len(per_step) != steps or any(c != Counts.full(TRAIN_WANT)
+                                     for c in per_step):
+        fail(f"regression steps: {len(per_step)} (want {steps}), launches "
+             f"{[c for c in per_step if c != Counts.full(TRAIN_WANT)][:2]}")
+    epochs = re.findall(r"Epoch \d+/3 \| Train (\S+) \| Val (\S+)", text)
+    if len(epochs) != REG_EPOCHS or not all(np.isfinite(float(v))
+                                            for e in epochs for v in e) or \
+            len({e[1] for e in epochs}) == 1:
+        fail(f"the regression run logged epochs {epochs} (a validation "
+             f"loss that never moves is a saturated model)")
+    cfg = args_to_config(get_args(argv), 0)
+    ckdir = os.path.join(cfg.checkpoint_dir, cfg.checkpoint_key())
+    csv_path = re.search(r"Test summary saved at: (\S+)", text)
+    if not csv_path or not os.path.exists(csv_path.group(1)) or \
+            not os.path.exists(os.path.join(ckdir, "checkpoint.msgpack")):
+        fail("the regression run wrote no CSV or checkpoint.msgpack")
+    test_loss = res[0][1]
+    text2, res2 = run_cli(argv)
+    if "checkpoint exists — skipping training" not in text2 or \
+            res2[0][1] != test_loss or not np.isfinite(test_loss):
+        fail(f"the regression re-run did not skip training or gave test "
+             f"loss {res2[0][1]}, not {test_loss}")
+
+    # the card against the CPU plain path on 2 test rows: at the seed-0
+    # weights, logits and CRPS within 5e-2; at the trained weights the
+    # CRPS within 5e-2 and the logits within 5e-2 x their largest
+    # magnitude (bf16 keeps 8 bits, and training grows the logits)
+    train = load_monash_dataset(root, "BIDMC32HR", "train")
+    test = load_monash_dataset(root, "BIDMC32HR", "test",
+                               bin_edges=train.bin_edges)
+    mcfg = cfg.replace(seq_len=REG_LENGTH // 4, enc_in=REG_DIMS,
+                       num_class=len(train.bin_edges))
+    head = make_crps_head(train.bin_edges)
+    x, mask = test.x[:2, ::4], test.padding_mask[:2, ::4]
+    errs = {}
+    for tag, variables in (("seed-0", None), ("trained",
+                                              load_checkpoint(ckdir))):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            model = build_model(mcfg, dev, torch.Generator().manual_seed(0))
+            if variables is not None:
+                load_jax_variables(model, variables)
+            with torch.no_grad():
+                logits, _ = model.eval()(torch.from_numpy(x).to(dev),
+                                         torch.from_numpy(mask).to(dev))
+            y = torch.from_numpy(test.y[:2]).to(dev)
+            out[dev] = (logits.float().cpu(), float(head(
+                logits, y, torch.ones(2, device=dev))))
+        top = float(out["cpu"][0].abs().max())
+        scale = 1.0 if variables is None else max(1.0, top)
+        errs[tag] = (float((out["cuda"][0] - out["cpu"][0]).abs().max()),
+                     abs(out["cuda"][1] - out["cpu"][1]), top)
+        if not (errs[tag][0] <= SERVE_TOL * scale
+                and errs[tag][1] <= SERVE_TOL):
+            fail(f"regression card vs CPU at the {tag} weights: max "
+                 f"|dlogits| {errs[tag][0]} (limit {SERVE_TOL * scale}), "
+                 f"|dCRPS| {errs[tag][1]}")
+    xc = torch.from_numpy(np.ascontiguousarray(
+        train.x[:64, ::4].transpose(0, 2, 1))).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    kernels_at(xc, [torch.randn((10, REG_DIMS, l), generator=gen,
+                                device="cuda") for l in bank_lengths(mcfg)],
+               "regression")
+    med = float(np.median(step_ms[2:]))
+    print(f"[regression] {secs:.1f} s for the first run ({steps} steps); "
+          f"step ms: " + ", ".join(f"{t:.3f}" for t in step_ms))
+    print(f"[regression] median step (B=64, T={mcfg.seq_len}, C={REG_DIMS}, "
+          f"steps 3-{steps}) {med:.3f} ms; CRPS epochs {epochs}; test loss "
+          f"{test_loss:.6f}, the same on the re-run; launches over the "
+          f"first run {launches}")
+    for tag, (e, e_crps, top) in errs.items():
+        print(f"[regression] card vs CPU on 2 rows at the {tag} weights: "
+              f"max |dlogits| {e:.3e} (max |logits| {top:.3f}), |dCRPS| "
+              f"{e_crps:.3e}")
+    return launches
+
+
+def phase_torch_ckpt(tmp: str) -> None:
+    """Phase 15's flagship checkpoint and phase 24's regression checkpoint
+    through --export_torch_ckpt, read back through --import_torch_ckpt on
+    the card: the same test accuracy (flagship) and test loss
+    (regression); the file's keys and shapes are those that
+    export_state_dict gives on the CPU from the checkpoint."""
+    from sie_tpu_torch.compat.torch_export import export_state_dict
+    from sie_tpu_torch.run import args_to_config, get_args
+    from sie_tpu_torch.train.checkpoint import load_checkpoint
+    for tag, argv in (("flagship", cli_args(tmp) + [
+            "--checkpoint_dir", os.path.join(tmp, "ck")]),
+            ("regression", reg_args(tmp))):
+        pth = os.path.join(tmp, f"{tag}.pth")
+        text, res = run_cli(argv + ["--export_torch_ckpt", pth])
+        if "checkpoint exists — skipping training" not in text or \
+                f"torch checkpoint exported to {pth}" not in text:
+            fail(f"{tag}: --export_torch_ckpt did not load and export")
+        imp = [a if a != os.path.join(tmp, "ck") and
+               a != os.path.join(tmp, "ck_reg") else
+               os.path.join(tmp, f"ck_import_{tag}") for a in argv]
+        text2, res2 = run_cli(imp + ["--import_torch_ckpt", pth])
+        if "imported torch checkpoint" not in text2 or "Epoch" in text2:
+            fail(f"{tag}: --import_torch_ckpt trained or did not import")
+        acc = lambda r: r[0][2] and r[0][2]["accuracy"]   # None: regression
+        if res2[0][1] != res[0][1] or acc(res2) != acc(res):
+            fail(f"{tag}: imported test loss {res2[0][1]}, accuracy "
+                 f"{acc(res2)}; exported {res[0][1]}, {acc(res)}")
+        cfg = args_to_config(get_args(argv), 0)
+        want = export_state_dict(load_checkpoint(os.path.join(
+            cfg.checkpoint_dir, cfg.checkpoint_key())), cfg)
+        got = torch.load(pth, map_location="cpu", weights_only=True)
+        if {k: tuple(v.shape) for k, v in got.items()} != \
+                {k: v.shape for k, v in want.items()}:
+            fail(f"{tag}: the exported keys or shapes differ from "
+                 f"export_state_dict on the CPU")
+        what = (f"test accuracy {res[0][2]['accuracy']:.2f}%"
+                if res[0][2] else f"test loss {res[0][1]:.6f}")
+        print(f"[torch_ckpt] {tag}: {len(got)} keys exported, equal to "
+              f"export_state_dict on the CPU in keys and shapes; imported on "
+              f"the card: the same {what}")
+
+
+LOSO_TRIALS = 384    # synthetic CHISCO trials over 3 subjects
+LOSO_CLI = CLI_FLAGS.replace("--synthetic_trials 640",
+                             f"--synthetic_trials {LOSO_TRIALS}").replace(
+    "--train_epochs 3", "--train_epochs 1") + " --loso --max_subjects 3"
+
+
+def phase_loso(tmp: str) -> dict:
+    """--loso on synthetic CHISCO at the flagship's width: three folds,
+    each trained with finite losses, each fold's test set one subject,
+    checkpoints under loso-<subject>, the mean printed. Returns the
+    launches over the run."""
+    import glob
+    from sie_tpu_torch.data.eeg import load_eeg_dataset
+    from sie_tpu_torch.run import args_to_config, get_args
+    argv = LOSO_CLI.split() + [
+        "--data_root", os.path.join(tmp, "no_chisco_loso"),
+        "--checkpoint_dir", os.path.join(tmp, "ck_loso"),
+        "--result_dir", os.path.join(tmp, "result"),
+        "--cache_dir", os.path.join(tmp, "cache")]
+    counts = Counts()
+    t0 = time.perf_counter()
+    counts.zero()   # the path's main run
+    text, res = run_cli(argv)
+    launches = counts.read()
+    secs = time.perf_counter() - t0
+    folds = res[0][2]["per_fold"]
+    losses = re.findall(r"Epoch 1/1 \| Train Loss (\S+) \| Val Loss (\S+)",
+                        text)
+    if [f["held_out_subject"] for f in folds] != [0, 1, 2] or \
+            len(losses) != 3 or not all(np.isfinite(float(v))
+                                        for l in losses for v in l):
+        fail(f"LOSO: folds {[f['held_out_subject'] for f in folds]}, "
+             f"epochs {losses}")
+    cfg = args_to_config(get_args(argv), 0)
+    subjects = np.concatenate([load_eeg_dataset(cfg, f).subject_ids
+                               for f in ("train", "val", "test")])
+    for f in folds:
+        k = f["held_out_subject"]
+        test = load_eeg_dataset(cfg, "test", loso_test_subject=k)
+        if set(test.subject_ids.tolist()) != {k} or \
+                f["num_samples"] != int((subjects == k).sum()):
+            fail(f"LOSO fold {k}: {f['num_samples']} test rows, subjects "
+                 f"{set(test.subject_ids.tolist())}")
+        if not glob.glob(os.path.join(tmp, "ck_loso", f"loso-{k}", "**",
+                                      "checkpoint.msgpack"), recursive=True):
+            fail(f"LOSO fold {k}: no checkpoint under loso-{k}")
+    mean = re.search(r"LOSO \(3 folds\): accuracy (\S+) \+/- (\S+)", text)
+    if not mean or not all(launches[k] for k in TRAIN_WANT):
+        fail(f"LOSO: no fold mean printed, or launches {launches}")
+    print(f"[loso] {secs:.1f} s for 3 folds ({LOSO_TRIALS} trials); test "
+          f"rows {[f['num_samples'] for f in folds]}; accuracy "
+          f"{mean.group(1)} +/- {mean.group(2)}; launches {launches}")
+    return launches
+
+
 def main() -> None:
     import tempfile
     smi = phase_device()
@@ -2444,20 +2908,29 @@ def main() -> None:
             pred, bundle_dir, xs, bundle_ms, bundle = phase_bundle(work)
             phase_http(work, pred, bundle_dir, xs, bundle_ms)
             exported = phase_export(work, pred, xs)
+        with time_limit(600, "the phases of run.py's other options"):
+            augmented = phase_augment(smi)
+            regression = phase_regression(work)
+            phase_torch_ckpt(work)
+            loso = phase_loso(work)
     finally:
         for proc in list(CHILDREN):
             stop_server(proc)
         shutil.rmtree(work, ignore_errors=True)
     # each row's launches: the timed training steps of its own path, and
     # the runs of the other paths that launch it (launches_by_path)
+    options = {"augment": augmented, "regression": regression,
+               "loso": loso}
     others = {"K1": {"uea_fcn": uea_fcn, "uea_resnet": uea_resnet,
                      "cli_uea_fcn": cli_uea, "serve": serve_launches,
-                     "serve_bundle": bundle, "serve_export": exported},
+                     "serve_bundle": bundle, "serve_export": exported,
+                     **options},
               "K2": {"uea_fcn": uea_fcn, "uea_resnet": uea_resnet,
-                     "cli_uea_fcn": cli_uea},
+                     "cli_uea_fcn": cli_uea, **options},
               "K3": {"serve_fused": fused_serve},
               "K5": {"serve": serve_launches, "serve_bundle": bundle,
-                     "serve_export": exported}}
+                     "serve_export": exported, **options},
+              "K6": options}
     paths = ((k1, launches, "K1"), (k2, launches, "K2"),
              (k3, fused, "K3"), (k4, fused, "K4"), (k5, launches, "K5"),
              (k6, launches, "K6"), (k7, long_launches, "K5"),
@@ -2467,7 +2940,7 @@ def main() -> None:
         d["launches"] = counted[key]
         if not d["launches"]:
             fail(f"{d['name']} was not launched on its path")
-        if d is not k7 and key in others:
+        if d not in (k7, k8a, k8b) and key in others:
             by_path = {p: c[key] for p, c in others[key].items()}
             if not all(by_path.values()):
                 fail(f"{d['name']} was not launched on every path: "

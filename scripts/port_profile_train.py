@@ -1,16 +1,18 @@
 """Where a training step's time goes in sie_tpu_torch, on one CUDA card.
 
     python scripts/port_profile_train.py [--config flagship|fused|eigenworms|
-        uea_fcn|eegcnn] [--path indexed|staged] [--steps 10] [--no-profile]
-        [--out DIR]
+        uea_fcn|eegcnn|regression] [--path indexed|staged] [--steps 10]
+        [--no-profile] [--out DIR]
 
 Builds the configuration's model (weights from seed 0) under `Trainer` on
 the card: `flagship` is bench.py's InterpGN (B=64), `fused` the same with
 `fuse_short_banks`, `eigenworms` chip_smoke.py's EigenWorms-shaped
 InterpGN + Transformer (T=17984, float32, B=8), `uea_fcn` chip_smoke.py's
 InterpGN + FCN as run_uea.sh trains it at that shape, `eegcnn` bench.py's
-EEGCNN (chip_smoke.py's `eegcnn_config`, dropout 0.1). Holds four batches
-of random rows on the card.
+EEGCNN (chip_smoke.py's `eegcnn_config`, dropout 0.1), `regression` the
+flagship's InterpGN at chip_smoke.py phase 24's BIDMC32HR shape (C = 2,
+T = 1000 after subsampling, 10 bins, lr 1e-5, B=64) with the CRPS head and
+float targets. Holds four batches of random rows on the card.
 `--path indexed` (the default) trains through the eager
 `train_step_indexed`; `--path staged` stages a schedule of four batches
 and trains through `train_step_staged`, whose first call is the eager
@@ -51,7 +53,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="flagship",
                     choices=("flagship", "fused", "eigenworms", "uea_fcn",
-                             "eegcnn"))
+                             "eegcnn", "regression"))
     ap.add_argument("--path", default="indexed", choices=("indexed", "staged"))
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--no-profile", action="store_true")
@@ -70,16 +72,27 @@ def main(argv=None) -> None:
            "fused": lambda: train_config(fuse_short_banks=True),
            "eigenworms": long_config,
            "uea_fcn": lambda: uea_config("FCN"),
-           "eegcnn": eegcnn_config}[args.config]()
+           "eegcnn": eegcnn_config,
+           "regression": lambda: train_config(seq_len=1000, enc_in=2,
+                                              num_class=10).replace(lr=1e-5),
+           }[args.config]()
     batch = cfg.batch_size
     rows = 4 * batch
     rng = np.random.default_rng(0)
+    regression = args.config == "regression"
     ds = type("Rows", (), dict(
         x=rng.normal(size=(rows, cfg.seq_len, cfg.enc_in)).astype(np.float32),
-        y=rng.integers(0, cfg.num_class, rows).astype(np.int32),
+        y=(rng.uniform(0.5, 5.0, rows).astype(np.float32) if regression else
+           rng.integers(0, cfg.num_class, rows).astype(np.int32)),
         padding_mask=np.ones((rows, cfg.seq_len), np.float32)))()
+    head = None
+    if regression:
+        from sie_tpu_torch.data.monash import make_bin_edges
+        from sie_tpu_torch.train.regression import make_crps_head
+        head = make_crps_head(make_bin_edges(ds.y))
     trainer = Trainer(cfg, steps_per_epoch=4, device="cuda",
-                      generator=torch.Generator().manual_seed(0))
+                      generator=torch.Generator().manual_seed(0),
+                      loss_head=head)
     dev = trainer.device_data("train", ds)
     w = np.ones((batch,), np.float32)
     idx = lambda: rng.integers(0, rows, batch)
@@ -156,7 +169,7 @@ def kernel_kind(name: str) -> str:
     if any(t in low for t in ("conv", "cudnn", "xmma", "implicit", "dgrad",
                               "wgrad", "winograd", "fft")):
         return "convolution"
-    if "gemm" in low or "cutlass" in low or "sm90_" in low:
+    if any(t in low for t in ("gemm", "cutlass", "sm90_", "nvjet")):
         return "GEMM"
     return "other"
 

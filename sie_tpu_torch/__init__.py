@@ -11,7 +11,12 @@ Transformer, FCN and ResNet experts and EEGCNN, their training step and
 the epoch-staged train and eval paths, captured as CUDA graphs on the card
 (`train.trainer.Trainer`), the classification experiment with its data
 path and flax-format checkpoints (`train.experiment.Experiment`), and the
-command line `python -m sie_tpu_torch.run`; kernels K1/K2 (shapelet
+command line `python -m sie_tpu_torch.run` with run.py's options past
+classification: on-device augmentation (`data.augment`), regression on
+the Monash archive (`train.regression.RegressionExperiment`), the
+reference's `checkpoint.pth` in and out (`compat.torch_import`,
+`compat.torch_export`) and leave-one-subject-out folds on one device
+(`parallel.loso`); kernels K1/K2 (shapelet
 distance, forward and backward, `ops/shapelet_l1.py`; K3/K4 for grouped
 banks) and K5/K6 (fused attention with dropout, forward and backward,
 `ops/attention.py`), the forwards K1, K3 and K5 registered as the PyTorch

@@ -260,7 +260,9 @@ def to_jax_tree(module: nn.Module,
         if leaf in node:
             raise ParamLoadError(f"{name!r} maps to the flax leaf "
                                  f"{tuple(path) + (leaf,)} twice")
-        node[leaf] = np.ascontiguousarray(value)
+        # a copy: on the CPU .numpy() shares the tensor's memory, which the
+        # optimizer then moves in place
+        node[leaf] = np.array(value, order="C", copy=True)
     return tree
 
 

@@ -9,8 +9,9 @@ a copy of sie_tpu/data/eeg.py on the port's preprocessing.
 - labels: textmaps.json text -> 39 classes, then the fixed 39 -> 3 bucket
   map for EEG3; unmapped trials dropped;
 - splits: one permutation (seed 42) shared by the three flags, processed
-  once per config and cached in memory and on disk. Leave-one-subject-out
-  splits are not ported yet (ROADMAP.md).
+  once per config and cached in memory and on disk; or leave-one-subject-out
+  (`loso_split`): one subject is the test set, validation is carved from
+  the others.
 """
 
 from __future__ import annotations
@@ -202,13 +203,27 @@ def split_indices(n: int, test_size: float, val_size: float,
             perm[n_train + n_val:])
 
 
+def loso_split(subjects: np.ndarray, test_subject: int,
+               val_fraction: float = 0.1, seed: int = 42):
+    """Leave-one-subject-out: held-out subject is the test set; val carved from
+    the training subjects."""
+    test_idx = np.where(subjects == test_subject)[0]
+    train_pool = np.where(subjects != test_subject)[0]
+    perm = np.random.default_rng(seed).permutation(train_pool)
+    n_val = max(1, int(len(perm) * val_fraction)) if len(perm) > 1 else 0
+    return perm[n_val:], perm[:n_val], test_idx
+
+
 _PROCESS_CACHE: dict = {}
 
 
 def load_eeg_dataset(cfg: Config, flag: str, three_class: bool = True,
-                     synthetic: Optional[bool] = None) -> ArrayDataset:
+                     synthetic: Optional[bool] = None,
+                     loso_test_subject: Optional[int] = None) -> ArrayDataset:
     """Build the EEG ArrayDataset for a flag. Processing runs once per config
-    (in-memory + on-disk cache); the three flags share one processed tensor."""
+    (in-memory + on-disk cache); the three flags share one processed tensor.
+    With `loso_test_subject` the splits are `loso_split`'s: that subject is
+    the test set."""
     key = (cfg.data_root, cfg.json_path, three_class, cfg.max_files,
            tuple(cfg.subject_ids), cfg.subject_id, cfg.max_subjects,
            cfg.target_channels, cfg.target_timepoints,
@@ -219,7 +234,10 @@ def load_eeg_dataset(cfg: Config, flag: str, three_class: bool = True,
         _PROCESS_CACHE[key] = _load_processed(cfg, three_class, synthetic)
     x, y, subjects = _PROCESS_CACHE[key]
 
-    tr, va, te = split_indices(len(x), cfg.test_size, cfg.val_size)
+    if loso_test_subject is not None:
+        tr, va, te = loso_split(subjects, loso_test_subject)
+    else:
+        tr, va, te = split_indices(len(x), cfg.test_size, cfg.val_size)
     idx = {"train": tr, "val": va, "test": te}[flag.lower()]
 
     num_class = 3 if three_class else 39

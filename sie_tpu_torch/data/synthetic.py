@@ -1,5 +1,6 @@
 """Synthetic data generators: a copy of sie_tpu/data/synthetic.py
-(CHISCO-shaped EEG trials and UEA-format archives), used by the tests and
+(CHISCO-shaped EEG trials, UEA-format archives and Monash-format
+extrinsic-regression archives), used by the tests and
 by the flagship run when no real data is mounted. Signals are
 class-conditioned mixtures of band-limited oscillations and pink-ish noise,
 so models can learn them."""
@@ -75,6 +76,34 @@ def write_synthetic_uea(root: str, dataset: str = "SynthMotions",
                 sig = sig + rng.normal(0, 0.3, length)
                 dims.append(",".join(f"{v:.6f}" for v in sig))
             lines.append(":".join(dims) + f":c{k}")
+        with open(os.path.join(root, dataset, fname), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+    gen(n_train, f"{dataset}_TRAIN.ts")
+    gen(n_test, f"{dataset}_TEST.ts")
+    return os.path.join(root, dataset)
+
+
+def write_synthetic_monash(root: str, dataset: str = "SynthRegression",
+                           n_train: int = 40, n_test: int = 40, n_dims: int = 3,
+                           length: int = 80, seed: int = 0):
+    """Tiny Monash-format extrinsic-regression archive: target = mean amplitude."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, dataset), exist_ok=True)
+    t = np.arange(length)
+
+    def gen(n, fname):
+        lines = [f"@problemName {dataset}", "@timeStamps false",
+                 "@missing false", f"@dimensions {n_dims}",
+                 "@equalLength true", f"@seriesLength {length}",
+                 "@targetlabel true", "@data"]
+        for _ in range(n):
+            amp = rng.uniform(0.5, 5.0)
+            dims = []
+            for d in range(n_dims):
+                sig = amp * np.sin(2 * np.pi * 0.05 * t + d) + rng.normal(0, 0.2, length)
+                dims.append(",".join(f"{v:.6f}" for v in sig))
+            lines.append(":".join(dims) + f":{amp:.4f}")
         with open(os.path.join(root, dataset, fname), "w") as f:
             f.write("\n".join(lines) + "\n")
 

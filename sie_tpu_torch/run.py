@@ -4,22 +4,30 @@
 
 It takes run.py's flags, plus `--device` (default `cuda`; `--device cpu`
 runs the plain PyTorch versions of the kernels). Per seed of {0, 42, 1234,
-8237, 2023} (or `--seed`): build the experiment -> skip training when its
-checkpoint exists -> train -> reload the best -> test (CSV summary and
-`test_results.pkl`) -> `--export_bundle DIR` (a serving bundle,
-int8 weights under `--quantize_bundle`) and `--export_stablehlo DIR`
-(`torch.export` programs for `--stablehlo_batch_sizes`), in `seed-<n>`
-subdirectories when there are several seeds -> accuracy against the random
-baseline. Serve a bundle with `python -m sie_tpu_torch.serve_http --bundle
-DIR`.
+8237, 2023} (or `--seed`): build the experiment (classification, or
+`--task_name regression` on `--data Monash` with the CRPS head) -> with
+`--import_torch_ckpt PATH` load a reference `checkpoint.pth` and skip
+training, else skip training when its checkpoint exists, else train ->
+reload the best -> test (CSV summary and `test_results.pkl`) ->
+`--export_bundle DIR` (a serving bundle, int8 weights under
+`--quantize_bundle`), `--export_stablehlo DIR` (`torch.export` programs for
+`--stablehlo_batch_sizes`), in `seed-<n>` subdirectories when there are
+several seeds, and `--export_torch_ckpt PATH` (a reference-layout
+`checkpoint.pth`, `.seed<n>` appended when there are several seeds) ->
+accuracy against the random baseline (classification). `--augment
+noise,scale,chdrop,tshift` augments the train batches on the device.
+`--loso` with EEG or EEG3 runs one fold per held-out subject on one device
+and prints the folds' mean accuracy. Serve a bundle with `python -m
+sie_tpu_torch.serve_http --bundle DIR`.
 
 The flags of paths the port does not have yet raise NotImplementedError
-naming ROADMAP.md: `--loso`, `--mesh`, a `--task_name` other than
-classification, `--augment`, `--stream_from_disk`, `--export_torch_ckpt`,
-`--import_torch_ckpt`, `--profile_dir` and `--debug_nans`. Models,
-backbones, attention variants and data families that are not ported raise
-where they are built. `--no_pallas`, `--multi_gpu` and `--num_workers` are
-accepted and change nothing, as in run.py off a TPU.
+naming ROADMAP.md: `--mesh`, the forecast, imputation and anomaly tasks,
+`--stream_from_disk`, `--profile_dir`, `--debug_nans`, and `--loso` when
+the environment asks for several processes (SIE_TPU_COORDINATOR). Models,
+backbones, attention variants, data families and checkpoint converters
+that are not ported raise where they are built. `--no_pallas`,
+`--multi_gpu` and `--num_workers` are accepted and change nothing, as in
+run.py off a TPU.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import os
 import pickle
 
 from sie_tpu_torch.config import DEFAULT_SEEDS, Config
+from sie_tpu_torch.data.augment import validate as validate_augment
 from sie_tpu_torch.models.layers import not_ported
 
 
@@ -40,7 +49,8 @@ def get_args(argv=None):
                    choices=["EEG", "EEG3", "UEA", "Monash",
                             "ETTh1", "ETTh2", "ETTm1", "ETTm2", "custom",
                             "m4", "PSM", "MSL", "SMAP", "SMD", "SWAT"],
-                   help="EEG, EEG3 and UEA are ported; the others raise")
+                   help="EEG, EEG3, UEA and Monash are ported; the others "
+                        "raise")
     p.add_argument("--data_root", type=str, default="./data")
     p.add_argument("--json_path", type=str, default="./data/textmaps.json")
     p.add_argument("--target_channels", type=int, default=122)
@@ -117,7 +127,8 @@ def get_args(argv=None):
                    choices=["classification", "regression",
                             "long_term_forecast", "short_term_forecast",
                             "imputation", "anomaly_detection"],
-                   help="classification is ported; the others raise")
+                   help="classification and regression are ported; the "
+                        "others raise")
     p.add_argument("--model_id", type=str, default="test")
     p.add_argument("--embed", type=str, default="timeF")
     p.add_argument("--freq", type=str, default="h")
@@ -183,7 +194,8 @@ def get_args(argv=None):
                    choices=["full", "ds", "prob", "lsh"],
                    help="full is ported; the others raise")
     p.add_argument("--loso", action="store_true",
-                   help="not ported yet (ROADMAP.md)")
+                   help="leave-one-subject-out sweep (EEG), the folds one "
+                        "after another on one device")
     p.add_argument("--checkpoint_dir", type=str, default="./checkpoints")
     p.add_argument("--result_dir", type=str, default="./result")
     p.add_argument("--cache_dir", type=str, default="./cache")
@@ -196,7 +208,9 @@ def get_args(argv=None):
                         "(serve it with python -m "
                         "sie_tpu_torch.serve_http --bundle DIR)")
     p.add_argument("--augment", type=str, default="",
-                   help="not ported yet (ROADMAP.md)")
+                   help="comma-separated train-time augmentations on the "
+                        "device from {noise, scale, chdrop, tshift} "
+                        "(data/augment.py; off by default)")
     p.add_argument("--augment_noise_std", type=float, default=0.1)
     p.add_argument("--augment_scale_std", type=float, default=0.1)
     p.add_argument("--augment_chdrop_prob", type=float, default=0.1)
@@ -215,9 +229,13 @@ def get_args(argv=None):
                    help="--export_bundle with int8 weights "
                         "(weights_q.npz)")
     p.add_argument("--export_torch_ckpt", type=str, default=None,
-                   help="not ported yet (ROADMAP.md)")
+                   help="after test, write the weights as a "
+                        "reference-loadable torch checkpoint.pth "
+                        "(compat/torch_export.py; load there with "
+                        "strict=False)")
     p.add_argument("--import_torch_ckpt", type=str, default=None,
-                   help="not ported yet (ROADMAP.md)")
+                   help="evaluate a reference-trained checkpoint.pth "
+                        "(compat/torch_import.py); training is skipped")
     p.add_argument("--debug_nans", action="store_true",
                    help="not ported yet (ROADMAP.md)")
     return p.parse_args(argv)
@@ -225,12 +243,8 @@ def get_args(argv=None):
 
 # flag -> what it asks for, when set to other than its default
 _UNPORTED = {
-    "loso": "leave-one-subject-out sweeps (--loso)",
     "mesh": "training on a device mesh (--mesh)",
-    "augment": "on-device augmentation (--augment)",
     "stream_from_disk": "streaming splits from disk (--stream_from_disk)",
-    "export_torch_ckpt": "reference checkpoint export (--export_torch_ckpt)",
-    "import_torch_ckpt": "reference checkpoint import (--import_torch_ckpt)",
     "profile_dir": "profiler traces (--profile_dir)",
     "debug_nans": "NaN checks (--debug_nans)",
 }
@@ -242,8 +256,14 @@ def refuse_unported(args) -> None:
     for flag, what in _UNPORTED.items():
         if getattr(args, flag):
             raise not_ported(what)
-    if args.task_name != "classification":
+    if args.task_name not in ("classification", "regression"):
         raise not_ported(f"the {args.task_name!r} task (--task_name)")
+    if args.loso and args.data in ("EEG", "EEG3"):
+        from sie_tpu_torch.parallel.loso import multihost_requested
+        if multihost_requested():
+            raise not_ported("leave-one-subject-out folds over several "
+                             "processes (--loso under SIE_TPU_COORDINATOR, "
+                             "item 15)")
 
 
 def args_to_config(args, seed: int) -> Config:
@@ -253,7 +273,10 @@ def args_to_config(args, seed: int) -> Config:
     pooling = None if args.eegcnn_pooling == "none" else args.eegcnn_pooling
     fields = set(Config.__dataclass_fields__)
     kw = {k: v for k, v in vars(args).items() if k in fields}
-    kw.update(subject_ids=tuple(subject_ids), seed=seed, augment=(),
+    kw.update(subject_ids=tuple(subject_ids), seed=seed,
+              augment=validate_augment(
+                  tuple(t.strip() for t in args.augment.split(",")
+                        if t.strip())),
               mesh_shape=(),
               mesh_axes=tuple(t.strip() for t in args.mesh_axes.split(",")
                               if t.strip()),
@@ -286,8 +309,26 @@ def export(experiment, args, seed: int, n_seeds: int) -> None:
         print(f"StableHLO serving artifacts exported to {hlo_dir}")
 
 
+def run_loso_folds(args, cfg, seed: int):
+    """--loso on EEG/EEG3: one fold per held-out subject, one after another
+    on this process's device -> (seed, None, the folds' metrics)."""
+    import numpy as np
+    from sie_tpu_torch.parallel.loso import run_loso
+    fold_results = run_loso(cfg, device=args.device)
+    accs = [r["accuracy"] for r in fold_results]
+    num_class = 3 if cfg.data == "EEG3" else 39
+    print(f"LOSO ({len(accs)} folds): accuracy "
+          f"{np.mean(accs):.2f} +/- {np.std(accs):.2f} "
+          f"(random baseline {100.0 / num_class:.2f})")
+    return (seed, None, {"accuracy": float(np.mean(accs)),
+                         "random_baseline": 100.0 / num_class,
+                         "per_fold": fold_results})
+
+
 def main(argv=None):
+    from sie_tpu_torch.compat.from_jax import to_jax_variables
     from sie_tpu_torch.train.experiment import Experiment
+    from sie_tpu_torch.train.regression import RegressionExperiment
 
     args = get_args(argv)
     refuse_unported(args)
@@ -297,6 +338,9 @@ def main(argv=None):
     for i, seed in enumerate(seeds):
         print(f"\n===== experiment {i + 1}/{len(seeds)} — seed {seed} =====")
         cfg = args_to_config(args, seed)
+        if args.loso and args.data in ("EEG", "EEG3"):
+            all_results.append(run_loso_folds(args, cfg, seed))
+            continue
 
         metrics_hook = None
         if args.metrics_jsonl:
@@ -306,10 +350,15 @@ def main(argv=None):
             def metrics_hook(rec, _seed=seed):
                 with open(args.metrics_jsonl, "a") as f:
                     f.write(json.dumps(dict(rec, seed=_seed)) + "\n")
-        experiment = Experiment(cfg, metrics_hook=metrics_hook,
-                                device=args.device)
+        kind = (RegressionExperiment if args.task_name == "regression"
+                else Experiment)
+        experiment = kind(cfg, metrics_hook=metrics_hook, device=args.device)
 
-        if not args.test_only:
+        if args.import_torch_ckpt:
+            unused = experiment.load_torch_checkpoint(args.import_torch_ckpt)
+            print(f"imported torch checkpoint {args.import_torch_ckpt} "
+                  f"({len(unused)} source keys without a counterpart)")
+        elif not args.test_only:
             if experiment.has_checkpoint():
                 print("checkpoint exists — skipping training")
                 experiment.load_checkpoint()
@@ -324,23 +373,31 @@ def main(argv=None):
         os.makedirs(experiment.checkpoint_dir, exist_ok=True)
         with open(result_file, "wb") as f:
             # the per-seed bundle: the ClassificationResult carries x, p, d,
-            # eta, the shapelets and w
+            # eta, the shapelets and w (regression: its result dict)
             pickle.dump({"test_loss": test_loss, "test_metrics": test_metrics,
                          "result": test_result, "args": vars(args)}, f)
         print(f"results pickled to {result_file}")
 
         if args.export_bundle or args.export_stablehlo:
             export(experiment, args, seed, len(seeds))
+        if args.export_torch_ckpt:
+            from sie_tpu_torch.compat.torch_export import save_torch_checkpoint
+            pth = (args.export_torch_ckpt if len(seeds) == 1 else
+                   args.export_torch_ckpt + f".seed{seed}")
+            save_torch_checkpoint(pth, to_jax_variables(
+                experiment.trainer.model), experiment.cfg)
+            print(f"torch checkpoint exported to {pth}")
 
-        acc = test_metrics["accuracy"]
-        baseline = test_metrics["random_baseline"]
-        print(f"accuracy {acc:.2f}% vs random baseline {baseline:.2f}% "
-              f"({acc - baseline:+.2f})")
+        if test_metrics and "accuracy" in test_metrics:
+            acc = test_metrics["accuracy"]
+            baseline = test_metrics["random_baseline"]
+            print(f"accuracy {acc:.2f}% vs random baseline {baseline:.2f}% "
+                  f"({acc - baseline:+.2f})")
         all_results.append((seed, test_loss, test_metrics))
 
-    if len(all_results) > 1:
+    accs = [m["accuracy"] for _, _, m in all_results if m and "accuracy" in m]
+    if len(accs) > 1:
         import numpy as np
-        accs = [m["accuracy"] for _, _, m in all_results]
         print(f"\n=== {len(accs)} seeds: accuracy "
               f"{np.mean(accs):.2f} +/- {np.std(accs):.2f} ===")
     return all_results

@@ -61,15 +61,19 @@ def _map_info(info: Optional[ModelInfo], fn) -> Optional[ModelInfo]:
 
 class Experiment:
     def __init__(self, cfg: Config, verbose: bool = True, metrics_hook=None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 loso_test_subject: Optional[int] = None):
         device = resolve_device(device)   # without a card, before any data
         self.verbose = verbose
         # metrics_hook(dict) fires once per epoch with {epoch, train_loss,
         # val_loss, val_accuracy, beta, seconds}
         self.metrics_hook = metrics_hook
-        self.train_data, self.train_loader = data_provider(cfg, "train")
-        self.val_data, self.val_loader = data_provider(cfg, "val")
-        self.test_data, self.test_loader = data_provider(cfg, "test")
+        # loso_test_subject: that EEG subject is the test split
+        split = lambda flag: data_provider(
+            cfg, flag, loso_test_subject=loso_test_subject)
+        self.train_data, self.train_loader = split("train")
+        self.val_data, self.val_loader = split("val")
+        self.test_data, self.test_loader = split("test")
 
         # the model's shape comes from the data
         cfg = cfg.replace(
@@ -187,6 +191,12 @@ class Experiment:
 
     def has_checkpoint(self) -> bool:
         return ckpt.has_checkpoint(self.checkpoint_dir)
+
+    def load_torch_checkpoint(self, path: str):
+        """Loads a reference-trained `checkpoint.pth` into the model ->
+        the source keys without a counterpart."""
+        from sie_tpu_torch.compat.torch_import import load_into_model
+        return load_into_model(self.trainer.model, self.cfg, path)
 
     # ------------------------------------------------------------------
     def _eval_loader(self, loader, gating_value=None, collect=False):

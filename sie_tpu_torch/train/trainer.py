@@ -1,9 +1,13 @@
 """Training and evaluation steps (counterpart of sie_tpu/train/trainer.py).
 
-One optimizer step is the JAX package's `Trainer._update`: forward in
-training mode (dropout on, masks from the trainer's generator), loss =
-weighted CE + mean model loss (+ beta * CE of the SBM logits for InterpGN),
-backward (through kernels K2 and K6 on the card), then the optimizer of
+One optimizer step is the JAX package's `Trainer._update`: under
+`cfg.augment` the batch augmented on the device (`data/augment.py`, draws
+from the trainer's augmentation generator), forward in training mode
+(dropout on, masks from the trainer's generator), loss = the loss head
+(weighted CE, or the regression's CRPS) + mean model loss (+ beta * the
+head of the SBM logits for InterpGN; targets keep the split's type, int64
+labels or f32 regression targets), backward (through kernels K2 and K6
+on the card), then the optimizer of
 `make_optimizer` and, under `pos_weight`, the non-negative projection of
 the SBM classifier. The model's parameters are the state; the step returns
 the loss and logits as device tensors, with no host synchronisation.
@@ -26,8 +30,9 @@ model's parameters and BatchNorm buffers, whose in-place updates it
 captures, so a replay moves them as the eager step does):
 `stage_steps` copies an epoch's (index, weight) schedule and beta into the
 buffers of its (steps, batch) shape, and a step index goes to the card as a
-device scalar. The dropout generator is registered with every graph, so a
-replay draws the masks that the eager step would. A capture that fails
+device scalar. The dropout generator, and the augmentation generator under
+augment, are registered with every graph, so a replay draws the masks and
+augmentations that the eager step would. A capture that fails
 raises; nothing falls back to the eager step. On a CPU tensor each of these
 methods runs the same work eagerly.
 
@@ -62,6 +67,9 @@ from torch import nn
 from sie_tpu_torch.compat.from_jax import (load_jax_variables, port_layout,
                                            to_jax_tree, to_jax_variables)
 from sie_tpu_torch.config import Config
+from sie_tpu_torch.data.augment import apply_augmentations
+from sie_tpu_torch.data.augment import draw as draw_augment
+from sie_tpu_torch.data.augment import validate as validate_augment
 from sie_tpu_torch.device import DeviceLike, resolve_device
 from sie_tpu_torch.models.info import ModelInfo
 from sie_tpu_torch.models.layers import not_ported
@@ -88,22 +96,24 @@ def weighted_ce(logits: torch.Tensor, labels: torch.Tensor,
     return (ce * weights).sum() / torch.clamp(weights.sum(), min=1.0)
 
 
-def make_loss_fn(cfg: Config):
+def make_loss_fn(cfg: Config, loss_head: Optional[Callable] = None):
     """loss_fn(model, batch, beta, generator) -> (loss, (logits, info)):
-    weighted CE of the logits + the mean model loss (+ beta * weighted CE
-    of the SBM logits for InterpGN); beta is a float or a 0-d f32 tensor on
-    the batch's device."""
+    the head of the logits + the mean model loss (+ beta * the head of the
+    SBM logits for InterpGN); beta is a float or a 0-d f32 tensor on the
+    batch's device. loss_head(logits, targets, weights) -> scalar defaults
+    to `weighted_ce`; the regression experiment passes a CRPS head."""
+    head = loss_head or weighted_ce
     is_interpgn = cfg.model == "InterpGN"
 
     def loss_fn(model: nn.Module, batch, beta,
                 generator: Optional[torch.Generator]):
         x, y, mask, w = batch
         logits, info = model(x, mask, generator=generator)
-        loss = weighted_ce(logits, y, w)
+        loss = head(logits, y, w)
         if info.loss is not None:
             loss = loss + info.loss.mean()
         if is_interpgn:
-            loss = loss + beta * weighted_ce(info.shapelet_preds, y, w)
+            loss = loss + beta * head(info.shapelet_preds, y, w)
         return loss, (logits, info)
 
     return loss_fn
@@ -276,20 +286,32 @@ def _stack_infos(infos: List[ModelInfo]) -> ModelInfo:
         for f in dataclasses.fields(ModelInfo)})
 
 
+def target_dtype(y) -> torch.dtype:
+    """The device type of a split's or batch's targets: f32 for float
+    (regression) targets, int64 for class labels."""
+    kind = (y.dtype.is_floating_point if torch.is_tensor(y)
+            else np.issubdtype(np.asarray(y).dtype, np.floating))
+    return torch.float32 if kind else torch.int64
+
+
 class Trainer:
     """Owns the model (in training mode on `device`, default the card), its
-    optimizer and the dropout generator, seeded from cfg.seed + 17 as the
-    JAX package's step rng is; `generator` draws the initial weights when
-    the trainer builds the model."""
+    optimizer, the dropout generator, seeded from cfg.seed + 17 as the
+    JAX package's step rng is, and under `cfg.augment` the augmentation
+    generator (cfg.seed + 17 + AUGMENT_OFFSET, as the JAX package folds
+    9173 into the step rng), a stream of its own so the dropout masks are
+    the same with and without augmentation; `generator` draws the initial
+    weights when the trainer builds the model. `loss_head` as in
+    `make_loss_fn`."""
+
+    AUGMENT_OFFSET = 9173
 
     def __init__(self, cfg: Config, steps_per_epoch: int,
                  model: Optional[nn.Module] = None, device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None, mesh=None):
+                 generator: Optional[torch.Generator] = None, mesh=None,
+                 loss_head: Optional[Callable] = None):
         if mesh is not None:
             raise not_ported("training on a device mesh")
-        if cfg.augment:
-            raise not_ported(f"on-device augmentation (augment="
-                             f"{cfg.augment!r})")
         self.cfg = cfg
         self.device = resolve_device(device)
         if model is None:
@@ -297,9 +319,13 @@ class Trainer:
         self.model = model.to(self.device).train()
         self.optimizer = make_optimizer(cfg, steps_per_epoch,
                                         self.model.parameters())
-        self.loss_fn = make_loss_fn(cfg)
+        self.loss_fn = make_loss_fn(cfg, loss_head)
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 17)
+        self.augment_generator = (
+            torch.Generator(device=self.device).manual_seed(
+                cfg.seed + 17 + self.AUGMENT_OFFSET)
+            if validate_augment(tuple(cfg.augment)) else None)
         self.step = 0
         self._dev_data: Dict[str, Tuple[torch.Tensor, ...]] = {}
         # epoch-staged paths: schedule buffers by (steps, batch) shape, the
@@ -321,7 +347,8 @@ class Trainer:
 
     def _device_batch(self, batch):
         x, y, mask, w = batch
-        return (self._tensor(x, torch.float32), self._tensor(y, torch.int64),
+        return (self._tensor(x, torch.float32),
+                self._tensor(y, target_dtype(y)),
                 self._tensor(mask, torch.float32),
                 self._tensor(w, torch.float32))
 
@@ -337,6 +364,11 @@ class Trainer:
         self.model.train()
         for p in self.model.parameters():
             p.grad = None
+        if self.augment_generator is not None:
+            x, y, mask, w = batch
+            x, mask = apply_augmentations(self.cfg, x, mask, draw_augment(
+                self.cfg, tuple(x.shape), self.augment_generator))
+            batch = (x, y, mask, w)
         loss, (logits, _info) = self.loss_fn(self.model, batch, beta,
                                              self.generator)
         loss.backward()
@@ -381,7 +413,7 @@ class Trainer:
         on the device once per tag; batches are then gathered there."""
         if tag not in self._dev_data:
             self._dev_data[tag] = (self._tensor(ds.x, torch.float32),
-                                   self._tensor(ds.y, torch.int64),
+                                   self._tensor(ds.y, target_dtype(ds.y)),
                                    self._tensor(ds.padding_mask,
                                                 torch.float32))
         return self._dev_data[tag]
@@ -419,6 +451,8 @@ class Trainer:
                 return out
             graph = torch.cuda.CUDAGraph()
             graph.register_generator_state(self.generator)
+            if self.augment_generator is not None:
+                graph.register_generator_state(self.augment_generator)
             with torch.cuda.graph(graph, stream=self._stream):
                 out = body()
             self._graphs[key] = (graph, out, reads)
@@ -569,16 +603,20 @@ class Trainer:
         """The trainer's whole state as a tree of host arrays: step,
         params and batch_stats in the flax layout, the optimizer (count,
         mini_step, Adam's moments and the accumulation mean under the
-        flax names) and the dropout generator's state."""
+        flax names), the dropout generator's state and, under augment, the
+        augmentation generator's."""
         opt = self.optimizer.state()
         tree = lambda ts: to_jax_tree(self.model, dict(zip(self._named(),
                                                            ts)))
-        return {"step": self.step, **to_jax_variables(self.model),
-                "opt_state": {"count": opt["count"],
-                              "mini_step": opt["mini_step"],
-                              "mu": tree(opt["mu"]), "nu": tree(opt["nu"]),
-                              "acc": tree(opt["acc"])},
-                "rng": self.generator.get_state().numpy()}
+        out = {"step": self.step, **to_jax_variables(self.model),
+               "opt_state": {"count": opt["count"],
+                             "mini_step": opt["mini_step"],
+                             "mu": tree(opt["mu"]), "nu": tree(opt["nu"]),
+                             "acc": tree(opt["acc"])},
+               "rng": self.generator.get_state().numpy()}
+        if self.augment_generator is not None:
+            out["augment_rng"] = self.augment_generator.get_state().numpy()
+        return out
 
     def load_state_tree(self, tree: Dict[str, Any]) -> None:
         """The reverse of `state_tree`. Drops the captured graphs, which
@@ -594,5 +632,7 @@ class Trainer:
             opt["count"], opt["mini_step"],
             *([per_param[k][n] for n in names] for k in ("mu", "nu", "acc")))
         self.step = int(tree["step"])
-        self.generator.set_state(torch.from_numpy(
-            np.asarray(tree["rng"], np.uint8).copy()))
+        as_state = lambda a: torch.from_numpy(np.asarray(a, np.uint8).copy())
+        self.generator.set_state(as_state(tree["rng"]))
+        if self.augment_generator is not None and "augment_rng" in tree:
+            self.augment_generator.set_state(as_state(tree["augment_rng"]))

@@ -163,7 +163,7 @@ def test_eeg_from_fif_files_equal(tmp_path):
         assert p.x.shape[1:] == (204, 6) and np.abs(j.x - p.x).max() <= 1e-5
 
 
-@pytest.mark.parametrize("data", ["Monash", "ETTh1", "m4", "PSM"])
+@pytest.mark.parametrize("data", ["custom", "ETTh1", "m4", "PSM"])
 def test_unported_data_families_raise(data):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         data_provider(Config(data=data), "train")

@@ -12,7 +12,10 @@ package's best checkpoint, loaded by the other, gives the writer's test
 logits within 1e-5 (one f32 forward). `python -m sie_tpu_torch.run
 --device cpu` trains, writes the CSV and the pickle, and a re-run skips
 training with the same accuracy; its parser takes run.py's options plus
-`--device`, and the flags of unported paths raise naming ROADMAP.md."""
+`--device`, and the flags of unported paths raise naming ROADMAP.md
+(`--loso`, `--augment`, regression on Monash and the reference checkpoints
+have tests of their own: test_torch_port_loso.py, _augment.py,
+_regression.py and _torch_ckpt.py)."""
 
 import argparse
 import glob
@@ -166,13 +169,12 @@ def test_parser_takes_run_py_options_plus_device():
     assert pdefaults == jdefaults
 
 
-UNPORTED = [["--loso"], ["--mesh", "8"], ["--task_name", "regression"],
-            ["--task_name", "long_term_forecast"], ["--augment", "noise"],
+UNPORTED = [["--mesh", "8"], ["--task_name", "long_term_forecast"],
             ["--stream_from_disk"], ["--task_name", "short_term_forecast"],
             ["--task_name", "imputation"],
             ["--task_name", "anomaly_detection"],
-            ["--export_torch_ckpt", "t.pth"], ["--import_torch_ckpt", "t.pth"],
-            ["--profile_dir", "p"], ["--debug_nans"], ["--data", "Monash"]]
+            ["--profile_dir", "p"], ["--debug_nans"], ["--data", "ETTh1"],
+            ["--dnn_type", "TimesNet"], ["--dnn_type", "PatchTST"]]
 
 
 @pytest.mark.parametrize("flags", UNPORTED, ids=lambda f: f[0].strip("-"))

@@ -44,6 +44,9 @@ def test_the_list_covers_the_port():
     for new in ("run.py", "train/experiment.py", "train/checkpoint.py",
                 "compat/flax_msgpack.py", "data/preprocess.py", "data/eeg.py",
                 "data/provider.py", "utils/shapelet_util.py",
-                "serve_http.py", "quant.py", "client.py"):
+                "serve_http.py", "quant.py", "client.py",
+                "data/augment.py", "data/monash.py", "train/regression.py",
+                "compat/torch_import.py", "compat/torch_export.py",
+                "parallel/loso.py"):
         assert f"sie_tpu_torch/{new}" in FILES
     assert len(FILES) >= 35

@@ -325,9 +325,13 @@ def test_default_device_needs_a_card(monkeypatch):
 
 def test_unported_training_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(Config(**dict(KW, augment=("noise",))), 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(Config(**KW), 1, device="cpu", mesh=object())
+    # augmentation is ported (tests/test_torch_port_augment.py); an unknown
+    # name is refused
+    assert Trainer(Config(**dict(KW, augment=("noise",))), 1,
+                   device="cpu").augment_generator is not None
+    with pytest.raises(ValueError, match="unknown augmentations"):
+        Trainer(Config(**dict(KW, augment=("flip",))), 1, device="cpu")
 
 
 def test_config_fields_match_the_jax_package():
