@@ -175,15 +175,47 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      the flagship's width, 1 epoch a fold: three folds with finite losses,
      each fold's test rows exactly its subject's, checkpoints under
      loso-<subject>, the fold mean printed;
- 27. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
+ 27. InterpGN + PatchTST at full width (B 64, T 845, C 122, d_model 512,
+     d_ff 2048, 8 heads, 2 layers, six banks of 10, amp, dropout 0.1, 4
+     chunks of 1952 series recomputed in the backward pass): 4 eager
+     steps against the same steps as graphs, bit for bit (the recompute
+     under capture replays the dropout masks), K1 6 and K2 6 a step and
+     no K5/K6 under the default gate; eval logits of 2 rows at the seed-0
+     weights against the CPU plain path; gradients with patch_remat true and false bit-equal
+     (B 16, chunks of 512); K5 + K6 against the plain branch and
+     scaled_dot_product_attention at the chunk's shape (BH 15616, T 105,
+     dk 64, bf16), forward and backward, and against their plain versions
+     at rate 0.1; a step with fused_attention_min_len=0 (K5 16: two
+     layers over four chunks, forward and recompute; K6 8); K5/K6 at BH
+     65544 against the chunked plain versions; step medians and peak
+     memory;
+ 28. InterpGN + TimesNet (d_model 32, d_ff 32, top_k 5, num_kernels 6, 2
+     blocks, the flagship's data shape, amp, dropout 0.1): 4 eager steps
+     against graph steps, bit for bit, K1 6 and K2 6 a step;
+     `fft_periods` on 2 rows with clear peaks equal on the card and the
+     CPU, and the seed-0 weights' logits within 5e-2 of the CPU plain
+     path; one forward
+     and backward at width 512/2048 on B 8, its time and peak memory, its
+     logits within 5e-2 of the same weights without amp;
+ 29. both backbones through the command line on synthetic CHISCO, 1
+     epoch: CSV, checkpoint and graphs; a re-run that skips training with
+     --export_torch_ckpt and a run with --import_torch_ckpt at the same
+     accuracy and test loss; f32 and int8 bundles of the checkpoint
+     against the live weights at 64 rows (1e-4; phase 20's int8 limits);
+     --debug_nans with --profile_dir: the same losses as the plain run,
+     bit for bit, and K1 and K2 in the trace; a NaN inside a train row's
+     valid region raising FloatingPointError that names the step and an
+     op;
+ 30. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
      timed training steps of each kernel's path, plus, split in
      `launches_by_path`, phases 16, 17 and 19's UEA run for K1 and K2, the
      serving paths for K1, K3 and K5: phase 5, phase 11's requests, phase
-     20's bundles and phase 22's exported program, and phases 23, 24 and
-     26 for K1, K2, K5 and K6), then the device line.
+     20's bundles and phase 22's exported program, phases 23, 24 and 26
+     for K1, K2, K5 and K6, and phases 27-29 for K1 and K2), then the
+     device line.
 
 The K5 and K6 phases (4, 6, 8, 12), the serving phases (20-22) and
-phases 23-26 run under a time limit that ends the process (and the
+phases 23-29 run under a time limit that ends the process (and the
 servers it started), so that a kernel that hangs fails the run instead of
 holding the card. Times
 are CUDA-event times after warm-up (kernels) or host-clock times of work
@@ -1730,7 +1762,7 @@ def batch_stats(model) -> dict:
 
 
 def graph_against_eager(cfg, ds, sched, n: int, want: dict, tag: str,
-                        exact: bool):
+                        exact: bool, stats: bool = True):
     """Two trainers from the seed-0 weights and generator state, `ds` held
     on the card: `n` eager `train_step_indexed` steps over the schedule
     `sched`, each followed by the same step through `train_step_staged`
@@ -1739,9 +1771,10 @@ def graph_against_eager(cfg, ds, sched, n: int, want: dict, tag: str,
     warm-up and the capture the same, a replay nothing. After every step
     the losses, parameters and BatchNorm buffers of the two are compared:
     bit for bit when `exact`, else within LOSS_RTOL and PARAM_TOL x lr.
-    Fails unless every buffer and parameter moved. Returns (the eager
-    trainer, the median eager and graph step ms over the replays, whether
-    all was bit-equal)."""
+    Fails unless every buffer and parameter moved (and, with `stats`, the
+    model has BatchNorm buffers). Returns (the eager trainer, the median
+    eager and graph step ms over the replays, whether all was
+    bit-equal)."""
     from sie_tpu_torch.train.trainer import Trainer
     counts = Counts()
     mk = lambda: Trainer(cfg, steps_per_epoch=len(sched), device="cuda",
@@ -1795,7 +1828,7 @@ def graph_against_eager(cfg, ds, sched, n: int, want: dict, tag: str,
              if torch.equal(p, start_p[k])]
     frozen = [k for k, v in batch_stats(eager.model).items()
               if torch.equal(v, start_s[k])]
-    if still or frozen or not start_s:
+    if still or frozen or (stats and not start_s):
         fail(f"{tag}: parameters {still} or BatchNorm buffers {frozen} did "
              f"not move ({len(start_s)} buffers)")
     med = {p: float(np.median(t[2:])) for p, t in times.items()}
@@ -2876,6 +2909,447 @@ def phase_loso(tmp: str) -> dict:
     return launches
 
 
+# ---- InterpGN with the PatchTST and TimesNet experts -----------------------
+BACKBONE_STEPS = 4     # eager steps, each followed by the same step as a
+# graph (warm-up, capture, replays), of each backbone
+SBM_WANT = {"K1": 6, "K2": 6}   # a step of InterpGN + PatchTST or TimesNet
+PATCH_BH, PATCH_T = 1952 * 8, 105   # a chunk's (batch, head) rows, patches
+BIG_BH = 65544         # (batch, head) rows past gridDim.y's 65535
+REMAT_B, REMAT_CHUNK = 16, 512   # the remat check: 1952 series, 4 chunks
+TIMESNET_WIDE_B = 8    # the default-width TimesNet pass (cut from B 64)
+
+
+def patchtst_config():
+    """InterpGN + PatchTST at the flagship's data shape and width: B 64,
+    T 845, C 122, d_model 512, d_ff 2048, 8 heads, 2 layers, six banks
+    of 10, amp, dropout 0.1, the default chunking (4 chunks of 1952
+    series, recomputed)."""
+    return train_config(dnn_type="PatchTST", dropout=RATE)
+
+
+def timesnet_config():
+    """InterpGN + TimesNet at the width the repo runs it
+    (scripts/bench_kernel.py:120-123): d_model 32, d_ff 32, top_k 5,
+    num_kernels 6, 2 blocks; the flagship's data shape, amp, dropout
+    0.1."""
+    return train_config(dnn_type="TimesNet", d_model=32, d_ff=32, top_k=5,
+                        num_kernels=6, dropout=RATE)
+
+
+def seed0_trainer(cfg):
+    """A trainer at the seed-0 weights, before any step: the trained ones
+    of 4 steps at lr 5e-3 saturate the flatten heads, and their logits
+    would agree with the CPU's for that reason alone."""
+    from sie_tpu_torch.train.trainer import Trainer
+    return Trainer(cfg, steps_per_epoch=1, device="cuda",
+                   generator=torch.Generator().manual_seed(0))
+
+
+def schedule(cfg, n_rows: int, steps: int) -> list:
+    rng = np.random.default_rng(3)
+    return [(rng.permutation(n_rows)[:cfg.batch_size],
+             np.ones(cfg.batch_size, np.float32)) for _ in range(steps)]
+
+
+def backbone_steps(cfg, tag: str, smi: str):
+    """Eager steps against graph replays (bit for bit, K1 6 and K2 6 a
+    step and no other kernel), with the counts zeroed just before and read
+    just after; the median step and the peak memory. Returns (the eager
+    trainer, the rows, the launches)."""
+    counts = Counts()
+    ds = random_rows(cfg, 4 * cfg.batch_size)
+    sched = schedule(cfg, len(ds.y), 4)
+    torch.cuda.reset_peak_memory_stats()
+    counts.zero()   # the path's main run
+    eager, med, _ = graph_against_eager(cfg, ds, sched, BACKBONE_STEPS,
+                                        SBM_WANT, tag, True, stats=False)
+    launches = counts.read()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] graph step median {med['graph']:.3f} ms, eager "
+          f"{med['eager']:.3f} ms (B={cfg.batch_size}); peak memory "
+          f"{peak / 2 ** 30:.3f} GiB (two trainers); {smi}; launches over "
+          f"the run {launches}")
+    return eager, ds, launches
+
+
+def attention_pair_ms(q, k, v, do, fn) -> float:
+    """CUDA-event ms of fn(q, k, v) forward and backward from do."""
+    qg, kg, vg = (z.detach().clone().requires_grad_() for z in (q, k, v))
+
+    def once():
+        for z in (qg, kg, vg):
+            z.grad = None
+        fn(qg, kg, vg).backward(do)
+    return events_ms(once, reps=5)
+
+
+def patch_attention_gate(smi: str) -> None:
+    """K5 + K6 at PatchTST's chunk shape (BH 15616 = 1952 series x 8
+    heads, T 105, dk 64, bf16), forward and backward, against the plain
+    branch that `fused_attention_min_len` = 256 sends it to and against
+    scaled_dot_product_attention, in one call; and K5/K6 there at rate 0.1
+    against their plain versions, masks included."""
+    import torch.nn.functional as F
+    from sie_tpu_torch.ops.attention import (attention_bwd_plain,
+                                             attention_plain, fused_attention)
+    bh, t, dk = PATCH_BH, PATCH_T, 64
+    q, k, v, do = (torch.from_numpy(np.random.default_rng(21 + i).normal(
+        size=(bh, t, dk)).astype(np.float32)).to("cuda", torch.bfloat16)
+        for i in range(4))
+    scale = 1.0 / np.sqrt(dk)
+    h = 8
+
+    def plain(a, b, c):   # FullAttentionLayer's plain branch, rate 0
+        s = torch.matmul(a, b.transpose(-1, -2)).float()
+        p = torch.softmax(s * scale, dim=-1)
+        return torch.matmul(p.to(c.dtype), c)
+
+    def sdpa(a, b, c):
+        four = lambda z: z.view(bh // h, h, t, dk)
+        return F.scaled_dot_product_attention(
+            four(a), four(b), four(c), scale=scale).view(bh, t, dk)
+
+    kern = lambda a, b, c: fused_attention(a, b, c, scale)
+    ms = {name: attention_pair_ms(q, k, v, do, fn) for name, fn in
+          (("K5+K6", kern), ("plain", plain), ("sdpa", sdpa))}
+    fwd = {"K5": events_ms(lambda: fused_attention(q, k, v, scale), reps=5),
+           "plain": events_ms(lambda: plain(q, k, v), reps=5),
+           "sdpa": events_ms(lambda: sdpa(q, k, v), reps=5)}
+    elem = bh * t * dk * 2   # bytes of one (BH, T, dk) bf16 tensor
+    b5 = bound_ms(4 * elem, 4 * bh * t * t * dk, PEAK_BF16)
+    b56 = bound_ms(4 * elem + 8 * elem + 4 * bh * t,
+                   14 * bh * t * t * dk, PEAK_BF16)
+    print(f"[patchtst] attention gate at BH {bh}, T {t}, dk {dk}, bf16 "
+          f"({smi}): forward + backward K5+K6 {ms['K5+K6']:.4f} ms, plain "
+          f"branch {ms['plain']:.4f} ms, sdpa {ms['sdpa']:.4f} ms (bound "
+          f"{b56[0]:.4f} ms, {b56[1]}); forward K5 {fwd['K5']:.4f}, plain "
+          f"{fwd['plain']:.4f}, sdpa {fwd['sdpa']:.4f} ms (bound "
+          f"{b5[0]:.4f} ms, {b5[1]})")
+    qg, kg, vg = (z.clone().requires_grad_() for z in (q, k, v))
+    out = fused_attention(qg, kg, vg, scale, RATE, 4321)
+    out.backward(do)
+    want = attention_plain(q, k, v, scale, RATE, 4321)
+    e = float((out.float() - want.float()).abs().max())
+    eg = 0.0
+    for got, w in zip((qg.grad, kg.grad, vg.grad),
+                      attention_bwd_plain(q, k, v, do, scale, RATE, 4321)):
+        lim = 2e-2 * max(1.0, float(w.float().abs().max()))
+        eg = max(eg, float((got.float() - w.float()).abs().max()) / lim)
+    if not e <= 2e-2 or not eg <= 1.0:
+        fail(f"K5/K6 at PatchTST's shape, rate {RATE}: |dout| {e}, "
+             f"gradient error {eg} of its limit")
+    print(f"[patchtst] K5/K6 at BH {bh}, T {t}, rate {RATE} against the "
+          f"plain versions: max |dout| {e:.3e} (limit 2e-2), gradients "
+          f"within {eg:.3f} of their limit")
+
+
+def big_bh_launch() -> None:
+    """K5 and K6 at BH 65544 (past gridDim.y's 65535), T 105, bf16, rate
+    0.1, against the chunked plain versions over all rows and, from bh0,
+    over the rows either side of row 65535."""
+    from sie_tpu_torch.ops.attention import (attention_bwd_plain_chunked,
+                                             attention_plain_chunked,
+                                             fused_attention)
+    t, dk = PATCH_T, 64
+    q, k, v, do = (torch.from_numpy(np.random.default_rng(31 + i).normal(
+        size=(BIG_BH, t, dk)).astype(np.float32)).to("cuda", torch.bfloat16)
+        for i in range(4))
+    scale, seed = 1.0 / np.sqrt(dk), 555
+    qg, kg, vg = (z.clone().requires_grad_() for z in (q, k, v))
+    out = fused_attention(qg, kg, vg, scale, RATE, seed)
+    out.backward(do)
+    worst = 0.0
+    for lo, hi in ((0, BIG_BH), (65532, 65540)):
+        part = lambda z: z[lo:hi].contiguous()
+        want = attention_plain_chunked(part(q), part(k), part(v), scale, RATE,
+                                       seed, bh0=lo, chunk=32)
+        worst = max(worst, float((out[lo:hi].float()
+                                  - want.float()).abs().max()) / 2e-2)
+        grads = attention_bwd_plain_chunked(part(q), part(k), part(v),
+                                            part(do), scale, RATE, seed,
+                                            bh0=lo, chunk=32)
+        for got, w in zip((qg.grad, kg.grad, vg.grad), grads):
+            lim = 2e-2 * max(1.0, float(w.float().abs().max()))
+            worst = max(worst, float((got[lo:hi].float()
+                                      - w.float()).abs().max()) / lim)
+    if not worst <= 1.0:
+        fail(f"K5/K6 at BH {BIG_BH}: error {worst} of the limit")
+    print(f"[patchtst] K5/K6 at BH {BIG_BH}, T {t}, rate {RATE}: output and "
+          f"gradients within {worst:.3f} of their limits against the "
+          f"chunked plain versions, all rows and rows 65532-65539 from bh0")
+
+
+def remat_gradients() -> None:
+    """Gradients of InterpGN + PatchTST with patch_remat true and false,
+    bit for bit on the card at dropout 0.1: B 16 with 512-series chunks
+    (four chunks; the unrecomputed full batch would hold every chunk's
+    activations)."""
+    from sie_tpu_torch.models.registry import build_model
+    grads = []
+    cfg = patchtst_config().replace(batch_size=REMAT_B,
+                                    patch_chunk_rows=REMAT_CHUNK)
+    x = torch.from_numpy(random_rows(cfg, REMAT_B).x).cuda()
+    mask = torch.ones(REMAT_B, cfg.seq_len, device="cuda")
+    for remat in (True, False):
+        m = build_model(cfg.replace(patch_remat=remat), "cuda",
+                        torch.Generator().manual_seed(0)).train()
+        g = torch.Generator(device="cuda").manual_seed(99)
+        logits, _ = m(x, mask, generator=g)
+        logits.float().square().sum().backward()
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+        del m
+    same = [n for n in grads[0] if torch.equal(grads[0][n], grads[1][n])]
+    if len(same) != len(grads[0]):
+        fail(f"patch_remat changes the gradients of "
+             f"{sorted(set(grads[0]) - set(same))[:4]}")
+    print(f"[patchtst] patch_remat true and false at dropout {RATE} (B "
+          f"{REMAT_B}, chunks of {REMAT_CHUNK}): all {len(same)} gradients "
+          f"bit-equal on the card")
+
+
+def phase_patchtst(smi: str) -> dict:
+    """InterpGN + PatchTST at full width: eager steps against graph
+    replays, launches, eval against the CPU plain path, remat gradients,
+    the attention gate at T 105, a step through K5/K6, K5/K6 past 65535
+    rows. Returns the launches of the training run."""
+    from sie_tpu_torch.train.trainer import Trainer
+    cfg = patchtst_config()
+    eager, ds, launches = backbone_steps(cfg, "patchtst", smi)
+    del eager
+    eval_against_cpu(seed0_trainer(cfg), ds, 2, SERVE_TOL,
+                     "patchtst, seed-0 weights")
+    remat_gradients()
+    patch_attention_gate(smi)
+    fused = Trainer(cfg.replace(fused_attention_min_len=0),
+                    steps_per_epoch=1, device="cuda",
+                    generator=torch.Generator().manual_seed(0))
+    counts = Counts()
+    dev = fused.device_data("train", ds)
+    c0 = counts.read()
+    loss, _ = fused.train_step_indexed(dev, np.arange(cfg.batch_size),
+                                       np.ones(cfg.batch_size, np.float32),
+                                       1.0)
+    got = counts.since(c0)
+    # 2 layers x 4 chunks in the forward, again in the recompute; K6 once
+    want = Counts.full({"K1": 6, "K2": 6, "K5": 16, "K6": 8})
+    if got != want or not np.isfinite(float(loss)):
+        fail(f"patchtst with fused_attention_min_len=0: launches {got}, "
+             f"want {want}; loss {float(loss)}")
+    print(f"[patchtst] a step with fused_attention_min_len=0: loss "
+          f"{float(loss):.4f}, launches {got} (K5: 2 layers x 4 chunks, "
+          f"forward and recompute)")
+    del fused, dev
+    big_bh_launch()
+    return launches
+
+
+def wide_timesnet(smi: str) -> None:
+    """One forward and backward of InterpGN + TimesNet at run.py's default
+    width (d_model 512, d_ff 2048) on B 8 (cut from 64): time and peak
+    memory; logits held to the same weights without amp, on the card."""
+    from sie_tpu_torch.models.registry import build_model
+    cfg = timesnet_config().replace(d_model=512, d_ff=2048, dropout=0.0,
+                                    batch_size=TIMESNET_WIDE_B)
+    x = torch.from_numpy(random_rows(cfg, TIMESNET_WIDE_B).x).cuda()
+    mask = torch.ones(TIMESNET_WIDE_B, cfg.seq_len, device="cuda")
+    out = {}
+    for amp in (True, False):
+        m = build_model(cfg.replace(amp=amp), "cuda",
+                        torch.Generator().manual_seed(0)).train()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, _ = m(x, mask)
+        if amp:
+            logits.float().square().sum().backward()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[amp] = (logits.detach().float(), secs,
+                    torch.cuda.max_memory_allocated())
+        del m
+    e = float((out[True][0] - out[False][0]).abs().max())
+    if not e <= SERVE_TOL:
+        fail(f"TimesNet at width 512/2048: amp logits {e} from f32")
+    print(f"[timesnet] width 512/2048, B {TIMESNET_WIDE_B} ({smi}): forward "
+          f"+ backward (amp) {out[True][1]:.3f} s, peak "
+          f"{out[True][2] / 2 ** 30:.3f} GiB; forward without amp "
+          f"{out[False][1]:.3f} s; max |dlogits| amp vs f32 {e:.3e} (limit "
+          f"{SERVE_TOL})")
+
+
+def periods_against_cpu(trainer) -> None:
+    """`fft_periods` on 2 rows with clear spectral peaks (five sinusoids of
+    distinct strength), on the card and on the CPU: the same periods; the
+    trainer's model's logits of those rows within SERVE_TOL of the CPU
+    plain path."""
+    from sie_tpu_torch.models.timesnet import fft_periods
+    cfg = trainer.cfg
+    t = np.arange(cfg.seq_len)
+    rng = np.random.default_rng(7)
+    x = sum(a * np.sin(2 * np.pi * f * t / cfg.seq_len)[None, :, None]
+            for a, f in ((5, 7), (4, 19), (3, 40), (2, 66), (1.5, 101)))
+    x = (x + 0.3 * rng.normal(size=(2, cfg.seq_len, cfg.enc_in))).astype(
+        np.float32)
+    pc, wc = fft_periods(torch.from_numpy(x).cuda(), cfg.top_k)
+    pp, wp = fft_periods(torch.from_numpy(x), cfg.top_k)
+    if not torch.equal(pc.cpu(), pp):
+        fail(f"fft_periods on the card {pc.tolist()}, on the CPU "
+             f"{pp.tolist()}")
+    ds = type("Rows", (), dict(x=x, y=np.zeros(2, np.int32),
+                               padding_mask=np.ones((2, cfg.seq_len),
+                                                    np.float32)))()
+    eval_against_cpu(trainer, ds, 2, SERVE_TOL, "timesnet, seed-0 weights")
+    print(f"[timesnet] fft_periods on 2 rows: card {pc.tolist()} equal to "
+          f"the CPU's; weights within "
+          f"{float((wc.cpu() - wp).abs().max()):.3e}")
+
+
+def phase_timesnet(smi: str) -> dict:
+    """InterpGN + TimesNet: eager steps against graph replays (bit for bit,
+    K1 6 and K2 6 a step), periods and logits against the CPU plain path,
+    the default width once. Returns the launches of the training run."""
+    cfg = timesnet_config()
+    eager, _ds, launches = backbone_steps(cfg, "timesnet", smi)
+    del eager
+    periods_against_cpu(seed0_trainer(cfg))
+    wide_timesnet(smi)
+    return launches
+
+
+BACKBONE_CLI = {
+    "PatchTST": CLI_FLAGS.replace("--dnn_type Transformer",
+                                  "--dnn_type PatchTST"),
+    "TimesNet": CLI_FLAGS.replace("--dnn_type Transformer",
+                                  "--dnn_type TimesNet").replace(
+        "--d_model 512 --d_ff 2048", "--d_model 32 --d_ff 32 --top_k 5 "
+        "--num_kernels 6")}
+
+
+def trace_kernels(prof_dir: str) -> set:
+    """The K1 and K2 kernel names found in a --profile_dir trace."""
+    import glob
+    files = glob.glob(os.path.join(prof_dir, "trace-*.json"))
+    if len(files) != 1:
+        fail(f"--profile_dir wrote {files}")
+    with open(files[0]) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    return {k for k, sym in (("K1", "l1_fwd_kernel"),
+                             ("K2", "l1_bwd_partial"))
+            if any(sym in n for n in names)}
+
+
+def poisoned_run(argv) -> str:
+    """The command's experiment under debug_nans with one NaN inside a
+    train row's valid region: FloatingPointError's text."""
+    from sie_tpu_torch.run import args_to_config, get_args
+    from sie_tpu_torch.train.experiment import Experiment
+    from sie_tpu_torch.utils.profiling import debug_nans
+    cfg = args_to_config(get_args(argv), 0)
+    with debug_nans():
+        exp = Experiment(cfg, verbose=False, device="cuda")
+    exp.train_data.x[3, 100, 5] = np.nan
+    try:
+        exp.train()
+    except FloatingPointError as e:
+        return str(e)
+    fail("--debug_nans did not raise on a NaN in a train row")
+
+
+def losses_of(path: str) -> list:
+    with open(path) as f:
+        return [(r["train_loss"], r["val_loss"], r["val_accuracy"])
+                for r in map(json.loads, f)]
+
+
+def backbone_cli(tmp: str, dnn: str) -> dict:
+    """The backbone's command line on synthetic CHISCO, 1 epoch: train
+    (the counts zeroed before and read after), a re-run that skips
+    training with --export_torch_ckpt, --import_torch_ckpt, f32 and int8
+    bundles against the live weights, --profile_dir with --debug_nans (the
+    same losses, K1 and K2 in the trace), and a NaN that raises."""
+    from sie_tpu_torch.data.provider import data_provider
+    from sie_tpu_torch.run import args_to_config, get_args
+    from sie_tpu_torch.serve import Predictor
+    tag = f"cli {dnn}"
+    base = BACKBONE_CLI[dnn].replace("--train_epochs 3",
+                                     "--train_epochs 1").split() + [
+        "--data_root", os.path.join(tmp, "no_chisco"),
+        "--result_dir", os.path.join(tmp, "result"),
+        "--cache_dir", os.path.join(tmp, "cache")]
+    d = lambda name: os.path.join(tmp, f"{dnn}_{name}")
+    first = base + ["--checkpoint_dir", d("ck"), "--metrics_jsonl",
+                    d("plain.jsonl")]
+    counts = Counts()
+    t0 = time.perf_counter()
+    counts.zero()   # the path's main run
+    text, res = run_cli(first)
+    launches = counts.read()
+    secs = time.perf_counter() - t0
+    csv_path = re.search(r"Test summary saved at: (\S+)", text)
+    if not csv_path or not os.path.exists(csv_path.group(1)) or \
+            "CUDA graphs captured" not in text or \
+            not launches["K1"] or not launches["K2"]:
+        fail(f"{tag}: no CSV, no graphs or no K1/K2 launches {launches}")
+    acc, loss = res[0][2]["accuracy"], res[0][1]
+    pth = d("ck.pth")
+    text2, res2 = run_cli(first + ["--export_torch_ckpt", pth])
+    text3, res3 = run_cli(base + ["--checkpoint_dir", d("ck_import"),
+                                  "--import_torch_ckpt", pth])
+    if "checkpoint exists — skipping training" not in text2 or \
+            "Epoch" in text3 or \
+            {res2[0][2]["accuracy"], res3[0][2]["accuracy"]} != {acc} or \
+            {res2[0][1], res3[0][1]} != {loss}:
+        fail(f"{tag}: re-run / import gave {res2[0][2]['accuracy']}, "
+             f"{res3[0][2]['accuracy']}, not {acc}")
+    cfg = args_to_config(get_args(first), 0)
+    test, _ = data_provider(cfg, "test")
+    live = Predictor.from_checkpoint(
+        cfg.replace(seq_len=test.seq_len, enc_in=test.enc_in,
+                    num_class=test.num_class), max_batch=64)
+    x = random_rows(live.cfg, 64).x
+    want = live.predict(x)
+    errs = {}
+    for quantize in (False, True):
+        bd = d("bundle_int8" if quantize else "bundle")
+        live.save_bundle(bd, quantize=quantize)
+        got = Predictor.load_bundle(bd, max_batch=64).predict(x)
+        errs[quantize] = float(np.abs(got.logits - want.logits).max())
+        ok = (np.allclose(got.logits, want.logits, atol=Q_ATOL, rtol=Q_RTOL)
+              if quantize else errs[quantize] <= F32_TOL)
+        if not ok:
+            fail(f"{tag}: bundle (int8 {quantize}) logits {errs[quantize]} "
+                 f"from the live weights")
+    prof = d("profile")
+    text4, res4 = run_cli(base + ["--checkpoint_dir", d("ck_debug"),
+                                  "--debug_nans", "--profile_dir", prof,
+                                  "--metrics_jsonl", d("debug.jsonl")])
+    seen = trace_kernels(prof)
+    if losses_of(d("debug.jsonl")) != losses_of(d("plain.jsonl")) or \
+            res4[0][2]["accuracy"] != acc or seen != {"K1", "K2"} or \
+            "CUDA graphs captured" not in text4:
+        fail(f"{tag}: --debug_nans changed the losses "
+             f"{losses_of(d('debug.jsonl'))} against "
+             f"{losses_of(d('plain.jsonl'))}, or the trace holds {seen}")
+    msg = poisoned_run(base + ["--checkpoint_dir", d("ck_nan")])
+    if not re.search(r"train step \d+: the first non-finite value came "
+                     r"from \S+", msg):
+        fail(f"{tag}: --debug_nans raised {msg!r}")
+    print(f"[{tag}] {secs:.1f} s for the first run (1 epoch); test accuracy "
+          f"{acc:.2f}%, the same after the re-run, --export_torch_ckpt and "
+          f"--import_torch_ckpt; bundles against the live weights at 64 "
+          f"rows: f32 {errs[False]:.3e}, int8 {errs[True]:.3e}; "
+          f"--debug_nans with --profile_dir: the same losses, {sorted(seen)} "
+          f"in the trace; a NaN in a train row: {msg}; launches over the "
+          f"first run {launches}")
+    return launches
+
+
+def phase_backbone_cli(tmp: str) -> dict:
+    """Both backbones through the command line -> their launches by
+    backbone."""
+    return {dnn: backbone_cli(tmp, dnn) for dnn in ("PatchTST", "TimesNet")}
+
+
 def main() -> None:
     import tempfile
     smi = phase_device()
@@ -2913,6 +3387,15 @@ def main() -> None:
             regression = phase_regression(work)
             phase_torch_ckpt(work)
             loso = phase_loso(work)
+        with time_limit(600, "the PatchTST and TimesNet phases"):
+            t0 = time.perf_counter()
+            backbones = {"patchtst": phase_patchtst(smi)}
+            t1 = time.perf_counter()
+            backbones["timesnet"] = phase_timesnet(smi)
+            t2 = time.perf_counter()
+            by_cli = phase_backbone_cli(work)
+            print(f"[backbones] phases 27-29: {t1 - t0:.1f} + "
+                  f"{t2 - t1:.1f} + {time.perf_counter() - t2:.1f} s")
     finally:
         for proc in list(CHILDREN):
             stop_server(proc)
@@ -2921,12 +3404,14 @@ def main() -> None:
     # the runs of the other paths that launch it (launches_by_path)
     options = {"augment": augmented, "regression": regression,
                "loso": loso}
+    sbm_paths = {**backbones, "cli_patchtst": by_cli["PatchTST"],
+                 "cli_timesnet": by_cli["TimesNet"]}
     others = {"K1": {"uea_fcn": uea_fcn, "uea_resnet": uea_resnet,
                      "cli_uea_fcn": cli_uea, "serve": serve_launches,
                      "serve_bundle": bundle, "serve_export": exported,
-                     **options},
+                     **options, **sbm_paths},
               "K2": {"uea_fcn": uea_fcn, "uea_resnet": uea_resnet,
-                     "cli_uea_fcn": cli_uea, **options},
+                     "cli_uea_fcn": cli_uea, **options, **sbm_paths},
               "K3": {"serve_fused": fused_serve},
               "K5": {"serve": serve_launches, "serve_bundle": bundle,
                      "serve_export": exported, **options},

@@ -1,8 +1,8 @@
 """Where a training step's time goes in sie_tpu_torch, on one CUDA card.
 
     python scripts/port_profile_train.py [--config flagship|fused|eigenworms|
-        uea_fcn|eegcnn|regression] [--path indexed|staged] [--steps 10]
-        [--no-profile] [--out DIR]
+        uea_fcn|eegcnn|regression|patchtst|timesnet] [--path indexed|staged]
+        [--steps 10] [--no-profile] [--out DIR]
 
 Builds the configuration's model (weights from seed 0) under `Trainer` on
 the card: `flagship` is bench.py's InterpGN (B=64), `fused` the same with
@@ -12,7 +12,10 @@ InterpGN + FCN as run_uea.sh trains it at that shape, `eegcnn` bench.py's
 EEGCNN (chip_smoke.py's `eegcnn_config`, dropout 0.1), `regression` the
 flagship's InterpGN at chip_smoke.py phase 24's BIDMC32HR shape (C = 2,
 T = 1000 after subsampling, 10 bins, lr 1e-5, B=64) with the CRPS head and
-float targets. Holds four batches of random rows on the card.
+float targets, `patchtst` and `timesnet` chip_smoke.py's InterpGN +
+PatchTST (full width, four recomputed chunks) and + TimesNet (d_model 32)
+at the flagship's data shape, dropout 0.1. Holds four batches of random
+rows on the card.
 `--path indexed` (the default) trains through the eager
 `train_step_indexed`; `--path staged` stages a schedule of four batches
 and trains through `train_step_staged`, whose first call is the eager
@@ -53,7 +56,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="flagship",
                     choices=("flagship", "fused", "eigenworms", "uea_fcn",
-                             "eegcnn", "regression"))
+                             "eegcnn", "regression", "patchtst", "timesnet"))
     ap.add_argument("--path", default="indexed", choices=("indexed", "staged"))
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--no-profile", action="store_true")
@@ -61,8 +64,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    from chip_smoke import (eegcnn_config, long_config, train_config,
-                            uea_config)
+    from chip_smoke import (eegcnn_config, long_config, patchtst_config,
+                            timesnet_config, train_config, uea_config)
     from sie_tpu_torch.train.trainer import Trainer
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -75,6 +78,7 @@ def main(argv=None) -> None:
            "eegcnn": eegcnn_config,
            "regression": lambda: train_config(seq_len=1000, enc_in=2,
                                               num_class=10).replace(lr=1e-5),
+           "patchtst": patchtst_config, "timesnet": timesnet_config,
            }[args.config]()
     batch = cfg.batch_size
     rows = 4 * batch
@@ -166,11 +170,16 @@ def kernel_kind(name: str) -> str:
         return "shapelet K1-K4"
     if "attn" in low:
         return "attention K5/K6"
-    if any(t in low for t in ("conv", "cudnn", "xmma", "implicit", "dgrad",
+    # cuDNN's convolutions first: some of their names hold "gemm"
+    # (implicit_gemm, implicit_convolve_sgemm); then cuBLAS's GEMMs, whose
+    # names hold "xmma" too (sm80_xmma_gemm_f32f32...)
+    if any(t in low for t in ("conv", "cudnn", "implicit", "fprop", "dgrad",
                               "wgrad", "winograd", "fft")):
         return "convolution"
     if any(t in low for t in ("gemm", "cutlass", "sm90_", "nvjet")):
         return "GEMM"
+    if "xmma" in low:
+        return "convolution"
     return "other"
 
 

@@ -7,7 +7,7 @@ kernels under `csrc/`, built by nvcc for sm_90a at first use
 and its plain PyTorch version for a CPU tensor.
 
 Ported so far: the serving forward of InterpGN / SBM / LTS / DNN with the
-Transformer, FCN and ResNet experts and EEGCNN, their training step and
+Transformer, FCN, ResNet, TimesNet and PatchTST experts and EEGCNN, their training step and
 the epoch-staged train and eval paths, captured as CUDA graphs on the card
 (`train.trainer.Trainer`), the classification experiment with its data
 path and flax-format checkpoints (`train.experiment.Experiment`), and the
@@ -15,8 +15,9 @@ command line `python -m sie_tpu_torch.run` with run.py's options past
 classification: on-device augmentation (`data.augment`), regression on
 the Monash archive (`train.regression.RegressionExperiment`), the
 reference's `checkpoint.pth` in and out (`compat.torch_import`,
-`compat.torch_export`) and leave-one-subject-out folds on one device
-(`parallel.loso`); kernels K1/K2 (shapelet
+`compat.torch_export`), leave-one-subject-out folds on one device
+(`parallel.loso`), profiler traces and NaN checks (`utils.profiling`);
+kernels K1/K2 (shapelet
 distance, forward and backward, `ops/shapelet_l1.py`; K3/K4 for grouped
 banks) and K5/K6 (fused attention with dropout, forward and backward,
 `ops/attention.py`), the forwards K1, K3 and K5 registered as the PyTorch

@@ -263,6 +263,15 @@ def to_jax_tree(module: nn.Module,
         # a copy: on the CPU .numpy() shares the tensor's memory, which the
         # optimizer then moves in place
         node[leaf] = np.array(value, order="C", copy=True)
+    return _sorted(tree)
+
+
+def _sorted(tree):
+    """Nested dicts with their keys in sorted order, as a flax tree holds
+    them after any jax.tree operation: a checkpoint written from it then
+    has the JAX package's bytes."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
     return tree
 
 

@@ -15,8 +15,7 @@ and every leaf of the tree must be consumed. Reference-side state the model
 does not carry (sinusoidal position buffers, the unreachable
 temporal-embedding branch; BN ``num_batches_tracked`` is written as 0) is
 left to the reference model's own initialisation: load with
-``strict=False``. TimesNet and PatchTST raise NotImplementedError naming
-ROADMAP.md: the port has neither backbone yet.
+``strict=False``.
 """
 
 from __future__ import annotations
@@ -29,7 +28,7 @@ import torch
 
 from sie_tpu_torch.compat.from_jax import _flatten
 from sie_tpu_torch.config import Config
-from sie_tpu_torch.models.layers import not_ported
+from sie_tpu_torch.models.timesnet import _inception_taps
 
 Array = np.ndarray
 Flat = Dict[Tuple[str, ...], Array]
@@ -184,10 +183,35 @@ def _export_eegcnn(sd, flat: Flat, cfg: Config) -> None:
     _linear(sd, flat, ("params", "classifier"), "classifier")
 
 
-def _unported_backbone(name: str):
-    def export(sd, flat, cfg, scope, prefix):
-        raise not_ported(f"the {name} checkpoint exporter")
-    return export
+def _export_timesnet(sd, flat: Flat, cfg: Config, scope, prefix: str) -> None:
+    taps = _inception_taps(cfg.num_kernels)
+    _conv1d(sd, flat, scope + ("enc_embedding", "TokenEmbedding_0", "tokenConv"),
+            prefix + "enc_embedding.value_embedding.tokenConv", bias=False)
+    for b in range(cfg.e_layers):
+        for ours, theirs in (("conv1", "conv.0"), ("conv2", "conv.2")):
+            tap_w = _pop(flat, scope + (f"block_{b}", ours, "tap_weights"))
+            bias = _pop(flat, scope + (f"block_{b}", ours, "bias"))
+            c_in, c_out = tap_w.shape[1], tap_w.shape[2]
+            ws = [np.zeros((c_out, c_in, 2 * ki + 1, 2 * ki + 1),
+                           tap_w.dtype) for ki in range(cfg.num_kernels)]
+            # exact inverse of the import repack: taps enumerate every
+            # (dr, dc) of every odd kernel (`_inception_taps`)
+            for tap_idx, (ki, dr, dc) in enumerate(taps):
+                ws[ki][:, :, dr + ki, dc + ki] = tap_w[tap_idx].T
+            for ki in range(cfg.num_kernels):
+                key = f"{prefix}model.{b}.{theirs}.kernels.{ki}."
+                sd[key + "weight"] = ws[ki]
+                sd[key + "bias"] = bias[ki]
+    _norm(sd, flat, scope + ("layer_norm",), prefix + "layer_norm")
+    _linear(sd, flat, scope + ("projection",), prefix + "projection")
+
+
+def _export_patchtst(sd, flat: Flat, cfg: Config, scope, prefix: str) -> None:
+    _linear(sd, flat, scope + ("value_embedding",),
+            prefix + "patch_embedding.value_embedding", bias=False)
+    _export_encoder(sd, flat, scope + ("enc_scan", "encoder"),
+                    prefix + "encoder.", cfg.e_layers)
+    _linear(sd, flat, scope + ("projection",), prefix + "projection")
 
 
 _DNN_EXPORTERS = {
@@ -197,8 +221,8 @@ _DNN_EXPORTERS = {
                                                                   scope,
                                                                   prefix),
     "Transformer": _export_transformer,
-    "TimesNet": _unported_backbone("TimesNet"),
-    "PatchTST": _unported_backbone("PatchTST"),
+    "TimesNet": _export_timesnet,
+    "PatchTST": _export_patchtst,
 }
 
 

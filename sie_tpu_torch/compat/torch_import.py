@@ -7,7 +7,10 @@ run.py:580-585). `convert_state_dict` turns such a state_dict into the flax
 variables tree {"params", "batch_stats"} of the matching model by the JAX
 package's per-model converters (key layouts cited there: the SBM with its
 linear, bilinear and attention heads and LTS thresholds; InterpGN; FCN;
-ResNet; the Transformer; EEGCNN with its packed ``in_proj`` split into q/k/v),
+ResNet; the Transformer; TimesNet, whose per-branch Inception Conv2d
+kernels are repacked into the tap table, one tap per (branch, dr, dc);
+PatchTST, whose shared encoder sits under ``enc_scan/encoder``; EEGCNN
+with its packed ``in_proj`` split into q/k/v),
 checks it leaf for leaf against a template (`to_jax_variables(model)`):
 every target leaf covered, each shape equal; and `load_into_model` loads it
 with `load_jax_variables`, so ``python -m sie_tpu_torch.run
@@ -19,9 +22,6 @@ BatchNorm weight/bias/running_mean/running_var -> params scale/bias and
 batch_stats mean/var. Source keys with no counterpart (sinusoidal position
 tables, BN ``num_batches_tracked``, the temporal-embedding branch that the
 classification forward never reads) are reported as ``unused``.
-
-TimesNet and PatchTST have no converter here: the port has neither
-backbone yet, and both raise NotImplementedError naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from torch import nn
 from sie_tpu_torch.compat.from_jax import (_flatten, load_jax_variables,
                                            to_jax_variables)
 from sie_tpu_torch.config import Config
-from sie_tpu_torch.models.layers import not_ported
+from sie_tpu_torch.models.timesnet import _inception_taps
 
 Array = np.ndarray
 Flat = Dict[Tuple[str, ...], Array]   # ("params", "sbm", "shapelets_0") -> arr
@@ -216,10 +216,39 @@ def _convert_eegcnn(dst: Flat, sd: Dict[str, Array], cfg: Config,
             unused.append(k)
 
 
-def _unported_backbone(name: str):
-    def convert(dst, sd, cfg, scope, prefix, unused):
-        raise not_ported(f"the {name} checkpoint importer")
-    return convert
+def _convert_timesnet(dst: Flat, sd: Dict[str, Array], cfg: Config,
+                      scope: Tuple[str, ...], prefix: str,
+                      unused: List[str]) -> None:
+    taps = _inception_taps(cfg.num_kernels)
+    _conv1d(dst, scope + ("enc_embedding", "TokenEmbedding_0", "tokenConv"),
+            sd, prefix + "enc_embedding.value_embedding.tokenConv", bias=False)
+    _drop_unreachable_embedding(sd, prefix, unused)
+    for b in range(cfg.e_layers):
+        for ours, theirs in (("conv1", "conv.0"), ("conv2", "conv.2")):
+            branches = [sd.pop(f"{prefix}model.{b}.{theirs}.kernels.{ki}.weight")
+                        for ki in range(cfg.num_kernels)]
+            biases = [sd.pop(f"{prefix}model.{b}.{theirs}.kernels.{ki}.bias")
+                      for ki in range(cfg.num_kernels)]
+            # every (dr, dc) of every odd kernel is one tap: a bijection
+            tap_w = np.stack([
+                branches[ki][:, :, dr + ki, dc + ki].T
+                for ki, dr, dc in taps])
+            cscope = scope + (f"block_{b}", ours)
+            dst[cscope + ("tap_weights",)] = tap_w
+            dst[cscope + ("bias",)] = np.stack(biases)
+    _norm(dst, scope + ("layer_norm",), sd, prefix + "layer_norm")
+    _linear(dst, scope + ("projection",), sd, prefix + "projection")
+
+
+def _convert_patchtst(dst: Flat, sd: Dict[str, Array], cfg: Config,
+                      scope: Tuple[str, ...], prefix: str,
+                      unused: List[str]) -> None:
+    _linear(dst, scope + ("value_embedding",), sd,
+            prefix + "patch_embedding.value_embedding", bias=False)
+    _drop_unreachable_embedding(sd, prefix, unused)
+    _convert_encoder(dst, sd, scope + ("enc_scan", "encoder"),
+                     prefix + "encoder.", cfg.e_layers)
+    _linear(dst, scope + ("projection",), sd, prefix + "projection")
 
 
 _DNN_CONVERTERS = {
@@ -228,8 +257,8 @@ _DNN_CONVERTERS = {
     "ResNet": lambda dst, sd, cfg, scope, prefix, unused:
         _convert_resnet(dst, sd, scope, prefix),
     "Transformer": _convert_transformer,
-    "TimesNet": _unported_backbone("TimesNet"),
-    "PatchTST": _unported_backbone("PatchTST"),
+    "TimesNet": _convert_timesnet,
+    "PatchTST": _convert_patchtst,
 }
 
 

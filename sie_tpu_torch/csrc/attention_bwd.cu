@@ -150,9 +150,9 @@ attn_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, i2 = (lane % 4) * 2;
   const float sl2 = scale * LOG2E;
-  const int bh = blockIdx.y;
+  const TileRow tr = tile_row(T, BT);
+  const int bh = tr.bh, kv0 = tr.t0;
   const size_t base = (size_t)bh * T * dk;
-  const int kv0 = blockIdx.x * BT;
   const int ntiles = (T + BT - 1) / BT;
   uint32_t dkey = 0;
   if (DROP) dkey = dropout_key(*seedp, bh);
@@ -358,9 +358,9 @@ attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, i2 = (lane % 4) * 2;
   const float sl2 = scale * LOG2E;
-  const int bh = blockIdx.y;
+  const TileRow tr = tile_row(T, BT);
+  const int bh = tr.bh, q0 = tr.t0;
   const size_t base = (size_t)bh * T * dk;
-  const int q0 = blockIdx.x * BT;
   const int ntiles = (T + BT - 1) / BT;
   uint32_t dkey = 0;
   if (DROP) dkey = dropout_key(*seedp, bh);
@@ -533,9 +533,9 @@ attn_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, i2 = (lane % 4) * 2;
   const float sl2 = scale * LOG2E;
-  const int bh = blockIdx.y;
+  const TileRow tr = tile_row(T, BT);
+  const int bh = tr.bh, kv0 = tr.t0;
   const size_t base = (size_t)bh * T * dk;
-  const int kv0 = blockIdx.x * BT;
   const int ntiles = (T + BT - 1) / BT;
   uint32_t dkey = 0;
   if (DROP) dkey = dropout_key(*seedp, bh);
@@ -702,9 +702,9 @@ attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, i2 = (lane % 4) * 2;
   const float sl2 = scale * LOG2E;
-  const int bh = blockIdx.y;
+  const TileRow tr = tile_row(T, BT);
+  const int bh = tr.bh, q0 = tr.t0;
   const size_t base = (size_t)bh * T * dk;
-  const int q0 = blockIdx.x * BT;
   const int ntiles = (T + BT - 1) / BT;
   uint32_t dkey = 0;
   if (DROP) dkey = dropout_key(*seedp, bh);
@@ -829,7 +829,7 @@ template <int DKP, bool DROP, bool TMA>
 int launch_bf16_as(const Args& a) {
   int err = launch_delta<bf16>(a);
   if (err) return err;
-  const dim3 grid((a.T + BT - 1) / BT, a.BH);
+  const dim3 grid = tile_grid(a.BH, a.T, BT);
   const size_t b1 = dkv_smem_bytes<DKP>(), b2 = dq_smem_bytes<DKP>();
   cudaError_t e = cudaFuncSetAttribute(
       attn_bwd_dkv_bf16<DKP, DROP, TMA>,
@@ -875,7 +875,7 @@ template <int DKP, bool DROP>
 int launch_f32(const Args& a) {
   int err = launch_delta<float>(a);
   if (err) return err;
-  const dim3 grid((a.T + BT - 1) / BT, a.BH);
+  const dim3 grid = tile_grid(a.BH, a.T, BT);
   const size_t b1 = dkv_f32_smem_bytes<DKP>(), b2 = dq_f32_smem_bytes<DKP>();
   cudaError_t e = cudaFuncSetAttribute(
       attn_bwd_dkv_f32<DKP, DROP>,
@@ -919,7 +919,7 @@ int dispatch(const Args& a, bool is_bf16) {
 // q, k, v, o, dout, dq, dk, dv (BH, T, dk) contiguous on the device, bf16
 // when is_bf16 else float32; lse (the forward's, natural log) and the
 // workspace delta (BH, T) float32. Dropout arguments as attention_fwd's.
-// The caller checks 1 <= dk <= 128 and BH <= 65535.
+// The caller checks 1 <= dk <= 128 and BH * T < 2^31.
 extern "C" int attention_bwd(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
                              void* delta, void* dq, void* dk, void* dv,

@@ -28,6 +28,24 @@ constexpr float NEG = -1e30f;   // score of a key at or past T
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// ------------------------------------------------------------------ grid
+// A launch's grid is one-dimensional: block x = bh * tiles + tile, the
+// tiles of `rows` query (or key) rows of one (batch, head) row side by
+// side. gridDim.x takes 2^31 - 1 blocks, so BH is bounded only by the
+// caller's BH * T < 2^31 (gridDim.y would stop it at 65535).
+struct TileRow {
+  int bh, t0;
+};
+
+__device__ __forceinline__ TileRow tile_row(int T, int rows) {
+  const unsigned tiles = (unsigned)((T + rows - 1) / rows);
+  return {(int)(blockIdx.x / tiles), (int)(blockIdx.x % tiles) * rows};
+}
+
+inline dim3 tile_grid(int BH, int T, int rows) {
+  return dim3((unsigned)(((size_t)T + rows - 1) / rows * (size_t)BH));
+}
+
 // ------------------------------------------------------------ dropout hash
 __device__ __forceinline__ uint32_t dropout_key(int seed, int bh) {
   return (uint32_t)seed * 0x9E3779B9u ^ (uint32_t)bh * 0x85EBCA6Bu;

@@ -9,8 +9,9 @@
 // `_attn_fwd_blocked_impl` :279): this kernel already streams key tiles
 // with an online softmax, drops after the row-sum update as K7 does, and
 // writes the row log-sum-exp that K7 emits for its backward. Nothing here is
-// sized by T: shared memory holds fixed 64-row tiles, the grid is (T / 64,
-// BH), and every offset into q, k, v, o and lse is a 64-bit product.
+// sized by T: shared memory holds fixed 64-row tiles, the grid is T / 64
+// tiles times BH (`tile_grid`), and every offset into q, k, v, o and lse
+// is a 64-bit product.
 //
 // Numerics follow that kernel's `_score_block`: Q K^T accumulates in f32;
 // with bf16 inputs the raw scores are rounded to bf16 before the scale;
@@ -127,9 +128,9 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // scores in log2 units: exp(x * scale - m) = exp2(x * sl2 - m2)
   const float sl2 = scale * LOG2E;
 
-  const int bh = blockIdx.y;
+  const TileRow tr = tile_row(T, BQ);
+  const int bh = tr.bh, q0 = tr.t0;
   const size_t base = (size_t)bh * T * dk;
-  const int q0 = blockIdx.x * BQ;
   const int ntiles = (T + BK - 1) / BK;
   uint32_t dkey = 0;
   if (DROP) dkey = dropout_key(*seedp, bh);
@@ -313,11 +314,12 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane / 4, i2 = (lane % 4) * 2;
   const float sl2 = scale * LOG2E;
 
-  const size_t base = (size_t)blockIdx.y * T * dk;
-  const int q0 = blockIdx.x * BQ;
+  const TileRow tr = tile_row(T, BQ);
+  const int bh = tr.bh, q0 = tr.t0;
+  const size_t base = (size_t)bh * T * dk;
   const int ntiles = (T + BK - 1) / BK;
   uint32_t dkey = 0;
-  if (DROP) dkey = dropout_key(*seedp, blockIdx.y);
+  if (DROP) dkey = dropout_key(*seedp, bh);
   load_tile_f32<DKP>(Qs, q + base, q0, T, dk);
   cp_async_commit();
   load_tile_f32<DKP>(KVs, k + base, 0, T, dk);
@@ -454,7 +456,7 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         if (col < dk) orow[col] = acc[dn][2 * h + e] * inv;
       }
     if (LSE && i2 == 0)
-      lse[(size_t)blockIdx.y * T + row] = (m[h] + log2f(l[h])) * LN2;
+      lse[(size_t)bh * T + row] = (m[h] + log2f(l[h])) * LN2;
   }
 }
 
@@ -484,7 +486,7 @@ int launch_bf16_as(const Args& a) {
     if (!e) e = encode_tile_map(&mv, a.v, a.BH, a.T, a.dk);
     if (e) return e;
   }
-  const dim3 grid((a.T + BQ - 1) / BQ, a.BH);
+  const dim3 grid = tile_grid(a.BH, a.T, BQ);
   attn_fwd_bf16<DKP, DROP, LSE, TMA><<<grid, 128, bytes, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.T,
@@ -506,7 +508,7 @@ int launch_f32(const Args& a) {
       attn_fwd_f32<DKP, DROP, LSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.T + BQ - 1) / BQ, a.BH);
+  const dim3 grid = tile_grid(a.BH, a.T, BQ);
   attn_fwd_f32<DKP, DROP, LSE><<<grid, NWARP * 32, bytes, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.T,
@@ -534,7 +536,7 @@ int dispatch(const Args& a, bool is_bf16) {
 // float32; lse (BH, T) float32 or null. With `dropout` set: seed is one
 // int32 on the device, thresh = min(rate * 2^32, 2^32 - 1) and inv_keep =
 // 1 / (1 - rate); without, those three are not read. The caller checks
-// 1 <= dk <= 128 and BH <= 65535.
+// 1 <= dk <= 128 and BH * T < 2^31.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, const void* seed, int BH,
                              int T, int dk, float scale, int dropout,

@@ -1,6 +1,6 @@
 """Embeddings, attention, the encoder stacks and batch norm (counterpart
 of sie_tpu/models/layers.py), as the classification Transformer, the FCN,
-ResNet and EEGCNN backbones use them.
+ResNet, EEGCNN, TimesNet and PatchTST backbones use them.
 
 Numerics follow flax's dtype rules, so that the port and the JAX package
 round at the same places under `amp` (bf16 compute):
@@ -16,13 +16,14 @@ Parameters are initialised from an explicit `torch.Generator` with the
 distributions the JAX package uses (PyTorch's own defaults). Dropout, at
 the JAX package's places, draws its masks from another explicit generator
 that the caller passes to `forward` (flax's `rngs={"dropout": ...}`); in
-eval mode or at rate 0 it draws nothing.
+eval mode or at rate 0 it draws nothing. A block recomputed in the
+backward pass takes a `ReplayDropout` in the generator's place.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -109,31 +110,91 @@ def conv_forward(c: nn.Module, x: torch.Tensor, dtype: torch.dtype,
 
 
 # ------------------------------------------------------------ dropout
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+class ReplayDropout:
+    """Stands in for the dropout generator inside a block whose forward is
+    recomputed in the backward pass (PatchTST's encoder chunks under
+    `patch_remat`). `torch.utils.checkpoint` restores only the global
+    generators' states, so a recompute that drew from the model's
+    generator again would draw other masks. The first pass through the
+    block draws from `generator` exactly as `dropout` and `dropout_seed`
+    would, and keeps each keep mask and attention seed; `rewind()` starts
+    the next pass, which replays them in the same order. The masks live
+    until the block's backward has run (bool, one byte an element), as
+    the JAX package's recompute keys them on the same rng. On the card the
+    draws are part of a captured step like any other."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.draws = []
+        self.pos = 0
+
+    def rewind(self) -> "ReplayDropout":
+        self.pos = 0
+        return self
+
+    def _next(self, draw, shape):
+        if self.pos == len(self.draws):
+            self.draws.append(draw())
+        out = self.draws[self.pos]
+        if tuple(out.shape) != tuple(shape):
+            raise RuntimeError(f"a replayed pass asked for a draw of shape "
+                               f"{tuple(shape)} where the first drew "
+                               f"{tuple(out.shape)}")
+        self.pos += 1
+        return out
+
+    def keep(self, shape, rate: float) -> torch.Tensor:
+        g = self.generator
+        return self._next(lambda: torch.rand(shape, generator=g,
+                                             device=g.device) < 1.0 - rate,
+                          shape)
+
+    def seed_int32(self) -> torch.Tensor:
+        return self._next(lambda: _draw_seed(self.generator), (1,))
+
+    @property
+    def device(self) -> torch.device:
+        return self.generator.device
+
+
+def _draw_seed(generator: torch.Generator) -> torch.Tensor:
+    return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                         device=generator.device, dtype=torch.int32)
+
+
+Stream = Union[torch.Generator, ReplayDropout]
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[Stream],
             training: bool) -> torch.Tensor:
     """flax `nn.Dropout(rate)`: keep each element with probability
     1 - rate and scale the kept ones by 1/(1 - rate), the mask drawn from
-    `generator` (on x's device). The identity when not training or at
-    rate 0."""
+    `generator` (on x's device; a `ReplayDropout` draws or replays it).
+    The identity when not training or at rate 0."""
     if not training or rate == 0.0:
         return x
     if generator is None:
         raise ValueError(f"dropout at rate {rate} in training needs a "
                          f"torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    if isinstance(generator, ReplayDropout):
+        keep = generator.keep(tuple(x.shape), rate)
+    else:
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
 
 
-def dropout_seed(generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout_seed(generator: Optional[Stream]) -> torch.Tensor:
     """One int32 in [0, 2^31 - 1) drawn from `generator`, on its device: the
     seed of the fused attention's dropout hash (the JAX package draws
     `randint(make_rng("dropout"), (1,), 0, int32 max)`)."""
     if generator is None:
         raise ValueError("attention dropout in training needs a "
                          "torch.Generator")
-    return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
-                         device=generator.device, dtype=torch.int32)
+    if isinstance(generator, ReplayDropout):
+        return generator.seed_int32()
+    return _draw_seed(generator)
 
 
 # ------------------------------------------------------------ numerics

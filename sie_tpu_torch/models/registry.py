@@ -14,7 +14,7 @@ from sie_tpu_torch.models.info import ModelInfo
 from sie_tpu_torch.models.layers import not_ported
 
 MODELS = ("InterpGN", "SBM", "LTS", "DNN", "EEGCNN")
-DNNS = ("Transformer", "FCN", "ResNet")
+DNNS = ("Transformer", "FCN", "ResNet", "TimesNet", "PatchTST")
 
 
 def build_dnn(cfg: Config, g: torch.Generator) -> nn.Module:
@@ -27,6 +27,12 @@ def build_dnn(cfg: Config, g: torch.Generator) -> nn.Module:
     if cfg.dnn_type == "ResNet":
         from sie_tpu_torch.models.resnet import ResNet
         return ResNet(cfg, g)
+    if cfg.dnn_type == "TimesNet":
+        from sie_tpu_torch.models.timesnet import TimesNet
+        return TimesNet(cfg, g)
+    if cfg.dnn_type == "PatchTST":
+        from sie_tpu_torch.models.patchtst import PatchTST
+        return PatchTST(cfg, g)
     from sie_tpu_torch.models.transformer import Transformer
     return Transformer(cfg, g)
 

@@ -34,7 +34,8 @@ online softmax and writes the row LSE when a gradient is wanted (K7's
 contract: dropout after the row-sum update, keyed on global (row, column)),
 and K6 runs a delta pass, a dK/dV pass over query tiles (K8b) and a dQ pass
 over key tiles (K8a) from that LSE. Nothing in them is sized by T (shared
-memory holds fixed tiles, the grid is (T / 64, BH)), so K5 and K6 are the
+memory holds fixed tiles, the grid is T / 64 tiles times BH, with no
+limit on BH but BH * T < 2^31), so K5 and K6 are the
 port's K7 and K8a/K8b too; there is no second variant and no block-size
 argument. At long T the (BH, T, T) plain versions cannot be held, so
 `attention_plain_chunked` and `attention_bwd_plain_chunked` compute the same
@@ -230,9 +231,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bh, t, dk = q.shape
     if not 1 <= dk <= 128:
         raise ValueError(f"{what} takes 1 <= dk <= 128; got dk={dk}")
-    if bh > 65535:
-        raise ValueError(f"{what} launches one grid row per (batch, head); "
-                         f"BH={bh} exceeds 65535")
     if bh * t > 2 ** 31 - 1:
         raise ValueError(f"{what} indexes the BH * T rows with 32-bit ints; "
                          f"BH * T = {bh * t}")

@@ -20,10 +20,13 @@ noise,scale,chdrop,tshift` augments the train batches on the device.
 and prints the folds' mean accuracy. Serve a bundle with `python -m
 sie_tpu_torch.serve_http --bundle DIR`.
 
-The flags of paths the port does not have yet raise NotImplementedError
-naming ROADMAP.md: `--mesh`, the forecast, imputation and anomaly tasks,
-`--stream_from_disk`, `--profile_dir`, `--debug_nans`, and `--loso` when
-the environment asks for several processes (SIE_TPU_COORDINATOR). Models,
+`--profile_dir DIR` writes a torch.profiler trace of training there, and
+`--debug_nans` raises FloatingPointError at the first non-finite value a
+train step or eval pass makes, naming the step and the operation
+(utils/profiling.py). The flags of paths the port does not have yet raise
+NotImplementedError naming ROADMAP.md: `--mesh`, the forecast, imputation
+and anomaly tasks, `--stream_from_disk`, and `--loso` when the
+environment asks for several processes (SIE_TPU_COORDINATOR). Models,
 backbones, attention variants, data families and checkpoint converters
 that are not ported raise where they are built. `--no_pallas`,
 `--multi_gpu` and `--num_workers` are accepted and change nothing, as in
@@ -91,8 +94,8 @@ def get_args(argv=None):
                    choices=["FCN", "Transformer", "TimesNet", "PatchTST",
                             "ResNet", "Autoformer", "FEDformer", "ETSformer",
                             "Pyraformer", "Crossformer"],
-                   help="Transformer, FCN and ResNet are ported; the "
-                        "others raise")
+                   help="Transformer, FCN, ResNet, TimesNet and PatchTST "
+                        "are ported; the others raise")
     p.add_argument("--dataset", type=str, default="BasicMotions")
     p.add_argument("--lambda_reg", type=float, default=0.1)
     p.add_argument("--lambda_div", type=float, default=0.1)
@@ -202,7 +205,8 @@ def get_args(argv=None):
     p.add_argument("--stream_from_disk", action="store_true",
                    help="not ported yet (ROADMAP.md)")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="not ported yet (ROADMAP.md)")
+                   help="write a torch.profiler Chrome trace of training "
+                        "(host and card) under this directory")
     p.add_argument("--export_bundle", type=str, default=None,
                    help="write a serving bundle of the tested weights here "
                         "(serve it with python -m "
@@ -237,7 +241,10 @@ def get_args(argv=None):
                    help="evaluate a reference-trained checkpoint.pth "
                         "(compat/torch_import.py); training is skipped")
     p.add_argument("--debug_nans", action="store_true",
-                   help="not ported yet (ROADMAP.md)")
+                   help="raise FloatingPointError at the first non-finite "
+                        "loss, gradient, parameter or eval output, naming "
+                        "the step and the operation that made it (the "
+                        "steps stay CUDA graphs; one host sync a step)")
     return p.parse_args(argv)
 
 
@@ -245,8 +252,6 @@ def get_args(argv=None):
 _UNPORTED = {
     "mesh": "training on a device mesh (--mesh)",
     "stream_from_disk": "streaming splits from disk (--stream_from_disk)",
-    "profile_dir": "profiler traces (--profile_dir)",
-    "debug_nans": "NaN checks (--debug_nans)",
 }
 
 
@@ -326,12 +331,19 @@ def run_loso_folds(args, cfg, seed: int):
 
 
 def main(argv=None):
+    from sie_tpu_torch.utils.profiling import debug_nans
+    args = get_args(argv)
+    refuse_unported(args)
+    with debug_nans(args.debug_nans):
+        return run_seeds(args)
+
+
+def run_seeds(args):
     from sie_tpu_torch.compat.from_jax import to_jax_variables
     from sie_tpu_torch.train.experiment import Experiment
     from sie_tpu_torch.train.regression import RegressionExperiment
+    from sie_tpu_torch.utils.profiling import trace
 
-    args = get_args(argv)
-    refuse_unported(args)
     seeds = list(DEFAULT_SEEDS) if args.seed == -1 else [args.seed]
     all_results = []
 
@@ -363,7 +375,8 @@ def main(argv=None):
                 print("checkpoint exists — skipping training")
                 experiment.load_checkpoint()
             else:
-                experiment.train()
+                with trace(args.profile_dir):
+                    experiment.train()
         elif not experiment.load_checkpoint():
             print("warning: no checkpoint found; testing a fresh model")
 

@@ -50,6 +50,17 @@ The optimizer has optax's semantics, not PyTorch's habits:
   gradients are averaged, clipping and Adam act once per group on the
   average, the schedule counts optimizer steps, and the parameters do not
   move between groups.
+
+NaN checks (`debug_nans`, on for trainers built inside
+`utils.profiling.debug_nans()`, which `--debug_nans` sets): the train step,
+captured or not, also writes a device flag, whether the loss, the
+gradients and the updated parameters are all finite, and the host reads
+it after each step (one synchronisation a step). Before each step the
+trainer copies its state (parameters, buffers, Adam's state, the count,
+the generators); on the first false flag it puts that copy back, re-runs
+the step eagerly under `first_nonfinite_op`, and raises FloatingPointError
+naming the step and the first operation that made the value. Every eval
+pass's outputs are checked on the host the same way.
 """
 
 from __future__ import annotations
@@ -75,6 +86,8 @@ from sie_tpu_torch.models.info import ModelInfo
 from sie_tpu_torch.models.layers import not_ported
 from sie_tpu_torch.models.registry import build_model
 from sie_tpu_torch.models.sbm import clamp_sbm_weights
+from sie_tpu_torch.utils.profiling import (debug_nans_enabled,
+                                           first_nonfinite_op)
 
 _CLAMPED = ("SBM", "LTS", "InterpGN")   # models with an SBM classifier
 
@@ -263,6 +276,22 @@ class Staged(NamedTuple):
     beta: torch.Tensor
 
 
+def _all_finite(ts: Iterable[torch.Tensor]) -> torch.Tensor:
+    """One device bool: every element of every tensor finite."""
+    return torch.stack([torch.isfinite(t).all() for t in ts]).all()
+
+
+def _float_leaves(out) -> List[torch.Tensor]:
+    """The floating tensors of a step's or pass's outputs."""
+    if out is None:
+        return []
+    if torch.is_tensor(out):
+        return [out] if out.is_floating_point() else []
+    if isinstance(out, ModelInfo):
+        out = [getattr(out, f.name) for f in dataclasses.fields(out)]
+    return [t for o in out for t in _float_leaves(o)]
+
+
 def _clone(out):
     """A copy of a captured graph's outputs, which the next replay
     overwrites."""
@@ -302,7 +331,8 @@ class Trainer:
     9173 into the step rng), a stream of its own so the dropout masks are
     the same with and without augmentation; `generator` draws the initial
     weights when the trainer builds the model. `loss_head` as in
-    `make_loss_fn`."""
+    `make_loss_fn`. A trainer built inside `utils.profiling.debug_nans()`
+    runs the NaN checks of the module docstring."""
 
     AUGMENT_OFFSET = 9173
 
@@ -339,6 +369,9 @@ class Trainer:
         self._warm: set = set()
         self._stream = None
         self.captures: List[Hashable] = []   # graph keys, in capture order
+        self.debug_nans = debug_nans_enabled()
+        self._finite = torch.ones((), dtype=torch.bool, device=self.device)
+        self._nan_step = 0    # the step a checked re-run is at
 
     # ---- steps ------------------------------------------------------------
     def _tensor(self, a, dtype: torch.dtype) -> torch.Tensor:
@@ -372,9 +405,16 @@ class Trainer:
         loss, (logits, _info) = self.loss_fn(self.model, batch, beta,
                                              self.generator)
         loss.backward()
+        if self.debug_nans:
+            self._finite.logical_and_(_all_finite(
+                [loss] + [p.grad for p in self.optimizer.params
+                          if p.grad is not None]))
         self.optimizer.device_step(position)
         if self.cfg.pos_weight and self.cfg.model in _CLAMPED:
             clamp_sbm_weights(self.model)
+        if self.debug_nans:
+            self._finite.logical_and_(_all_finite(self.model.parameters()))
+            self._nan_step += 1
         return loss.detach(), logits.detach()
 
     def _advance(self, steps: int = 1) -> None:
@@ -383,9 +423,81 @@ class Trainer:
 
     def _update(self, batch, beta: torch.Tensor):
         """One eager train step on a device batch."""
-        out = self._device_step(batch, beta, self.optimizer.mini_step)
+        position = self.optimizer.mini_step
+        out = self._checked_train(
+            lambda: self._device_step(batch, beta, position))
         self._advance()
         return out
+
+    # ---- NaN checks -------------------------------------------------------
+    def _state(self) -> List[torch.Tensor]:
+        """The device tensors a train step moves, in a fixed order."""
+        opt = self.optimizer
+        return (list(self.model.parameters()) + list(self.model.buffers())
+                + [opt.count_t, opt.lr] + list(opt._acc or []))
+
+    def _snapshot(self):
+        """A copy of the trainer's state before a step."""
+        gens = [g for g in (self.generator, self.augment_generator)
+                if g is not None]
+        adam = {p: {k: v.clone() if torch.is_tensor(v) else v
+                    for k, v in self.optimizer.adam.state.get(p, {}).items()}
+                for p in self.optimizer.params}
+        return ([t.detach().clone() for t in self._state()], adam,
+                [g.get_state() for g in gens])
+
+    def _restore(self, snap) -> None:
+        tensors, adam, gen_states = snap
+        with torch.no_grad():
+            for t, saved in zip(self._state(), tensors):
+                t.copy_(saved)
+        live = self.optimizer.adam.state   # only an eager re-run reads it
+        for p, st in adam.items():
+            if st:
+                live[p] = st
+            else:
+                live.pop(p, None)
+        gens = [g for g in (self.generator, self.augment_generator)
+                if g is not None]
+        for g, st in zip(gens, gen_states):
+            g.set_state(st)
+
+    def _checked_train(self, run: Callable[[], Any],
+                       body: Optional[Callable[[], Any]] = None):
+        """run() (a train step or a staged epoch; on the card a graph replay)
+        under the NaN checks: the flag read after it, and on a false flag
+        `body` (default run), the same work, re-run eagerly from the state
+        before it under `first_nonfinite_op`, which raises."""
+        if not self.debug_nans:
+            return run()
+        snap = self._snapshot()
+        first = self.step
+        self._finite.fill_(True)
+        out = run()
+        if bool(self._finite):
+            return out
+        self._restore(snap)
+        self._nan_step = first
+        where = lambda: f"--debug_nans: train step {self._nan_step}"
+        first_nonfinite_op(body or run, where)
+        raise FloatingPointError(
+            f"--debug_nans: train step {first} made a non-finite loss, "
+            f"gradient or parameter, which its eager re-run did not "
+            f"reproduce")
+
+    def _checked_eval(self, out, body: Callable[[], Any], what: str):
+        """out, an eval pass's outputs, checked for non-finite values under
+        debug_nans; on one, body() (the same pass) re-run eagerly under
+        `first_nonfinite_op`, which raises."""
+        if not self.debug_nans:
+            return out
+        leaves = _float_leaves(out)
+        if not leaves or bool(_all_finite(leaves)):
+            return out
+        first_nonfinite_op(body, lambda: f"--debug_nans: {what}")
+        raise FloatingPointError(f"--debug_nans: {what} returned a "
+                                 f"non-finite value, which its eager "
+                                 f"re-run did not reproduce")
 
     def train_step(self, batch, beta: float):
         """batch = (x (B, T, C), y (B,), padding mask (B, T), weights (B,)),
@@ -405,7 +517,8 @@ class Trainer:
     def eval_step(self, batch, gating_value: Optional[float] = None):
         """(logits, ModelInfo) in eval mode, without gradients."""
         x, _y, mask, _w = self._device_batch(batch)
-        return self._eval_forward(x, mask, gating_value)
+        body = lambda: self._eval_forward(x, mask, gating_value)
+        return self._checked_eval(body(), body, "an eval step")
 
     # ---- device-resident data ---------------------------------------------
     def device_data(self, tag: str, ds) -> Tuple[torch.Tensor, ...]:
@@ -506,8 +619,10 @@ class Trainer:
             x, y, mask = (leaf[idx] for leaf in dev_data)
             return self._device_step((x, y, mask, w), staged.beta, position)
 
-        out = self._run(*self._key("train_step", (*dev_data, *staged,
-                                                  self._k), position), body)
+        out = self._checked_train(
+            lambda: self._run(*self._key("train_step", (*dev_data, *staged,
+                                                        self._k), position),
+                              body), body)
         self._advance()
         return out
 
@@ -530,8 +645,9 @@ class Trainer:
                 losses.append(loss)
             return torch.stack(losses)
 
-        out = self._run(*self._key("train_epoch", (*dev_data, *staged),
-                                   position), body)
+        out = self._checked_train(
+            lambda: self._run(*self._key("train_epoch", (*dev_data, *staged),
+                                         position), body), body)
         self._advance(n)
         return out
 
@@ -558,8 +674,10 @@ class Trainer:
                     torch.stack(ml_l), _stack_infos(infos) if collect
                     else None)
 
-        return self._run(*self._key("eval_epoch", (*dev_data, *staged),
-                                    gating_value, bool(collect)), body)
+        return self._checked_eval(
+            self._run(*self._key("eval_epoch", (*dev_data, *staged),
+                                 gating_value, bool(collect)), body),
+            body, "an eval pass")
 
     def eval_step_staged(self, dev_data, staged: Staged, k: int,
                          gating_value=None):
@@ -572,9 +690,10 @@ class Trainer:
             x, _y, mask = (leaf[idx] for leaf in dev_data)
             return self._eval_forward(x, mask, gating_value)
 
-        return self._run(*self._key("eval_step", (*dev_data, *staged,
-                                                  self._k), gating_value),
-                         body)
+        return self._checked_eval(
+            self._run(*self._key("eval_step", (*dev_data, *staged, self._k),
+                                 gating_value), body),
+            body, f"eval step {k}")
 
     def eval_step_indexed(self, dev_data, idx, gating_value=None):
         """(logits, ModelInfo) of rows `idx` of `device_data`, in eval mode;
@@ -592,8 +711,10 @@ class Trainer:
             x, _y, mask = (leaf[buf] for leaf in dev_data)
             return self._eval_forward(x, mask, gating_value)
 
-        return self._run(*self._key("eval_indexed", (*dev_data, buf),
-                                    gating_value), body)
+        return self._checked_eval(
+            self._run(*self._key("eval_indexed", (*dev_data, buf),
+                                 gating_value), body),
+            body, "an eval step")
 
     # ---- snapshot ---------------------------------------------------------
     def _named(self) -> List[str]:

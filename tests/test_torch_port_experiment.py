@@ -11,8 +11,10 @@ accuracy and early-stopping decisions. Checkpoints cross both ways: each
 package's best checkpoint, loaded by the other, gives the writer's test
 logits within 1e-5 (one f32 forward). `python -m sie_tpu_torch.run
 --device cpu` trains, writes the CSV and the pickle, and a re-run skips
-training with the same accuracy; its parser takes run.py's options plus
-`--device`, and the flags of unported paths raise naming ROADMAP.md
+training with the same accuracy (with TimesNet and PatchTST too, whose
+checkpoints also go out and back in as reference `checkpoint.pth`); its
+parser takes run.py's options plus `--device`, and the flags of unported
+paths raise naming ROADMAP.md
 (`--loso`, `--augment`, regression on Monash and the reference checkpoints
 have tests of their own: test_torch_port_loso.py, _augment.py,
 _regression.py and _torch_ckpt.py)."""
@@ -143,6 +145,39 @@ def test_cli_trains_checkpoints_and_skips_on_a_rerun(tmp_path, capsys):
     assert f"{results[0][2]['accuracy']:.2f}" == _accuracy(first.stdout)
 
 
+@pytest.mark.parametrize("dnn", ["TimesNet", "PatchTST"])
+def test_cli_trains_timesnet_and_patchtst_and_moves_checkpoints(
+        dnn, tmp_path, capsys):
+    """InterpGN with either backbone through `python -m sie_tpu_torch.run
+    --device cpu` (in process): trains, checkpoints, re-runs without
+    training at the same accuracy, and `--export_torch_ckpt` then
+    `--import_torch_ckpt` gives the same accuracy and test loss."""
+    write_synthetic_uea(str(tmp_path), "Toy", n_train=24, n_test=12,
+                        n_dims=3, length=30, n_classes=2, seed=9)
+    argv = ["--device", "cpu", "--data", "UEA", "--data_root", str(tmp_path),
+            "--dataset", "Toy", "--model", "InterpGN", "--dnn_type", dnn,
+            "--num_shapelet", "2", "--d_model", "8", "--d_ff", "16",
+            "--n_heads", "2", "--e_layers", "1", "--top_k", "2",
+            "--num_kernels", "2", "--patch_chunk_rows", "40",
+            "--batch_size", "8", "--train_epochs", "2", "--log_interval",
+            "1", "--seed", "0", "--result_dir", str(tmp_path / "result"),
+            "--cache_dir", str(tmp_path / "cache")]
+    pth = str(tmp_path / "ck.pth")
+    first = port_run.main(argv + ["--checkpoint_dir", str(tmp_path / "a")])
+    out = capsys.readouterr().out
+    assert len(re.findall(r"Epoch \d/2 \| Train Loss", out)) == 2
+    again = port_run.main(argv + ["--checkpoint_dir", str(tmp_path / "a"),
+                                  "--export_torch_ckpt", pth])
+    out = capsys.readouterr().out
+    assert "checkpoint exists — skipping training" in out
+    assert again[0][2]["accuracy"] == first[0][2]["accuracy"]
+    imported = port_run.main(argv + ["--checkpoint_dir", str(tmp_path / "b"),
+                                     "--import_torch_ckpt", pth])
+    assert "Epoch" not in capsys.readouterr().out
+    assert imported[0][2]["accuracy"] == first[0][2]["accuracy"]
+    assert imported[0][1] == pytest.approx(first[0][1], abs=1e-6)
+
+
 def _options(get_args):
     """(option strings, parsed defaults) of a get_args function."""
     seen = {}
@@ -172,9 +207,7 @@ def test_parser_takes_run_py_options_plus_device():
 UNPORTED = [["--mesh", "8"], ["--task_name", "long_term_forecast"],
             ["--stream_from_disk"], ["--task_name", "short_term_forecast"],
             ["--task_name", "imputation"],
-            ["--task_name", "anomaly_detection"],
-            ["--profile_dir", "p"], ["--debug_nans"], ["--data", "ETTh1"],
-            ["--dnn_type", "TimesNet"], ["--dnn_type", "PatchTST"]]
+            ["--task_name", "anomaly_detection"], ["--data", "ETTh1"]]
 
 
 @pytest.mark.parametrize("flags", UNPORTED, ids=lambda f: f[0].strip("-"))

@@ -293,3 +293,27 @@ def test_aot_over_http_refuses_gating(exported, window):
     finally:
         httpd.shutdown()
         httpd.server_close()
+
+
+@pytest.mark.parametrize("dnn", ["TimesNet", "PatchTST"])
+def test_timesnet_and_patchtst_export_as_they_are(dnn, tmp_path):
+    """InterpGN + TimesNet (the period gather and the FFT) and + PatchTST
+    (its chunked encoder) through torch.export: the programs serve the live
+    predictor's logits within 1e-5 (f32 order of the exported graph's
+    decompositions), K1 as its registered op in the graph. Sizes 3 and 8
+    pad to the live predictor's buckets too: TimesNet's periods come from
+    the batch-mean spectrum, so padded rows move them, in both packages."""
+    kw = dict(BASE, dnn_type=dnn, amp=False, top_k=2, num_kernels=2,
+              d_model=8, d_ff=8, patch_chunk_rows=5)
+    from sie_tpu_torch.compat.from_jax import to_jax_variables
+    from sie_tpu_torch.models.registry import build_model
+    cfg = Config(**kw)
+    variables = to_jax_variables(build_model(cfg, "cpu"))
+    tp = Predictor(cfg, variables, device="cpu", max_batch=4)
+    tp.export_stablehlo(str(tmp_path), batch_sizes=(4,))
+    cp = CompiledPredictor(str(tmp_path), device="cpu")
+    for b in (3, 8):
+        x = _x(b, seed=b)
+        np.testing.assert_allclose(cp.predict(x).logits,
+                                   tp.predict(x).logits, atol=1e-5, rtol=0)
+    assert "torch.ops.sie_tpu_torch.l1_fwd" in cp.programs[4].graph_module.code

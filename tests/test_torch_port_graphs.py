@@ -242,3 +242,62 @@ def test_failing_capture_raises(card):
     assert out.stdout.count("raised") == 2, out.stdout + out.stderr
     assert "no error" not in out.stdout and "graphs 0" in out.stdout, \
         out.stdout + out.stderr
+
+
+def _bit_equal_steps(cfg, ds, sched):
+    """Eager train_step_indexed steps, each followed by the same step
+    through train_step_staged (warm-up, capture, replays): losses and
+    parameters bit-equal after every step."""
+    eager, dev_e = _trainer(cfg, ds)
+    graph, dev_g = _trainer(cfg, ds)
+    staged = graph.stage_steps(sched, 1.0)
+    for k, (idx, w) in enumerate(sched):
+        le, _ = eager.train_step_indexed(dev_e, idx, w, 1.0)
+        lg, _ = graph.train_step_staged(dev_g, staged, k)
+        assert torch.equal(le, lg), k
+        for (name, p), q in zip(eager.model.named_parameters(),
+                                graph.model.parameters()):
+            assert torch.equal(p, q), (k, name)
+    assert len(graph.captures) == 1
+
+
+def test_augmented_graph_steps_equal_eager_steps(card):
+    """--augment's draws come from a generator registered with the graph:
+    replays draw what the eager steps draw, bit for bit."""
+    cfg = Config(**dict(KW, dropout=0.1,
+                        augment=("noise", "scale", "chdrop", "tshift")))
+    _bit_equal_steps(cfg, _rows(), _schedule(5))
+
+
+BACKBONES = {"patchtst": dict(dnn_type="PatchTST", patch_chunk_rows=48,
+                              fused_attention_min_len=0),
+             "timesnet": dict(dnn_type="TimesNet", d_model=16, d_ff=16,
+                              top_k=3, num_kernels=3)}
+
+
+@pytest.mark.parametrize("name", sorted(BACKBONES))
+def test_backbone_graph_steps_equal_eager_steps(card, name):
+    """InterpGN + PatchTST (three recomputed chunks through K5/K6, dropout
+    0.1: the recompute under capture replays the masks) and + TimesNet
+    (the period gather built on the card): replays bit-equal to eager."""
+    cfg = Config(**dict(KW, dropout=0.1, **BACKBONES[name]))
+    _bit_equal_steps(cfg, _rows(), _schedule(6))
+
+
+def test_patchtst_remat_gradients_on_the_card(card):
+    """patch_remat true and false: the same gradients, bit for bit, at
+    dropout 0.1 over three chunks."""
+    from sie_tpu_torch.models.registry import build_model
+    cfg = Config(**dict(KW, dropout=0.1, **BACKBONES["patchtst"]))
+    x = torch.from_numpy(_rows().x[:B]).to(card)
+    mask = torch.ones(B, KW["seq_len"], device=card)
+    grads = []
+    for remat in (True, False):
+        m = build_model(cfg.replace(patch_remat=remat), card,
+                        torch.Generator().manual_seed(0)).train()
+        logits, _ = m(x, mask, generator=torch.Generator(
+            device=card).manual_seed(3))
+        logits.float().square().sum().backward()
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    for n in grads[0]:
+        assert torch.equal(grads[0][n], grads[1][n]), n

@@ -306,3 +306,61 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         fused_attention(q, q, q, 1.0)            # dk > 128
     with pytest.raises(ValueError):
         fused_attention(q.cpu(), q, q, 1.0)      # mixed devices
+
+
+# (batch, head) rows past gridDim.y's 65535: PatchTST's channel-independent
+# encoder at B 68, C 122, 8 heads, unchunked, reaches them
+BIG_BH = 65544
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [16, 105])
+def test_k5_and_k6_past_65535_batch_head_rows(card, dtype, t, rate):
+    """K5 and K6 at BH = 65544 against the plain versions, dropout masks
+    included (the hash keys on the global (batch, head) row); the rows
+    either side of row 65535 also against the chunked plain versions run
+    on those rows alone from bh0, so the mask does not depend on how the
+    rows are split."""
+    dk = 64
+    q, k, v, do = (a.to(card, dtype) for a in
+                   _normal(15, *[(BIG_BH, t, dk)] * 4))
+    scale, seed = 1.0 / np.sqrt(dk), 1234
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    qg, kg, vg = (z.clone().requires_grad_() for z in (q, k, v))
+    out = fused_attention(qg, kg, vg, scale, rate, seed)
+    out.backward(do)
+    torch.cuda.synchronize()
+    # the plain versions over 32 query rows at a time: (BH, T, T) int64
+    # hashes of the whole launch would take tens of GB
+    want = attention_plain_chunked(q, k, v, scale, rate, seed, chunk=32)
+    assert float((out.float() - want.float()).abs().max()) <= tol
+    grads = attention_bwd_plain_chunked(q, k, v, do, scale, rate, seed,
+                                        chunk=32)
+    for got, w in zip((qg.grad, kg.grad, vg.grad), grads):
+        lim = tol * max(1.0, float(w.float().abs().max()))
+        assert float((got.float() - w.float()).abs().max()) <= lim
+    lo, hi = 65533, 65539
+    part = lambda z: z[lo:hi].contiguous()
+    want = attention_plain_chunked(part(q), part(k), part(v), scale, rate,
+                                   seed, bh0=lo)
+    assert float((out[lo:hi].float() - want.float()).abs().max()) <= tol
+    got = (qg.grad[lo:hi], kg.grad[lo:hi], vg.grad[lo:hi])
+    for a, w in zip(got, attention_bwd_plain_chunked(
+            part(q), part(k), part(v), part(do), scale, rate, seed, bh0=lo)):
+        lim = tol * max(1.0, float(w.float().abs().max()))
+        assert float((a.float() - w.float()).abs().max()) <= lim
+
+
+@pytest.mark.parametrize("l", [50, 100, 200, 400, 600, 800])
+def test_k1_and_k2_at_the_regression_shape(card, l):
+    """K1 and K2 at C = 2, T = 1000 (Monash regression at BIDMC32HR's
+    shape after x4 subsampling, B 64, n 10) against the plain versions."""
+    x, s, g = (a.to(card) for a in _normal(16, (64, 2, 1000), (10, 2, l),
+                                           (64, 10, 2, 1001 - l)))
+    got = l1_sliding_distance(x, s)
+    want = l1_sliding_distance_plain(x, s)
+    assert float((got - want).abs().max()) <= 1e-4
+    gb = l1_sliding_distance_bwd(x, s, g)
+    wb = l1_sliding_distance_bwd_plain(x, s, g)
+    assert float((gb - wb).abs().max()) <= 1e-4 * float(wb.abs().max())

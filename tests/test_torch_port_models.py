@@ -209,11 +209,8 @@ def test_use_flash_attention_builds_and_matches_jax(use_fused, amp):
 
 def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(Config(**dict(BASE, model="DNN", dnn_type="PatchTST")),
-                    "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(Config(**dict(BASE, model="DNN", dnn_type="TimesNet")),
-                    "cpu")
+        build_model(Config(**dict(BASE, model="DNN",
+                                  dnn_type="Autoformer")), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(Config(**dict(BASE, model="DNN", moe_experts=2)), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -91,6 +91,31 @@ def test_exported_program_runs_the_kernels(card, tmp_path):
     np.testing.assert_array_equal(got.classes, want.classes)
 
 
+@pytest.mark.parametrize("dnn", ["TimesNet", "PatchTST"])
+def test_timesnet_and_patchtst_programs_on_the_card(card, tmp_path, dnn):
+    """InterpGN + TimesNet (the period gather and the FFT on the card) and
+    + PatchTST through torch.export: the program serves the live
+    predictor's logits, K1 launched from the graph."""
+    from sie_tpu_torch.models.registry import build_model
+    from sie_tpu_torch.serve import CompiledPredictor, Predictor
+    cfg = Config(model="InterpGN", dnn_type=dnn, seq_len=300, enc_in=8,
+                 num_class=3, num_shapelet=2, d_model=32, d_ff=32,
+                 n_heads=2, e_layers=1, top_k=3, num_kernels=3,
+                 patch_chunk_rows=16, amp=True, seed=0)
+    live = Predictor.from_module(
+        cfg, build_model(cfg, card, torch.Generator().manual_seed(0)),
+        device=card, max_batch=8)
+    live.export_stablehlo(str(tmp_path), batch_sizes=(8,))
+    cp = CompiledPredictor(str(tmp_path))
+    x = np.random.default_rng(3).normal(size=(8, 300, 8)).astype(np.float32)
+    before = l1_sliding_distance.launches
+    got = cp.predict(x)
+    assert l1_sliding_distance.launches - before == 6
+    want = live.predict(x)
+    np.testing.assert_allclose(got.logits, want.logits, atol=SERVE_TOL)
+    np.testing.assert_array_equal(got.classes, want.classes)
+
+
 def test_graph_capture_through_the_ops(card):
     x, s = _normal(3, (4, 6, 300), (5, 6, 30))
     q, k, v = _normal(4, *[(4, 300, 64)] * 3, dtype=torch.bfloat16)

@@ -2,17 +2,18 @@
 package's, on the CPU.
 
 For each model the port has (SBM with its linear, bilinear and attention
-heads; LTS; InterpGN + FCN and + Transformer; the DNN Transformer and
-ResNet; EEGCNN), seeded flax variables (BatchNorm statistics made
+heads; LTS; InterpGN + FCN, + Transformer, + TimesNet and + PatchTST;
+the DNN Transformer and ResNet; EEGCNN), seeded flax variables (BatchNorm statistics made
 non-trivial) go through `sie_tpu.compat.torch_export.export_state_dict`
 into a reference-layout state_dict, saved as a `checkpoint.pth`. The port
 imports it into a model built from other weights: its eval logits equal
 the JAX model's at those variables within 1e-4 (f32 summation order, the
 limit of tests/test_torch_port_models.py), and its own export is the JAX
 exporter's key for key and bit for bit. A `module.` prefix is stripped,
-missing and mismatched keys raise, TimesNet and PatchTST raise naming
-ROADMAP.md, and `--import_torch_ckpt` reproduces the exporting run's test
-accuracy through `python -m sie_tpu_torch.run --device cpu`."""
+missing and mismatched keys raise, the TimesNet and PatchTST converters
+read back what the port writes as the JAX package's do, the JAX
+package's extra backbones raise naming ROADMAP.md, and
+`--import_torch_ckpt` reproduces the exporting run's test accuracy through `python -m sie_tpu_torch.run --device cpu`."""
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +48,10 @@ CASES = {
     "interpgn_transformer": dict(model="InterpGN", dnn_type="Transformer"),
     "dnn_transformer": dict(model="DNN", dnn_type="Transformer"),
     "dnn_resnet": dict(model="DNN", dnn_type="ResNet"),
+    "interpgn_timesnet": dict(model="InterpGN", dnn_type="TimesNet",
+                              seq_len=24, d_model=8, d_ff=8, top_k=2,
+                              num_kernels=3),
+    "interpgn_patchtst": dict(model="InterpGN", dnn_type="PatchTST"),
     "eegcnn": dict(model="EEGCNN", seq_len=60, enc_in=4, eegcnn_cnn_f1=4,
                    eegcnn_cnn_f2=2, eegcnn_kernel1=8, eegcnn_kernel2=5,
                    eegcnn_pool1=2, eegcnn_pool2=3, eegcnn_n_heads=2,
@@ -135,15 +140,47 @@ def test_module_prefix_is_stripped_and_keys_are_checked():
 
 
 @pytest.mark.parametrize("dnn", ["TimesNet", "PatchTST"])
+def test_timesnet_and_patchtst_converters_round_trip_through_both_packages(
+        dnn):
+    """A port model's export reads back through the port's importer and
+    the JAX package's into the same tree, its own variables."""
+    from sie_tpu.compat.torch_import import convert_state_dict as jax_convert
+    kw = dict(BASE, model="InterpGN", dnn_type=dnn, seq_len=24, top_k=2,
+              num_kernels=3)
+    cfg = Config(**kw)
+    port = build_model(cfg, "cpu", torch.Generator().manual_seed(11))
+    template = to_jax_variables(port)
+    sd = export_state_dict(template, cfg)
+    if dnn == "TimesNet":   # the reference's per-branch Conv2d kernels
+        assert [sd[f"deep_model.model.0.conv.0.kernels.{k}.weight"].shape
+                for k in range(3)] == [(32, 16, 1, 1), (32, 16, 3, 3),
+                                       (32, 16, 5, 5)]
+    mine, unused = convert_state_dict(sd, cfg, template)
+    theirs, _ = jax_convert(sd, JConfig(**kw), template)
+    assert unused == []
+    for (pa, a), (pb, b) in zip(
+            jax.tree_util.tree_leaves_with_path(mine),
+            jax.tree_util.tree_leaves_with_path(theirs)):
+        assert pa == pb
+        np.testing.assert_array_equal(a, b)
+    for (pa, a), (pb, b) in zip(
+            jax.tree_util.tree_leaves_with_path(mine),
+            jax.tree_util.tree_leaves_with_path(template)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dnn", ["Autoformer", "FEDformer", "ETSformer",
+                                 "Pyraformer", "Crossformer"])
 def test_unported_backbones_raise_naming_the_roadmap(dnn):
+    """The JAX package's extra backbones, which the port lacks: building
+    one raises naming ROADMAP.md, and the importer has no converter."""
     cfg = Config(**dict(BASE, model="InterpGN", dnn_type=dnn))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(cfg, "cpu")
     sd = {"sbm.shapelets.0.weights": np.zeros((2, 3, 4), np.float32),
           "sbm.output_layer.weight": np.zeros((3, 2), np.float32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TorchImportError, match="no torch importer"):
         convert_state_dict(sd, cfg, {"params": {}, "batch_stats": {}})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        export_state_dict({"params": {"sbm": {}, "deep_model": {}}},
-                          cfg.replace(model="DNN"))
 
 
 def test_cli_import_reproduces_the_exporting_run(tmp_path, capsys):
