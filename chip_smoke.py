@@ -206,16 +206,45 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      bit for bit, and K1 and K2 in the trace; a NaN inside a train row's
      valid region raising FloatingPointError that names the step and an
      op;
- 30. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
+ 30. streaming: phase 15's command for 1 epoch held on the device and
+     with --stream_from_disk: three stream_EEG3_* memmap caches under
+     --cache_dir, the streamed run's train losses and test accuracy
+     bit-equal to the in-memory run's (anything else fails), a re-run
+     that opens the caches without calling the registry loader (its calls
+     counted), each prefetched batch of an epoch equal to a plain copy of
+     its rows; ms a step
+     and idle share of the host-fed streamed steps (pinned copies on a
+     side stream) against device-resident replays, and the host RSS
+     growth while streaming against the train split's bytes on disk;
+ 31. the task models at run.py's default widths (d_model 512, 8 heads, 2
+     encoder and 1 decoder layers, d_ff 2048, amp; TimesNet at 32/32,
+     top_k 5, 6 kernels), B 32, lr 1e-4, 5 eager steps each from seed-0
+     weights with finite losses, moved weights and the first step's loss
+     within 5e-2 relative of the CPU plain path on the same batch (and
+     keep mask): (a) long-term forecasting on an ETTh1-shaped file
+     (17420 hourly rows, seq_len 96, label_len 48, pred_len 96), all
+     three backbones, no kernel launched; (b) the Transformer at seq_len
+     336: K5 2 and K6 2 a step, nothing else, then K5 and K6 at its
+     encoder's shape (BH 256, T 336, bf16, rates 0 and 0.1) against
+     their plain versions, timed beside them and SDPA; (c) imputation,
+     mask_rate 0.25, all three; (d) anomaly detection on an SMD-shaped set (38
+     channels, 28479 train and test rows, ~4 % labelled), seq_len 100,
+     all three; (e) short-term forecasting on a synthetic M4 Monthly
+     group (2000 series), seq_len 36, Transformer and TimesNet; the
+     median step and idle share of each;
+ 32. the four tasks through the command line, 1 epoch each: the pickle,
+     M4's forecast CSV read back by the port's M4Summary with a Naive2
+     file, the anomaly run's precision, recall and F1;
+ 33. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
      timed training steps of each kernel's path, plus, split in
      `launches_by_path`, phases 16, 17 and 19's UEA run for K1 and K2, the
      serving paths for K1, K3 and K5: phase 5, phase 11's requests, phase
-     20's bundles and phase 22's exported program, phases 23, 24 and 26
-     for K1, K2, K5 and K6, and phases 27-29 for K1 and K2), then the
-     device line.
+     20's bundles and phase 22's exported program, phases 23, 24, 26 and
+     30 for K1, K2, K5 and K6, phases 27-29 for K1 and K2, and phase
+     31 (b) for K5 and K6 as `forecast_long`), then the device line.
 
 The K5 and K6 phases (4, 6, 8, 12), the serving phases (20-22) and
-phases 23-29 run under a time limit that ends the process (and the
+phases 23-32 run under a time limit that ends the process (and the
 servers it started), so that a kernel that hangs fails the run instead of
 holding the card. Times
 are CUDA-event times after warm-up (kernels) or host-clock times of work
@@ -3350,6 +3379,447 @@ def phase_backbone_cli(tmp: str) -> dict:
     return {dnn: backbone_cli(tmp, dnn) for dnn in ("PatchTST", "TimesNet")}
 
 
+# ---- phases 30-32: --stream_from_disk and the tasks ------------------------
+STREAM_STEPS = 6        # timed steps of each feed (after warm-up)
+TASK_STEPS = 5          # eager steps of each task model
+TASK_LOSS_TOL = 5e-2    # first step's loss, card vs CPU plain path, relative
+TASK_BATCH = 32
+
+
+def rss_bytes() -> tuple:
+    """This process's resident bytes and the shared part of them (mapped
+    file pages it has touched), from /proc/self/statm."""
+    with open("/proc/self/statm") as f:
+        _size, resident, shared = (int(v) for v in f.read().split()[:3])
+    page = os.sysconf("SC_PAGE_SIZE")
+    return resident * page, shared * page
+
+
+def idle_share(step, n: int) -> tuple:
+    """(wall ms a call, idle share) of n calls of step() under
+    torch.profiler: 1 - the union of the device's kernel and copy
+    intervals over the wall time (`utils.profiling.idle_share`, which
+    raises if the profiler saw no device time or more than the wall)."""
+    from torch.profiler import ProfilerActivity, profile
+    from sie_tpu_torch.utils import profiling
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    try:
+        return wall / n, profiling.idle_share(prof, wall)
+    except RuntimeError as e:
+        fail(str(e))
+
+
+def timed(step, n: int) -> list:
+    """Host-clock ms of n calls of step(), each ended by a synchronise."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def phase_stream(tmp: str, smi: str) -> dict:
+    """Phase 15's flagship command for 1 epoch, held on the device and
+    with --stream_from_disk: three stream_EEG3_* caches, bit-equal train
+    losses and test accuracy, a re-run that opens the caches without the
+    registry loader, each prefetched batch of an epoch equal to a plain
+    copy of its rows; ms a step and idle share of the host-fed streamed
+    steps against the device-resident replays, and the host RSS growth
+    while streaming. Returns the streamed run's launches."""
+    import itertools
+    from sie_tpu_torch.data import provider
+    from sie_tpu_torch.data.stream import prefetch_to_device
+    from sie_tpu_torch.run import args_to_config, get_args
+    from sie_tpu_torch.train.experiment import Experiment
+    counts = Counts()
+    run = lambda name, *extra: cli_args(tmp) + [
+        "--train_epochs", "1", "--checkpoint_dir", os.path.join(tmp, name),
+        "--metrics_jsonl", os.path.join(tmp, f"{name}.jsonl"), *extra]
+    _, ram = run_cli(run("ck_ram"))
+    streamed = run("ck_stream", "--stream_from_disk")
+    counts.zero()   # the path's main run
+    t0 = time.perf_counter()
+    _, res = run_cli(streamed)
+    secs = time.perf_counter() - t0
+    launches = counts.read()
+    if not all(launches[k] for k in ("K1", "K2", "K5", "K6")):
+        fail(f"the streamed run did not launch every kernel: {launches}")
+    cache = os.path.join(tmp, "cache")
+    dirs = sorted(d for d in os.listdir(cache) if d.startswith("stream_EEG3_"))
+    if sorted(d.split("_")[2] for d in dirs) != ["test", "train", "val"]:
+        fail(f"the stream caches under {cache}: {dirs}")
+    losses = lambda name: [json.loads(l)["train_loss"] for l in
+                           open(os.path.join(tmp, f"{name}.jsonl"))]
+    got, want = losses("ck_stream"), losses("ck_ram")
+    acc, acc_ram = res[0][2]["accuracy"], ram[0][2]["accuracy"]
+    # the same rows in the same order into steps PR 7 showed bit-equal
+    # between eager and replayed: anything but equality is a fault (a feed
+    # that hands the step a batch before its copy lands, or reuses its
+    # memory while the step reads it)
+    if len(got) != 1 or got != want or acc != acc_ram or \
+            res[0][1] != ram[0][1]:
+        fail(f"streamed run not bit-equal to the run held on the device: "
+             f"losses {got} against {want}, accuracy {acc} against "
+             f"{acc_ram}, {res[0][1]} against {ram[0][1]}")
+    calls = []
+    real = provider.DATA_REGISTRY["EEG3"]
+    provider.DATA_REGISTRY["EEG3"] = \
+        lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        text, again = run_cli(streamed)
+    finally:
+        provider.DATA_REGISTRY["EEG3"] = real
+    if calls or "checkpoint exists" not in text or \
+            again[0][2]["accuracy"] != acc:
+        fail(f"the re-run called the registry loader {len(calls)} times or "
+             f"gave accuracy {again[0][2]['accuracy']}, not {acc}")
+
+    cfg = args_to_config(get_args(streamed), 0)
+    rss0 = rss_bytes()
+    exp = Experiment(cfg, verbose=False, device="cuda")
+    if exp.device_resident or not isinstance(exp.train_data.x, np.memmap):
+        fail("--stream_from_disk: the splits are not memmaps fed from the "
+             "host")
+    tr = exp.trainer
+    feed = prefetch_to_device(itertools.chain.from_iterable(
+        exp.train_loader.epoch(e) for e in itertools.count()), device="cuda")
+    step_s = lambda: tr.train_step(next(feed), 1.0)
+    peak = [0, 0]      # resident and shared growth since before it
+    times_s = []
+    for _ in range(STREAM_STEPS + 1):
+        times_s += timed(step_s, 1)
+        peak = [max(p, now - then) for p, now, then in
+                zip(peak, rss_bytes(), rss0)]
+    times_s = times_s[1:]     # the first step is the warm-up
+    _, idle_s = idle_share(step_s, 3)
+    # each prefetched batch of epoch 0, read on the consumer's stream as it
+    # arrives, against the same memmap rows copied plainly
+    n_checked = 0
+    for fed, rows in zip(prefetch_to_device(exp.train_loader.epoch(0),
+                                            device="cuda"),
+                         exp.train_loader.epoch(0)):
+        if not all(torch.equal(f, torch.from_numpy(np.asarray(r)).cuda())
+                   for f, r in zip(fed, rows)):
+            fail(f"prefetched batch {n_checked} differs from a plain copy "
+                 f"of its rows")
+        n_checked += 1
+    del exp, tr, feed
+    res_exp = Experiment(cfg.replace(stream_from_disk=False), verbose=False,
+                         device="cuda")
+    tr = res_exp.trainer
+    dev = tr.device_data("train", res_exp.train_data)
+    steps = list(res_exp.train_loader.epoch_indices(0))
+    staged = tr.stage_steps(steps, 1.0)
+    ks = itertools.count()
+    step_r = lambda: tr.train_step_staged(dev, staged, next(ks) % len(steps))
+    step_r()
+    step_r()          # warm-up, capture
+    times_r = timed(step_r, STREAM_STEPS)
+    _, idle_r = idle_share(step_r, 3)
+    on_disk = os.path.getsize(os.path.join(
+        cache, [d for d in dirs if "_train_" in d][0], "x.npy"))
+    print(f"[stream] {secs:.1f} s for the streamed 1-epoch run; train losses "
+          f"{got} against {want} held on the device (bit-equal), test "
+          f"accuracy {acc:.2f}% against {acc_ram:.2f}%; the re-run opened "
+          f"{len(dirs)} caches without the loader; launches {launches}; "
+          f"{n_checked} prefetched batches equal to plain copies")
+    print(f"[stream] ms a step (B 64): streamed host-fed eager "
+          f"{np.median(times_s):.3f} (idle share {idle_s:.3f}) against "
+          f"device-resident replays {np.median(times_r):.3f} (idle share "
+          f"{idle_r:.3f}); host RSS growth from before the streamed "
+          f"experiment to the peak of its {STREAM_STEPS + 1} steps: "
+          f"resident {peak[0] / 2 ** 20:.1f} MiB, of which shared (mapped "
+          f"file pages) {peak[1] / 2 ** 20:.1f} MiB, against the train split's "
+          f"{on_disk / 2 ** 20:.1f} MiB on disk; {smi}")
+    return launches
+
+
+def write_task_data(tmp: str) -> str:
+    """The task phases' data, written without pandas: an ETTh1-shaped CSV
+    (17420 hourly rows from 2016-07-01, HUFL ... OT), an SMD-shaped set
+    (38 channels, 28479 train and test rows, ~4 % of test rows in
+    labelled spike segments) and a synthetic M4 Monthly group (2000
+    series of 60-300 points, horizon 18) with its Naive2 file."""
+    from sie_tpu_torch.data.synthetic import (write_synthetic_ett,
+                                              write_synthetic_m4,
+                                              write_synthetic_smd)
+    root = os.path.join(tmp, "tasks")
+    write_synthetic_ett(os.path.join(root, "ETTh1.csv"), n_rows=17420)
+    frac = write_synthetic_smd(root, 28479, 28479, 38, 0.04)
+    write_synthetic_m4(os.path.join(root, "m4"), "Monthly", 2000, 60, 300)
+    print(f"[tasks] data under {root}: ETTh1 17420 x 7, SMD 28479 + 28479 "
+          f"x 38 ({100 * frac:.2f} % of test rows labelled), M4 Monthly "
+          f"2000 series")
+    return root
+
+
+def task_config(**kw):
+    """run.py's default widths for the tasks (d_model 512, 8 heads, 2
+    encoder and 1 decoder layers, d_ff 2048, amp, dropout 0), batch 32,
+    lr 1e-4 (TSlib's default for these tasks), weights from seed 0."""
+    from sie_tpu_torch.config import Config
+    base = dict(model="DNN", d_model=512, n_heads=8, e_layers=2, d_layers=1,
+                d_ff=2048, amp=True, dropout=0.0, batch_size=TASK_BATCH,
+                lr=1e-4, seed=0, train_epochs=1, freq="h")
+    base.update(kw)
+    return Config(**base)
+
+
+def cpu_loss(exp, batch, keep=None) -> float:
+    """The experiment's loss on `batch` through the plain CPU path at the
+    seed-0 weights (the card model's before its first step)."""
+    from sie_tpu_torch.train.tasks import build_task_model
+    card = exp.model
+    exp.model = build_task_model(exp.cfg, exp.task, torch.Generator(
+        ).manual_seed(max(exp.cfg.seed, 0)), exp._marks()).train()
+    try:
+        with torch.no_grad():
+            cpu = tuple(a.cpu() for a in batch)
+            loss = (exp._loss(cpu, True) if keep is None else
+                    exp._loss(cpu, True, keep=keep.cpu()))
+        return float(loss)
+    finally:
+        exp.model = card
+
+
+def task_steps(cfg, task: str, want: dict, tag: str, smi: str) -> dict:
+    """TASK_STEPS eager steps of `task`'s experiment on the card from the
+    seed-0 weights: each checked for `want` launches (none of the other
+    kernels), a finite loss and moved weights; the first step's loss
+    against the CPU plain path on the same batch (and keep mask); the
+    median step and the idle share of 3 more. The counts are zeroed just
+    before the steps and read just after. Returns the launches."""
+    from sie_tpu_torch.train.tasks import TASK_EXPERIMENTS
+    counts = Counts()
+    t_start = time.perf_counter()
+    exp = TASK_EXPERIMENTS[task](cfg, device="cuda")
+    t_built = time.perf_counter()
+    n = len(exp.train_data[0])
+    order = torch.from_numpy(np.random.default_rng(0).permutation(n)).cuda()
+    batches = [tuple(a[order[i * TASK_BATCH:(i + 1) * TASK_BATCH]]
+                     for a in exp.train_data) for i in range(TASK_STEPS + 4)]
+    imputing = task == "imputation"
+    first = (exp.mask_generator.get_state() if imputing else None)
+    params = list(exp.model.parameters())
+    expect = Counts.full(want)
+    times, losses = [], []
+    counts.zero()   # the path's main run
+    for i in range(TASK_STEPS):
+        before = [p.detach().clone() for p in (params[0], params[-1])]
+        c0 = counts.read()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = exp._step(batches[i])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        got = counts.since(c0)
+        losses.append(float(loss))
+        if got != expect or not np.isfinite(losses[-1]):
+            fail(f"{tag} step {i}: launches {got}, want {expect}; loss "
+                 f"{losses[-1]}")
+        if any(torch.equal(b, p) for b, p in zip(before,
+                                                  (params[0], params[-1]))):
+            fail(f"{tag} step {i}: the weights did not move")
+    launches = counts.read()
+    t_steps = time.perf_counter()
+    keep = None
+    if imputing:   # the first step's keep mask, drawn again
+        g = torch.Generator(device="cuda")
+        g.set_state(first)
+        keep = exp.draw_keep(batches[0][0].shape, g)
+    ref = cpu_loss(exp, batches[0], keep)
+    if abs(losses[0] - ref) > TASK_LOSS_TOL * abs(ref):
+        fail(f"{tag}: first step's loss {losses[0]} on the card, {ref} "
+             f"on the CPU plain path")
+    t_cpu = time.perf_counter()
+    it = iter(batches[TASK_STEPS:])
+    if np.median(times) < 200:
+        idle = f"{idle_share(lambda: exp._step(next(it)), 3)[1]:.3f}"
+    else:
+        # TimesNet's eager step is ~25k launches: the profiler takes ~45 s
+        # over one (0.909-0.934 over three in an earlier run, PERF.md)
+        idle = "not measured"
+    print(f"[{tag}] {TASK_STEPS} eager steps (B {TASK_BATCH}): median "
+          f"{np.median(times):.3f} ms (idle share {idle}); losses "
+          f"{losses[0]:.4f} .. {losses[-1]:.4f}, first "
+          f"within {abs(losses[0] - ref) / abs(ref):.2e} of the CPU's "
+          f"{ref:.4f}; launches {launches}; s: build {t_built - t_start:.1f}"
+          f", steps {t_steps - t_built:.1f}, CPU {t_cpu - t_steps:.1f}, "
+          f"profile {time.perf_counter() - t_cpu:.1f}; {smi}")
+    del exp
+    return launches
+
+
+FORECAST_BH, FORECAST_T = 256, 336   # (b)'s encoder: 32 rows x 8 heads
+
+
+def forecast_attention(smi: str) -> None:
+    """K5 and K6 at (b)'s encoder shape (BH 256, T 336, dk 64, bf16), at
+    rates 0 and 0.1, against attention_plain and attention_bwd_plain at
+    K5_TOL / K6_TOL; kernel, plain and (rate 0) SDPA times, and bounds."""
+    import torch.nn.functional as F
+    from sie_tpu_torch.ops.attention import (attention_bwd,
+                                             attention_bwd_plain,
+                                             attention_fwd, attention_plain)
+    bh, t, dk, dt = FORECAST_BH, FORECAST_T, 64, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    q, k, v, do = (torch.randn((bh, t, dk), generator=gen, device="cuda")
+                   .to(dt) for _ in range(4))
+    scale, seed = 1.0 / dk ** 0.5, 4321
+    elem = bh * t * dk * 2   # bytes of one (BH, T, dk) bf16 tensor
+    b5 = bound_ms(4 * elem + 4 * bh * t, 4 * bh * t * t * dk, PEAK_BF16)
+    b6 = bound_ms(8 * elem + 4 * bh * t, 10 * bh * t * t * dk, PEAK_BF16)
+    for rate in (0.0, RATE):
+        o, lse = attention_fwd(q, k, v, scale, rate, seed, want_lse=True)
+        e5 = float((o.float() - attention_plain(
+            q, k, v, scale, rate, seed).float()).abs().max())
+        bwd = lambda: attention_bwd(q, k, v, o, do, lse, scale, rate, seed)
+        e6 = []
+        for got, w in zip(bwd(), attention_bwd_plain(q, k, v, do, scale,
+                                                     rate, seed)):
+            scl = float(w.float().abs().max())
+            e6.append(float((got.float() - w.float()).abs().max()) / scl)
+        if not e5 <= K5_TOL[dt] or not max(e6) <= K6_TOL[dt]:
+            fail(f"K5/K6 at BH {bh}, T {t}, rate {rate}: K5 max abs err "
+                 f"{e5} (limit {K5_TOL[dt]}), K6 dq/dk/dv {e6} x max|want| "
+                 f"(limit {K6_TOL[dt]})")
+        ms5 = events_ms(lambda: attention_fwd(q, k, v, scale, rate, seed,
+                                              want_lse=True), reps=20)
+        ms6 = events_ms(bwd, reps=20)
+        plain5 = events_ms(lambda: attention_plain(q, k, v, scale, rate,
+                                                   seed), reps=5)
+        plain6 = events_ms(lambda: attention_bwd_plain(
+            q, k, v, do, scale, rate, seed), reps=5)
+        lib = ""
+        if rate == 0.0:
+            q4, k4, v4 = (z.view(bh // 8, 8, t, dk).detach().requires_grad_()
+                          for z in (q, k, v))
+            out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+            lib5 = events_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, scale=scale), reps=20)
+            lib6 = events_ms(lambda: torch.autograd.grad(
+                out4, (q4, k4, v4), do.view(bh // 8, 8, t, dk),
+                retain_graph=True), reps=20)
+            lib = f"; sdpa {lib5:.4f} / backward {lib6:.4f}"
+            del q4, k4, v4, out4
+        print(f"[tasks/attention] BH {bh}, T {t}, dk {dk}, bf16, rate "
+              f"{rate} ({smi}): K5 {ms5:.4f} ms, K6 {ms6:.4f} ms; plain "
+              f"{plain5:.4f} / {plain6:.4f}{lib}; bound K5 {b5[0]:.4f} "
+              f"({b5[1]}), K6 {b6[0]:.4f} ({b6[1]}); max abs err K5 "
+              f"{e5:.3e} (limit {K5_TOL[dt]}), K6 dq/dk/dv "
+              + "/".join(f"{e:.2e}" for e in e6)
+              + f" x max|want| (limit {K6_TOL[dt]})")
+        del o, lse
+    del q, k, v, do
+
+
+def phase_tasks(tmp: str, smi: str) -> dict:
+    """The task models at run.py's default widths (TimesNet at 32/32, top_k
+    5, 6 kernels): (a) long-term forecasting on ETTh1 at seq_len 96, (b)
+    the Transformer at seq_len 336 (K5 2, K6 2 a step; then K5 and K6 at
+    its encoder's shape against their plain versions), (c) imputation,
+    (d) anomaly detection on SMD, (e) short-term forecasting on M4
+    Monthly. Returns (b)'s launches."""
+    root = write_task_data(tmp)
+    timesnet = dict(d_model=32, d_ff=32, top_k=5, num_kernels=6)
+    width = lambda dnn: timesnet if dnn == "TimesNet" else {}
+    ett = dict(data="ETTh1", dataset="ETTh1", data_root=root, seq_len=96,
+               label_len=48, pred_len=96)
+    for dnn in ("Transformer", "TimesNet", "PatchTST"):
+        task_steps(task_config(dnn_type=dnn, **ett, **width(dnn)),
+                   "long_term_forecast", {}, f"tasks/forecast {dnn}", smi)
+    long = task_steps(task_config(dnn_type="Transformer",
+                                  **dict(ett, seq_len=336)),
+                      "long_term_forecast", {"K5": 2, "K6": 2},
+                      "tasks/forecast Transformer seq_len 336", smi)
+    forecast_attention(smi)
+    for dnn in ("Transformer", "TimesNet", "PatchTST"):
+        task_steps(task_config(dnn_type=dnn, mask_rate=0.25, **ett,
+                               **width(dnn)),
+                   "imputation", {}, f"tasks/imputation {dnn}", smi)
+    smd = dict(data="SMD", data_root=root, seq_len=100, anomaly_ratio=0.5)
+    for dnn in ("Transformer", "TimesNet", "PatchTST"):
+        task_steps(task_config(dnn_type=dnn, **smd, **width(dnn)),
+                   "anomaly_detection", {}, f"tasks/anomaly {dnn}", smi)
+    m4 = dict(data="m4", data_root=os.path.join(root, "m4"),
+              seasonal_patterns="Monthly", seq_len=36)
+    for dnn in ("Transformer", "TimesNet"):
+        task_steps(task_config(dnn_type=dnn, **m4, **width(dnn)),
+                   "short_term_forecast", {}, f"tasks/m4 {dnn}", smi)
+    return long
+
+
+def phase_task_cli(tmp: str) -> None:
+    """The four tasks through `python -m sie_tpu_torch.run`'s main, 1 epoch
+    each at run.py's default widths: the pickle, M4's forecast CSV read
+    back by the port's M4Summary against the Naive2 file, and the
+    anomaly metrics."""
+    from sie_tpu_torch.utils.m4_summary import M4Summary
+    root = os.path.join(tmp, "tasks")
+    result = os.path.join(tmp, "task_result")
+    common = ["--train_epochs", "1", "--batch_size", str(TASK_BATCH),
+              "--lr", "1e-4", "--seed", "0", "--model", "DNN",
+              "--result_dir", result,
+              "--checkpoint_dir", os.path.join(tmp, "task_ck"),
+              "--cache_dir", os.path.join(tmp, "cache")]
+    runs = {
+        "long_term_forecast": ["--data", "ETTh1", "--dataset", "ETTh1",
+                               "--data_root", root],
+        "short_term_forecast": ["--data", "m4", "--data_root",
+                                os.path.join(root, "m4"),
+                                "--seasonal_patterns", "Monthly",
+                                "--seq_len", "36"],
+        "imputation": ["--data", "ETTh1", "--dataset", "ETTh1",
+                       "--data_root", root],
+        "anomaly_detection": ["--data", "SMD", "--data_root", root,
+                              "--seq_len", "100", "--anomaly_ratio", "0.5"]}
+    for task, flags in runs.items():
+        t0 = time.perf_counter()
+        text, res = run_cli(common + ["--task_name", task] + flags)
+        metrics = res[0][2]
+        pkl = os.path.join(result, "DNN", f"{task}_seed0.pkl")
+        if not os.path.exists(pkl) or not all(
+                np.isfinite(v) for v in metrics.values()):
+            fail(f"{task} through the CLI: {metrics}, pickle {pkl}")
+        if task == "anomaly_detection" and not all(
+                k in metrics for k in ("precision", "recall", "f1")):
+            fail(f"the anomaly run printed {metrics}")
+        extra = ""
+        if task == "short_term_forecast":
+            smape, owa, _, _ = M4Summary(os.path.join(result, "DNN"),
+                                         os.path.join(root, "m4")).evaluate()
+            if not np.isfinite(owa["Average"]):
+                fail(f"M4Summary: sMAPE {smape}, OWA {owa}")
+            extra = f"; M4Summary sMAPE {smape}, OWA {owa}"
+        print(f"[task_cli] {task}: {time.perf_counter() - t0:.1f} s, "
+              + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+              + extra)
+
+
+def phase_stream_and_tasks(tmp: str, smi: str) -> tuple:
+    """Phases 30-32 under one time limit -> (the streamed run's launches,
+    the seq_len 336 forecaster's)."""
+    t0 = time.perf_counter()
+    streamed = phase_stream(tmp, smi)
+    t1 = time.perf_counter()
+    long = phase_tasks(tmp, smi)
+    t2 = time.perf_counter()
+    phase_task_cli(tmp)
+    print(f"[tasks] phases 30-32: {t1 - t0:.1f} + {t2 - t1:.1f} + "
+          f"{time.perf_counter() - t2:.1f} s")
+    return streamed, long
+
+
 def main() -> None:
     import tempfile
     smi = phase_device()
@@ -3396,6 +3866,8 @@ def main() -> None:
             by_cli = phase_backbone_cli(work)
             print(f"[backbones] phases 27-29: {t1 - t0:.1f} + "
                   f"{t2 - t1:.1f} + {time.perf_counter() - t2:.1f} s")
+        with time_limit(600, "the streaming and task phases"):
+            streamed, forecast_long = phase_stream_and_tasks(work, smi)
     finally:
         for proc in list(CHILDREN):
             stop_server(proc)
@@ -3403,7 +3875,7 @@ def main() -> None:
     # each row's launches: the timed training steps of its own path, and
     # the runs of the other paths that launch it (launches_by_path)
     options = {"augment": augmented, "regression": regression,
-               "loso": loso}
+               "loso": loso, "stream": streamed}
     sbm_paths = {**backbones, "cli_patchtst": by_cli["PatchTST"],
                  "cli_timesnet": by_cli["TimesNet"]}
     others = {"K1": {"uea_fcn": uea_fcn, "uea_resnet": uea_resnet,
@@ -3414,8 +3886,9 @@ def main() -> None:
                      "cli_uea_fcn": cli_uea, **options, **sbm_paths},
               "K3": {"serve_fused": fused_serve},
               "K5": {"serve": serve_launches, "serve_bundle": bundle,
-                     "serve_export": exported, **options},
-              "K6": options}
+                     "serve_export": exported, **options,
+                     "forecast_long": forecast_long},
+              "K6": {**options, "forecast_long": forecast_long}}
     paths = ((k1, launches, "K1"), (k2, launches, "K2"),
              (k3, fused, "K3"), (k4, fused, "K4"), (k5, launches, "K5"),
              (k6, launches, "K6"), (k7, long_launches, "K5"),

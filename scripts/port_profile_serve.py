@@ -277,8 +277,8 @@ def main(argv=None) -> None:
     if args.no_profile:
         return
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from sie_tpu_torch.utils.profiling import device_busy_ms, idle_share
     x = xs[max(sizes)]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -286,13 +286,9 @@ def main(argv=None) -> None:
         pred.predict(x)
         wall = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
-    # kernel and copy rows only: operator rows repeat their kernels' time;
-    # "Activity Buffer Request" is the profiler's own buffer, not the model's
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type == DeviceType.CUDA
-               and "Activity Buffer" not in e.key) / 1e3
     print(f"profiled request of {len(x)} rows: wall {wall:.3f} ms, device "
-          f"busy {busy:.3f} ms (idle share {max(0.0, 1 - busy / wall):.3f})")
+          f"busy {device_busy_ms(prof):.3f} ms (idle share "
+          f"{idle_share(prof, wall):.3f})")
     print(events.table(sort_by="self_device_time_total", row_limit=30))
     if args.out:
         os.makedirs(args.out, exist_ok=True)

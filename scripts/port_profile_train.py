@@ -125,6 +125,7 @@ def main(argv=None) -> None:
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from sie_tpu_torch.utils.profiling import device_busy_ms, idle_share
     steps = 2
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -134,16 +135,9 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
-    # kernel and copy rows only: operator rows repeat their kernels' time;
-    # "Activity Buffer Request" is the profiler's own buffer, not the model's
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type == DeviceType.CUDA
-               and "Activity Buffer" not in e.key) / 1e3
-    if busy == 0.0:
-        raise SystemExit(f"the profiler saw no device time over {steps} "
-                         f"{args.path} steps: no idle share")
     print(f"profiled {steps} {args.path} steps: wall {wall:.3f} ms, device "
-          f"busy {busy:.3f} ms (idle share {max(0.0, 1 - busy / wall):.3f})")
+          f"busy {device_busy_ms(prof):.3f} ms (idle share "
+          f"{idle_share(prof, wall):.3f})")
     print(events.table(sort_by="self_device_time_total", row_limit=30,
                        max_name_column_width=60))
     kinds: dict = {}

@@ -15,6 +15,12 @@ to a PyTorch parameter or buffer name by three renames (`TokenEmbedding_0`
   `threshold_<i>`, `bilinear_w`, `pos_embed` -> as they are;
 - `batch_stats` `mean` and `var`      -> the BatchNorm's buffers.
 
+The task heads' scopes need no rename: `dec_embedding`, each embedding's
+`temporal_embedding` (a bias-free Dense), `decoder/layer_<i>/
+{self_attention, cross_attention, norm1, norm2, norm3, conv1, conv2}`,
+`decoder/{norm, projection}`, TimesNet's `predict_linear` and PatchTST's
+`head` are the port's attribute names too.
+
 `load_jax_variables` fills a module from {"params", "batch_stats"};
 `load_jax_params` is its params-only case. Every flax leaf is consumed
 exactly once and every PyTorch parameter (and every BatchNorm buffer) is

@@ -1,5 +1,6 @@
 """Dense-array dataset and fixed-shape batcher: a copy of
-sie_tpu/data/loader.py (numpy only).
+sie_tpu/data/loader.py (numpy only), with the `IndexedBatcher` of the
+window datasets (forecast, anomaly, M4).
 
 All samples live in dense numpy arrays (x, padding_mask, y), and the
 batcher yields fixed-shape batches, so every epoch of a split has the same
@@ -48,6 +49,18 @@ class ArrayDataset:
     @property
     def seq_len(self) -> int:
         return self.x.shape[1]
+
+    def select(self, idx: np.ndarray) -> "ArrayDataset":
+        """The rows `idx`. A disk-backed dataset (np.memmap, or a lazy view
+        of one) keeps a lazy view that composes the index map
+        (stream.lazy_select) instead of reading the rows."""
+        if type(self.x) is not np.ndarray:  # memmap subclasses ndarray
+            from sie_tpu_torch.data.stream import lazy_select
+            return lazy_select(self, idx)
+        return dataclasses.replace(
+            self, x=self.x[idx], y=self.y[idx],
+            padding_mask=self.padding_mask[idx],
+            subject_ids=None if self.subject_ids is None else self.subject_ids[idx])
 
 
 class Batcher:
@@ -114,6 +127,41 @@ class Batcher:
                 idx = np.concatenate([idx, np.zeros((b - len(idx),), np.int32)])
                 w = np.concatenate([w, np.zeros((b - len(w),), np.float32)])
             yield idx, w
+
+    def __iter__(self):
+        return self.epoch()
+
+
+class IndexedBatcher:
+    """Fixed-shape batch iterator over any indexable dataset whose
+    __getitem__ returns a tuple of arrays (forecast windows, anomaly
+    segments, M4 series), each field stacked. The final partial batch is
+    dropped (the reference's forecast DataLoader drops it too). The order
+    of an epoch is that of `Batcher`."""
+
+    def __init__(self, ds, batch_size: int, shuffle: bool, seed: int = 0):
+        self.ds = ds
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        return len(self.ds) // self.batch_size
+
+    def epoch(self, epoch: Optional[int] = None) -> Iterator[Tuple[np.ndarray, ...]]:
+        if epoch is None:
+            epoch = self._epoch
+            self._epoch += 1
+        n = len(self.ds)
+        if self.shuffle:
+            order = np.random.default_rng((self.seed, epoch)).permutation(n)
+        else:
+            order = np.arange(n)
+        b = self.batch_size
+        for i in range(len(self)):
+            items = [self.ds[int(j)] for j in order[i * b:(i + 1) * b]]
+            yield tuple(np.stack(parts) for parts in zip(*items))
 
     def __iter__(self):
         return self.epoch()

@@ -1,5 +1,6 @@
-"""Embeddings, attention, the encoder stacks and batch norm (counterpart
-of sie_tpu/models/layers.py), as the classification Transformer, the FCN,
+"""Embeddings, attention, the encoder and decoder stacks and batch norm
+(counterpart of sie_tpu/models/layers.py), as the Transformer (its
+classifier and its forecast, imputation and anomaly heads), the FCN,
 ResNet, EEGCNN, TimesNet and PatchTST backbones use them.
 
 Numerics follow flax's dtype rules, so that the port and the JAX package
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sie_tpu_torch.ops.attention import fused_attention
+from sie_tpu_torch.utils.masking import triangular_causal_mask
 
 _LN_EPS = 1e-6   # flax LayerNorm default
 _SKINNY = 16     # `dense` computes products with fewer outputs in f32
@@ -255,16 +257,34 @@ class TokenEmbedding(nn.Module):
         return F.conv1d(xp.transpose(1, 2), w).transpose(1, 2)  # (B, T, d)
 
 
+# time-feature columns the temporal embedding reads, by `freq`
+FREQ_MAP = {"h": 4, "t": 5, "s": 6, "m": 1, "a": 1, "w": 2, "d": 3, "b": 3}
+
+
+def mark_width(freq: str, marks_width: int) -> int:
+    """Input width of the temporal embedding over marks of `marks_width`
+    columns: the first FREQ_MAP[freq] of them (flax infers it from the
+    marks at init; torch needs it at construction)."""
+    return min(FREQ_MAP[freq], marks_width)
+
+
 class DataEmbedding(nn.Module):
-    """Token + sinusoidal position embedding (the classification path:
-    no time marks), then dropout."""
+    """Token + sinusoidal position embedding, + with `mark_width` > 0 the
+    temporal embedding (`temporal_embedding`, a bias-free dense layer on
+    the marks' first `mark_width` columns), then dropout. The
+    classification models and the anomaly heads pass no marks and have no
+    temporal embedding, as their flax trees have none."""
 
     def __init__(self, c_in: int, d_model: int, dtype: torch.dtype,
-                 g: torch.Generator, dropout: float = 0.0):
+                 g: torch.Generator, dropout: float = 0.0,
+                 mark_width: int = 0):
         super().__init__()
         self.d_model = d_model
         self.dropout = dropout
+        self.dtype = dtype
         self.token_embedding = TokenEmbedding(c_in, d_model, dtype, g)
+        self.temporal_embedding = (linear(mark_width, d_model, g, bias=False)
+                                   if mark_width > 0 else None)
         self._pe: Dict[Tuple, torch.Tensor] = {}
 
     def _position(self, length: int, like: torch.Tensor) -> torch.Tensor:
@@ -276,10 +296,17 @@ class DataEmbedding(nn.Module):
         return self._pe[key]
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                x_mark: Optional[torch.Tensor] = None) -> torch.Tensor:
         v = self.token_embedding(x)
-        return dropout(v + self._position(x.shape[1], v)[None], self.dropout,
-                       generator, self.training)
+        out = v + self._position(x.shape[1], v)[None]
+        if x_mark is not None:
+            if self.temporal_embedding is None:
+                raise ValueError("time marks passed to a DataEmbedding built "
+                                 "without a temporal embedding (mark_width 0)")
+            lin = self.temporal_embedding
+            out = out + dense(x_mark[..., :lin.in_features], lin, self.dtype)
+        return dropout(out, self.dropout, generator, self.training)
 
 
 # ------------------------------------------------------------ attention
@@ -292,16 +319,21 @@ class FullAttentionLayer(nn.Module):
     the fused branch too, where the JAX package runs its kv-blocked kernels
     (K7, K8a, K8b) and this port the same K5 and K6. `use_flash` is taken
     and ignored: the JAX package runs its stock flash kernel only on a TPU
-    and everywhere else takes these two branches, as this layer does."""
+    and everywhere else takes these two branches, as this layer does.
+    `causal` (the decoder's self-attention) scores -inf where the key
+    comes after the query and always takes the plain branch, as a
+    cross-attention (query and key lengths differ) does."""
 
     def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype,
                  g: torch.Generator, use_fused: bool = False,
                  fused_max_len: int = 4096, fused_min_len: int = 256,
-                 use_flash: bool = False, attention_dropout: float = 0.0):
+                 use_flash: bool = False, attention_dropout: float = 0.0,
+                 causal: bool = False):
         super().__init__()
         self.n_heads = n_heads
         self.attention_dropout = attention_dropout
         self.dtype = dtype
+        self.causal = causal
         self.use_fused = use_fused
         self.fused_max_len = fused_max_len
         self.fused_min_len = fused_min_len
@@ -312,7 +344,7 @@ class FullAttentionLayer(nn.Module):
         self.out = linear(dk * n_heads, d_model, g)
 
     def uses_kernel(self, q_len: int, k_len: int, dk: int) -> bool:
-        return (self.use_fused and q_len == k_len
+        return (self.use_fused and not self.causal and q_len == k_len
                 and (self.fused_max_len == 0 or q_len <= self.fused_max_len)
                 and q_len >= self.fused_min_len
                 and dk <= 128)
@@ -341,6 +373,9 @@ class FullAttentionLayer(nn.Module):
                 scores = torch.matmul(qh, kh.transpose(-1, -2)).float()
             else:
                 scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+            if self.causal:
+                later = triangular_causal_mask(1, l, scores.device)[0, 0]
+                scores = scores.masked_fill(later, float("-inf"))
             a = torch.softmax(scores / math.sqrt(dk), dim=-1)
             a = dropout(a, self.attention_dropout, generator, self.training)
             out = torch.matmul(a.to(vh.dtype), vh).transpose(1, 2)
@@ -397,6 +432,63 @@ class Encoder(nn.Module):
         for layer in self.layers:
             x = layer(x, generator)
         return layer_norm(self.norm, x)
+
+
+class DecoderLayer(nn.Module):
+    """Post-norm causal self-attention, cross-attention over the encoder's
+    output, and the pointwise FFN (`conv1`, `conv2`; relu or tanh-gelu by
+    `activation`), each followed by dropout and a LayerNorm (`norm1`,
+    `norm2`, `norm3`). Both attentions take the plain branch."""
+
+    def __init__(self, d_model: int, d_ff: int, n_heads: int,
+                 dtype: torch.dtype, g: torch.Generator,
+                 activation: str = "relu", dropout: float = 0.0):
+        super().__init__()
+        self.dtype = dtype
+        self.activation = activation
+        self.dropout = dropout
+        self.self_attention = FullAttentionLayer(
+            d_model, n_heads, dtype, g, attention_dropout=dropout,
+            causal=True)
+        self.cross_attention = FullAttentionLayer(
+            d_model, n_heads, dtype, g, attention_dropout=dropout)
+        self.conv1 = linear(d_model, d_ff, g)
+        self.conv2 = linear(d_ff, d_model, g)
+        self.norm1 = layer_norm_module(d_model)
+        self.norm2 = layer_norm_module(d_model)
+        self.norm3 = layer_norm_module(d_model)
+
+    def forward(self, x, cross,
+                generator: Optional[torch.Generator] = None):
+        drop = lambda z: dropout(z, self.dropout, generator, self.training)
+        x = layer_norm(self.norm1, x + drop(
+            self.self_attention(x, x, x, generator)))
+        x = y = layer_norm(self.norm2, x + drop(
+            self.cross_attention(x, cross, cross, generator)))
+        act = F.relu if self.activation == "relu" else gelu
+        y = drop(act(dense(y, self.conv1, self.dtype)))
+        y = drop(dense(y, self.conv2, self.dtype))
+        return layer_norm(self.norm3, x + y)
+
+
+class Decoder(nn.Module):
+    """Stack of DecoderLayers, a final LayerNorm (`norm`) and the
+    `projection` to c_out."""
+
+    def __init__(self, d_layers: int, d_model: int, c_out: int,
+                 dtype: torch.dtype, g: torch.Generator, **kw):
+        super().__init__()
+        self.dtype = dtype
+        self.layers = nn.ModuleList(
+            DecoderLayer(d_model, dtype=dtype, g=g, **kw)
+            for _ in range(d_layers))
+        self.norm = layer_norm_module(d_model)
+        self.projection = linear(d_model, c_out, g)
+
+    def forward(self, x, cross, generator: Optional[torch.Generator] = None):
+        for layer in self.layers:
+            x = layer(x, cross, generator)
+        return dense(layer_norm(self.norm, x), self.projection, self.dtype)
 
 
 class TorchTransformerEncoderLayer(nn.Module):

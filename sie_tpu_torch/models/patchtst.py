@@ -20,8 +20,12 @@ Attention goes through `FullAttentionLayer` with the config's gates; at
 the default `fused_attention_min_len` (256) the 105 patches of a CHISCO
 series take the plain branch, as the JAX package takes XLA's.
 
-Only the classification head is ported; the forecast, imputation and
-anomaly branches wait for those tasks (ROADMAP.md).
+The task branches (`PatchTSTForecaster`, `PatchTSTImputer`,
+`PatchTSTAnomalyDetector`) normalise with `timesnet.ns_norm` (or
+`masked_ns_norm` for imputation), run the same encoder and map each
+channel's (d_model, patch_num) features to the target window through one
+dense layer, `head` (reference FlattenHead, PatchTST.py:13-26, in its
+(C, D, P) order), then de-normalise.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from sie_tpu_torch.config import Config
 from sie_tpu_torch.models.layers import (Encoder, ReplayDropout, dense,
                                          dropout, linear,
                                          sinusoidal_embedding)
+from sie_tpu_torch.models.timesnet import masked_ns_norm, ns_norm
 
 PATCH_LEN, STRIDE = 16, 8
 _CHUNK_ROWS = 2048   # series per encoder chunk by default
@@ -82,15 +87,19 @@ class _EncoderChunk(nn.Module):
         return self.encoder(h, stream)
 
 
-class PatchTST(nn.Module):
+def patch_num(seq_len: int) -> int:
+    return (seq_len + STRIDE - PATCH_LEN) // STRIDE + 1
+
+
+class _PatchBase(nn.Module):
+    """The patch embedding `value_embedding` and the shared encoder
+    `enc_scan`, with `_encode`."""
+
     def __init__(self, cfg: Config, g: torch.Generator):
         super().__init__()
         self.cfg = cfg
         self.value_embedding = linear(PATCH_LEN, cfg.d_model, g, bias=False)
         self.enc_scan = _EncoderChunk(cfg, g)
-        patch_num = (cfg.seq_len + STRIDE - PATCH_LEN) // STRIDE + 1
-        self.projection = linear(cfg.enc_in * cfg.d_model * patch_num,
-                                 cfg.num_class, g)
         self._pe: Dict[Tuple, torch.Tensor] = {}
 
     def _position(self, n: int, like: torch.Tensor) -> torch.Tensor:
@@ -132,6 +141,13 @@ class PatchTST(nn.Module):
             out = torch.cat(outs)[:rows]
         return out.reshape(b, c, p, d)
 
+
+class PatchTST(_PatchBase):
+    def __init__(self, cfg: Config, g: torch.Generator):
+        super().__init__(cfg, g)
+        self.projection = linear(cfg.enc_in * cfg.d_model
+                                 * patch_num(cfg.seq_len), cfg.num_class, g)
+
     def forward(self, x: torch.Tensor,
                 padding_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -147,3 +163,67 @@ class PatchTST(nn.Module):
         h = h.transpose(2, 3).reshape(b, -1)
         h = dropout(h, cfg.dropout, generator, self.training)
         return dense(h, self.projection, cfg.compute_dtype).float()
+
+
+class _PatchHead(_PatchBase):
+    """A task branch: the encoder, then `head` (d_model * patch_num ->
+    `target_window`) per channel, dropout, de-normalisation."""
+
+    def __init__(self, cfg: Config, g: torch.Generator, target_window: int):
+        super().__init__(cfg, g)
+        self.head = linear(cfg.d_model * patch_num(cfg.seq_len),
+                           target_window, g)
+
+    def _flatten_head(self, h: torch.Tensor,
+                      generator: Optional[torch.Generator]) -> torch.Tensor:
+        """(B, C, P, D) -> (B, target_window, C) f32, the features flattened
+        in the reference's (D, P) order."""
+        b, c, p, d = h.shape
+        out = dense(h.transpose(2, 3).reshape(b, c, d * p), self.head,
+                    self.cfg.compute_dtype)
+        out = dropout(out, self.cfg.dropout, generator, self.training)
+        return out.transpose(1, 2).float()
+
+
+class PatchTSTForecaster(_PatchHead):
+    """forward(x_enc (B, seq_len, C), x_mark_enc) -> (B, pred_len, C) f32
+    (reference PatchTST.py:79-110); the marks are not read."""
+
+    def __init__(self, cfg: Config, g: torch.Generator, mark_width: int = 0):
+        super().__init__(cfg, g, cfg.pred_len)
+
+    def forward(self, x_enc, x_mark_enc=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        xz, mean, std = ns_norm(x_enc)
+        out = self._flatten_head(self._encode(xz, generator), generator)
+        return out * std + mean
+
+
+class PatchTSTImputer(_PatchHead):
+    """forward(x_enc (B, T, C), x_mark_enc, mask (1 = observed)) -> (B, T,
+    C) f32 (reference PatchTST.py:112-147); the marks are not read."""
+
+    def __init__(self, cfg: Config, g: torch.Generator, mark_width: int = 0):
+        super().__init__(cfg, g, cfg.seq_len)
+
+    def forward(self, x_enc, x_mark_enc=None, mask=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if mask is None:
+            mask = torch.ones_like(x_enc)
+        xz, mean, std = masked_ns_norm(x_enc, mask)
+        out = self._flatten_head(self._encode(xz, generator), generator)
+        return out * std + mean
+
+
+class PatchTSTAnomalyDetector(_PatchHead):
+    """forward(x_enc (B, T, C)) -> (B, T, C) f32: the imputer's network
+    with `ns_norm` (reference PatchTST.py:149-179)."""
+
+    def __init__(self, cfg: Config, g: torch.Generator, mark_width: int = 0):
+        super().__init__(cfg, g, cfg.seq_len)
+
+    def forward(self, x_enc,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        xz, mean, std = ns_norm(x_enc)
+        out = self._flatten_head(self._encode(xz, generator), generator)
+        return out * std + mean

@@ -17,9 +17,12 @@ so no value crosses to the host and the train step can be captured as a
 CUDA graph. There is no Pallas kernel here in the JAX package (XLA runs the
 gathers and products), and none here: the products are `torch.matmul`.
 
-Only the classification head is ported; the forecast, imputation and
-anomaly branches (`TimesNetForecaster`, `TimesNetImputer`,
-`TimesNetAnomalyDetector`) wait for those tasks (ROADMAP.md).
+The task branches (`TimesNetForecaster`, `TimesNetImputer`,
+`TimesNetAnomalyDetector`) normalise each series with statistics that
+carry no gradient (`ns_norm`; `masked_ns_norm` over the observed points
+of an imputation mask), run the same blocks and de-normalise a
+per-step projection; the forecaster first maps the embedded sequence to
+seq_len + pred_len steps (`predict_linear`).
 """
 
 from __future__ import annotations
@@ -189,32 +192,139 @@ class TimesBlock(nn.Module):
         return agg + x
 
 
-class TimesNet(nn.Module):
-    """DataEmbedding, e_layers TimesBlocks with ONE LayerNorm shared by all
-    of them (reference model/TimesNet.py:83-88,118-122), tanh-gelu,
-    dropout, the padding mask, flatten, `projection`."""
+class _TimesBase(nn.Module):
+    """The embedding `enc_embedding` and e_layers TimesBlocks (`block_<i>`)
+    with ONE LayerNorm (`layer_norm`) applied after every block
+    (reference model/TimesNet.py:83-88,118-122); `_blocks` builds the
+    blocks and the norm in the JAX module's order of scopes."""
 
-    def __init__(self, cfg: Config, g: torch.Generator):
-        super().__init__()
+    def _embed(self, cfg: Config, g: torch.Generator, mark_width: int = 0):
         self.cfg = cfg
-        dt = cfg.compute_dtype
-        self.enc_embedding = DataEmbedding(cfg.enc_in, cfg.d_model, dt, g,
-                                           dropout=cfg.dropout)
+        self.enc_embedding = DataEmbedding(cfg.enc_in, cfg.d_model,
+                                           cfg.compute_dtype, g,
+                                           dropout=cfg.dropout,
+                                           mark_width=mark_width)
+
+    def _blocks(self, cfg: Config, g: torch.Generator):
         self.n_blocks = cfg.e_layers
         for i in range(cfg.e_layers):
             setattr(self, f"block_{i}", TimesBlock(cfg, g))
         self.layer_norm = layer_norm_module(cfg.d_model)
+
+    def _times_blocks(self, h: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_blocks):
+            h = layer_norm(self.layer_norm, getattr(self, f"block_{i}")(h))
+        return h
+
+
+class TimesNet(_TimesBase):
+    """DataEmbedding, the blocks, tanh-gelu, dropout, the padding mask,
+    flatten, `projection`."""
+
+    def __init__(self, cfg: Config, g: torch.Generator):
+        super().__init__()
+        self._embed(cfg, g)
+        self._blocks(cfg, g)
         self.projection = linear(cfg.seq_len * cfg.d_model, cfg.num_class, g)
 
     def forward(self, x: torch.Tensor,
                 padding_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.cfg.compute_dtype
-        h = self.enc_embedding(x.to(dt), generator)
-        for i in range(self.n_blocks):
-            h = layer_norm(self.layer_norm, getattr(self, f"block_{i}")(h))
+        h = self._times_blocks(self.enc_embedding(x.to(dt), generator))
         h = dropout(gelu(h), self.cfg.dropout, generator, self.training)
         if padding_mask is not None:
             h = h * padding_mask.to(h.dtype)[..., None]
         h = h.reshape(h.shape[0], -1)
         return dense(h, self.projection, dt).float()
+
+
+def ns_norm(x: torch.Tensor):
+    """Non-stationary normalisation with statistics that carry no gradient
+    (reference model/TimesNet.py:109-115): (normalised, mean, std), the
+    statistics (B, 1, C), std from the biased variance + 1e-5."""
+    mean = x.mean(dim=1, keepdim=True).detach()
+    xc = x - mean
+    std = torch.sqrt(xc.var(dim=1, keepdim=True, unbiased=False)
+                     + 1e-5).detach()
+    return xc / std, mean, std
+
+
+def masked_ns_norm(x: torch.Tensor, mask: torch.Tensor):
+    """The imputation branch's normalisation over the observed points only
+    (reference model/TimesNet.py:137-146): masked points count in neither
+    the mean's nor the variance's denominator and are zero after
+    centring; statistics without gradient, as in `ns_norm`."""
+    denom = (mask == 1).sum(dim=1)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    mean = (torch.where(mask == 0, zero, x).sum(dim=1) / denom
+            ).detach()[:, None, :]
+    xc = torch.where(mask == 0, zero, x - mean)
+    std = torch.sqrt((xc * xc).sum(dim=1) / denom + 1e-5
+                     ).detach()[:, None, :]
+    return xc / std, mean, std
+
+
+class TimesNetForecaster(_TimesBase):
+    """forward(x_enc (B, seq_len, C), x_mark_enc) -> (B, pred_len, c_out)
+    f32: ns_norm, embed, `predict_linear` over time to seq_len +
+    pred_len, the blocks, `projection`, de-normalise, the last pred_len
+    steps (reference model/TimesNet.py:107-133)."""
+
+    def __init__(self, cfg: Config, g: torch.Generator, mark_width: int = 0):
+        super().__init__()
+        self._embed(cfg, g, mark_width)
+        self.predict_linear = linear(cfg.seq_len, cfg.seq_len + cfg.pred_len,
+                                     g)
+        self._blocks(cfg, g)
+        self.projection = linear(cfg.d_model, cfg.c_out, g)
+
+    def forward(self, x_enc, x_mark_enc=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dt = self.cfg.compute_dtype
+        xz, mean, std = ns_norm(x_enc)
+        h = self.enc_embedding(xz.to(dt), generator, x_mark_enc)
+        h = dense(h.transpose(1, 2), self.predict_linear, dt).transpose(1, 2)
+        h = self._times_blocks(h)
+        out = dense(h, self.projection, dt).float() * std + mean
+        return out[:, -self.cfg.pred_len:, :]
+
+
+class TimesNetImputer(_TimesBase):
+    """forward(x_enc (B, T, C), x_mark_enc, mask (1 = observed)) -> (B, T,
+    c_out) f32: masked_ns_norm, embed, the blocks, `projection`,
+    de-normalise (reference model/TimesNet.py:135-160)."""
+
+    def __init__(self, cfg: Config, g: torch.Generator, mark_width: int = 0):
+        super().__init__()
+        self._embed(cfg, g, mark_width)
+        self._blocks(cfg, g)
+        self.projection = linear(cfg.d_model, cfg.c_out, g)
+
+    def forward(self, x_enc, x_mark_enc=None, mask=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dt = self.cfg.compute_dtype
+        if mask is None:
+            mask = torch.ones_like(x_enc)
+        xz, mean, std = masked_ns_norm(x_enc, mask)
+        h = self._times_blocks(self.enc_embedding(xz.to(dt), generator,
+                                                  x_mark_enc))
+        return dense(h, self.projection, dt).float() * std + mean
+
+
+class TimesNetAnomalyDetector(_TimesBase):
+    """forward(x_enc (B, T, C)) -> (B, T, c_out) f32: the imputer's network
+    with `ns_norm` and no time marks (reference model/TimesNet.py:162-183)."""
+
+    def __init__(self, cfg: Config, g: torch.Generator, mark_width: int = 0):
+        super().__init__()
+        self._embed(cfg, g)
+        self._blocks(cfg, g)
+        self.projection = linear(cfg.d_model, cfg.c_out, g)
+
+    def forward(self, x_enc,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dt = self.cfg.compute_dtype
+        xz, mean, std = ns_norm(x_enc)
+        h = self._times_blocks(self.enc_embedding(xz.to(dt), generator))
+        return dense(h, self.projection, dt).float() * std + mean

@@ -4,8 +4,14 @@
 
 It takes run.py's flags, plus `--device` (default `cuda`; `--device cpu`
 runs the plain PyTorch versions of the kernels). Per seed of {0, 42, 1234,
-8237, 2023} (or `--seed`): build the experiment (classification, or
-`--task_name regression` on `--data Monash` with the CRPS head) -> with
+8237, 2023} (or `--seed`): the forecast, imputation and anomaly tasks
+(`--task_name long_term_forecast | short_term_forecast | imputation |
+anomaly_detection`, train/tasks.py, `--dnn_type Transformer | TimesNet |
+PatchTST`) train, test, print their metrics and pickle them as
+`{result_dir}/{model}/{task_name}_seed{seed}.pkl` (M4: also
+`{seasonal_patterns}_forecast.csv`); otherwise build the experiment
+(classification, or `--task_name regression` on `--data Monash` with the
+CRPS head) -> with
 `--import_torch_ckpt PATH` load a reference `checkpoint.pth` and skip
 training, else skip training when its checkpoint exists, else train ->
 reload the best -> test (CSV summary and `test_results.pkl`) ->
@@ -18,14 +24,15 @@ accuracy against the random baseline (classification). `--augment
 noise,scale,chdrop,tshift` augments the train batches on the device.
 `--loso` with EEG or EEG3 runs one fold per held-out subject on one device
 and prints the folds' mean accuracy. Serve a bundle with `python -m
-sie_tpu_torch.serve_http --bundle DIR`.
+sie_tpu_torch.serve_http --bundle DIR`. `--stream_from_disk` keeps the
+classification and regression splits in memmap caches under
+`--cache_dir` and feeds training from the host (data/stream.py).
 
 `--profile_dir DIR` writes a torch.profiler trace of training there, and
 `--debug_nans` raises FloatingPointError at the first non-finite value a
 train step or eval pass makes, naming the step and the operation
 (utils/profiling.py). The flags of paths the port does not have yet raise
-NotImplementedError naming ROADMAP.md: `--mesh`, the forecast, imputation
-and anomaly tasks, `--stream_from_disk`, and `--loso` when the
+NotImplementedError naming ROADMAP.md: `--mesh`, and `--loso` when the
 environment asks for several processes (SIE_TPU_COORDINATOR). Models,
 backbones, attention variants, data families and checkpoint converters
 that are not ported raise where they are built. `--no_pallas`,
@@ -52,8 +59,10 @@ def get_args(argv=None):
                    choices=["EEG", "EEG3", "UEA", "Monash",
                             "ETTh1", "ETTh2", "ETTm1", "ETTm2", "custom",
                             "m4", "PSM", "MSL", "SMAP", "SMD", "SWAT"],
-                   help="EEG, EEG3, UEA and Monash are ported; the others "
-                        "raise")
+                   help="every family is ported: EEG, EEG3 and UEA "
+                        "(classification), Monash (regression), ETT*, "
+                        "custom and m4 (forecasting), PSM, MSL, SMAP, SMD "
+                        "and SWAT (anomaly detection)")
     p.add_argument("--data_root", type=str, default="./data")
     p.add_argument("--json_path", type=str, default="./data/textmaps.json")
     p.add_argument("--target_channels", type=int, default=122)
@@ -130,8 +139,8 @@ def get_args(argv=None):
                    choices=["classification", "regression",
                             "long_term_forecast", "short_term_forecast",
                             "imputation", "anomaly_detection"],
-                   help="classification and regression are ported; the "
-                        "others raise")
+                   help="every task is ported; the Autoformer family "
+                        "has no task branch yet (raises)")
     p.add_argument("--model_id", type=str, default="test")
     p.add_argument("--embed", type=str, default="timeF")
     p.add_argument("--freq", type=str, default="h")
@@ -203,7 +212,9 @@ def get_args(argv=None):
     p.add_argument("--result_dir", type=str, default="./result")
     p.add_argument("--cache_dir", type=str, default="./cache")
     p.add_argument("--stream_from_disk", action="store_true",
-                   help="not ported yet (ROADMAP.md)")
+                   help="keep classification/regression splits in memmap "
+                        "caches under --cache_dir, fed from the host "
+                        "(data/stream.py)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler Chrome trace of training "
                         "(host and card) under this directory")
@@ -251,7 +262,6 @@ def get_args(argv=None):
 # flag -> what it asks for, when set to other than its default
 _UNPORTED = {
     "mesh": "training on a device mesh (--mesh)",
-    "stream_from_disk": "streaming splits from disk (--stream_from_disk)",
 }
 
 
@@ -261,14 +271,12 @@ def refuse_unported(args) -> None:
     for flag, what in _UNPORTED.items():
         if getattr(args, flag):
             raise not_ported(what)
-    if args.task_name not in ("classification", "regression"):
-        raise not_ported(f"the {args.task_name!r} task (--task_name)")
     if args.loso and args.data in ("EEG", "EEG3"):
         from sie_tpu_torch.parallel.loso import multihost_requested
         if multihost_requested():
             raise not_ported("leave-one-subject-out folds over several "
                              "processes (--loso under SIE_TPU_COORDINATOR, "
-                             "item 15)")
+                             "ROADMAP.md §1 item 5)")
 
 
 def args_to_config(args, seed: int) -> Config:
@@ -330,6 +338,32 @@ def run_loso_folds(args, cfg, seed: int):
                          "per_fold": fold_results})
 
 
+TASKS = ("long_term_forecast", "short_term_forecast", "imputation",
+         "anomaly_detection")
+
+
+def run_task(args, cfg, seed: int):
+    """One seed of a forecast, imputation or anomaly task: train, test,
+    print the metrics, pickle them (and the M4 forecasts) under
+    {result_dir}/{model} -> (seed, None, metrics)."""
+    from sie_tpu_torch.train.tasks import TASK_EXPERIMENTS
+    experiment = TASK_EXPERIMENTS[args.task_name](cfg, device=args.device)
+    params = experiment.train(seed=seed, verbose=True)
+    metrics = experiment.test(params)
+    print(f"[{args.task_name}] test: "
+          + ", ".join(f"{k} {v:.5f}" for k, v in metrics.items()))
+    result_dir = os.path.join(args.result_dir, args.model)
+    os.makedirs(result_dir, exist_ok=True)
+    if hasattr(experiment, "write_forecast_csv"):
+        print("forecasts written to "
+              + experiment.write_forecast_csv(params, result_dir))
+    path = os.path.join(result_dir, f"{args.task_name}_seed{seed}.pkl")
+    with open(path, "wb") as f:
+        pickle.dump({"metrics": metrics, "args": vars(args)}, f)
+    print(f"results pickled to {path}")
+    return seed, None, metrics
+
+
 def main(argv=None):
     from sie_tpu_torch.utils.profiling import debug_nans
     args = get_args(argv)
@@ -352,6 +386,10 @@ def run_seeds(args):
         cfg = args_to_config(args, seed)
         if args.loso and args.data in ("EEG", "EEG3"):
             all_results.append(run_loso_folds(args, cfg, seed))
+            continue
+
+        if args.task_name in TASKS:
+            all_results.append(run_task(args, cfg, seed))
             continue
 
         metrics_hook = None

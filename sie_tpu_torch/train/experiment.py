@@ -12,8 +12,12 @@ device once, and an epoch goes through `Trainer.stage_steps` and the
 staged steps (`train_step_staged`, or `train_epoch_staged` under
 `scan_epoch`), each a replayed CUDA graph on the card; validation runs as
 one `eval_epoch_staged_scan` pass under `scan_eval`, the test pass under
-`scan_epoch`, else batch by batch through `eval_step_staged`. Larger data
-is fed from the host, a batch a step.
+`scan_epoch`, else batch by batch through `eval_step_staged`. Larger data,
+and every split under `stream_from_disk` (memmaps, data/stream.py), is
+fed from the host a batch a step: training through `prefetch_to_device`,
+which gathers the next batch and copies it to the card (pinned memory, a
+side stream) while the current step runs; the eval passes batch by
+batch through `eval_step`.
 
 The CSV holds the reference's full spec (test accuracy, epoch_stop, eta
 mean/std, shapelet score, |w| sparsity at 1/0.5/0.1, w_max, w Gini),
@@ -36,6 +40,7 @@ from sie_tpu_torch.compat.from_jax import (load_jax_variables, to_jax_params,
                                            to_jax_variables)
 from sie_tpu_torch.config import Config
 from sie_tpu_torch.data.provider import data_provider
+from sie_tpu_torch.data.stream import prefetch_to_device
 from sie_tpu_torch.device import DeviceLike, resolve_device
 from sie_tpu_torch.models.info import ModelInfo
 from sie_tpu_torch.train import checkpoint as ckpt
@@ -94,7 +99,10 @@ class Experiment:
         self.epoch_stop = 0
         total_bytes = sum(d.x.nbytes for d in
                           (self.train_data, self.val_data, self.test_data))
-        self.device_resident = total_bytes < _HOST_LIMIT
+        # stream_from_disk keeps the splits on disk (data/stream.py
+        # memmaps): copying them whole to the device would defeat it
+        self.device_resident = (not cfg.stream_from_disk
+                                and total_bytes < _HOST_LIMIT)
 
     def _log(self, msg: str):
         if self.verbose:
@@ -137,7 +145,13 @@ class Experiment:
                                                              staged, k)
                         losses.append(loss)
             else:
-                for batch in self.train_loader.epoch(epoch):
+                # a background thread gathers batch k+1 (rows off disk
+                # when streaming) and starts its copy to the device while
+                # the device runs batch k
+                put = None if tr.device.type == "cuda" else (lambda b: b)
+                for batch in prefetch_to_device(
+                        self.train_loader.epoch(epoch), device_put=put,
+                        device=tr.device):
                     loss, _logits = tr.train_step(batch, beta)
                     losses.append(loss)
             if not losses:

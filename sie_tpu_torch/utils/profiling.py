@@ -76,6 +76,36 @@ class StepTimer:
         return self.total / n
 
 
+def device_busy_ms(prof) -> float:
+    """Milliseconds of a finished `torch.profiler.profile` window in which
+    the card ran at least one kernel or copy: the union of its device
+    events' intervals, so work that overlaps on two streams counts once.
+    "Activity Buffer Request" is the profiler's own buffer, not the
+    program's."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "Activity Buffer" not in e.name)
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e3
+
+
+def idle_share(prof, wall_ms: float) -> float:
+    """The share of wall_ms in which the card ran nothing, from
+    `device_busy_ms(prof)`. Raises if the profiler saw no device time or
+    more of it than wall_ms: either way the window was not measured."""
+    busy = device_busy_ms(prof)
+    if not 0.0 < busy <= wall_ms:
+        raise RuntimeError(f"the profiler saw {busy:.3f} ms of device time "
+                           f"in a {wall_ms:.3f} ms window: no idle share")
+    return 1.0 - busy / wall_ms
+
+
 _DEBUG_NANS = [False]
 
 

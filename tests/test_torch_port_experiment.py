@@ -204,10 +204,7 @@ def test_parser_takes_run_py_options_plus_device():
     assert pdefaults == jdefaults
 
 
-UNPORTED = [["--mesh", "8"], ["--task_name", "long_term_forecast"],
-            ["--stream_from_disk"], ["--task_name", "short_term_forecast"],
-            ["--task_name", "imputation"],
-            ["--task_name", "anomaly_detection"], ["--data", "ETTh1"]]
+UNPORTED = [["--mesh", "8"]]
 
 
 @pytest.mark.parametrize("flags", UNPORTED, ids=lambda f: f[0].strip("-"))
@@ -216,6 +213,67 @@ def test_unported_flags_raise(flags, tmp_path):
             str(tmp_path), "--cache_dir", str(tmp_path)] + flags
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_run.main(argv)
+
+
+# the flags refused until the tasks and --stream_from_disk were ported,
+# each now a run at a small width on a small synthetic set
+_SMALL = ["--d_model", "16", "--d_ff", "32", "--n_heads", "2",
+          "--e_layers", "1", "--d_layers", "1", "--train_epochs", "1",
+          "--batch_size", "16", "--seq_len", "24", "--label_len", "8",
+          "--pred_len", "8"]
+PORTED = {
+    "long_term_forecast": ["--task_name", "long_term_forecast", "--data",
+                           "custom", "--dataset", "ett"],
+    "stream_from_disk": ["--stream_from_disk", "--data", "UEA", "--dataset",
+                         "Toy", "--model", "SBM", "--num_shapelet", "2"],
+    "short_term_forecast": ["--task_name", "short_term_forecast", "--data",
+                            "m4", "--seasonal_patterns", "Yearly",
+                            "--seq_len", "12"],
+    "imputation": ["--task_name", "imputation", "--data", "custom",
+                   "--dataset", "ett", "--dnn_type", "PatchTST"],
+    "anomaly_detection": ["--task_name", "anomaly_detection", "--data",
+                          "SMD"],
+    "ETTh1": ["--task_name", "long_term_forecast", "--data", "ETTh1",
+              "--dataset", "ETTh1", "--dnn_type", "PatchTST",
+              "--batch_size", "1024"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(PORTED))
+def test_formerly_unported_flags_run(case, tmp_path):
+    from sie_tpu_torch.data.synthetic import (write_synthetic_ett,
+                                              write_synthetic_m4,
+                                              write_synthetic_smd)
+    root = str(tmp_path)
+    if case == "stream_from_disk":
+        write_synthetic_uea(root, "Toy", n_train=20, n_test=10, n_dims=2,
+                            length=24, n_classes=2, seed=3)
+    elif case == "short_term_forecast":
+        write_synthetic_m4(root, "Yearly", n_series=24, min_len=14,
+                           max_len=30, seed=1)
+    elif case == "anomaly_detection":
+        write_synthetic_smd(root, n_train=300, n_test=240, n_channels=3,
+                            seed=2)
+    else:
+        name = "ETTh1" if case == "ETTh1" else "ett"
+        # ETTh1's borders need 20 months of hourly rows
+        write_synthetic_ett(os.path.join(root, f"{name}.csv"),
+                            n_rows=14400 if case == "ETTh1" else 200)
+    argv = (["--device", "cpu", "--seed", "0", "--data_root", root,
+             "--checkpoint_dir", os.path.join(root, "ck"),
+             "--cache_dir", os.path.join(root, "cache"),
+             "--result_dir", os.path.join(root, "result")]
+            + _SMALL + PORTED[case])
+    [(seed, _loss, metrics)] = port_run.main(argv)
+    assert seed == 0 and metrics and all(
+        np.isfinite(v) for v in metrics.values() if isinstance(v, float))
+    if case != "stream_from_disk":
+        task = argv[argv.index("--task_name") + 1]
+        assert os.path.exists(os.path.join(root, "result", "InterpGN",
+                                           f"{task}_seed0.pkl"))
+    else:
+        assert any(d.startswith("stream_UEA_train_")
+                   for d in os.listdir(os.path.join(root, "cache")))
 
 
 def test_default_device_needs_a_card(monkeypatch, tmp_path):

@@ -29,7 +29,8 @@ from sie_tpu_torch.config import Config
 from sie_tpu_torch.data.synthetic import write_synthetic_uea
 from sie_tpu_torch.train.trainer import Trainer
 from sie_tpu_torch.utils.profiling import (StepTimer, debug_nans,
-                                           debug_nans_enabled, trace)
+                                           debug_nans_enabled, device_busy_ms,
+                                           idle_share, trace)
 
 B, T, C = 4, 40, 3
 KW = dict(seq_len=T, enc_in=C, num_class=3, num_shapelet=2, d_model=16,
@@ -202,5 +203,41 @@ def test_profile_dir_writes_a_trace_of_training(tmp_path, capsys):
 def test_flags_are_no_longer_refused():
     args = port_run.get_args(["--profile_dir", "p", "--debug_nans"])
     port_run.refuse_unported(args)
-    assert set(port_run._UNPORTED) == {"mesh", "stream_from_disk"}
+    assert set(port_run._UNPORTED) == {"mesh"}
 
+
+
+class _Prof:
+    """A finished profiler's `events()`: (device type, name, start us, end
+    us) rows."""
+
+    def __init__(self, rows):
+        from types import SimpleNamespace as NS
+        self.rows = [NS(device_type=d, name=n, time_range=NS(start=a, end=b))
+                     for d, n, a, b in rows]
+
+    def events(self):
+        return self.rows
+
+
+def test_device_busy_time_is_the_union_of_device_intervals():
+    from torch.autograd import DeviceType
+    cuda, cpu = DeviceType.CUDA, DeviceType.CPU
+    prof = _Prof([(cuda, "gemm", 0.0, 400.0),
+                  (cuda, "Memcpy HtoD (Pinned -> Device)", 300.0, 700.0),
+                  (cuda, "softmax", 100.0, 200.0),      # inside the gemm
+                  (cuda, "Activity Buffer Request", 0.0, 5000.0),
+                  (cpu, "aten::mm", 0.0, 9000.0),
+                  (cuda, "gemm", 1000.0, 1500.0)])
+    # [0, 700] once, though the copy overlaps the gemm on a side stream
+    assert device_busy_ms(prof) == pytest.approx(1.2)
+    assert idle_share(prof, 2.0) == pytest.approx(0.4)
+
+
+@pytest.mark.parametrize("device, wall", [("CUDA", 0.5), ("CPU", 3.0)])
+def test_idle_share_raises_on_an_unmeasured_window(device, wall):
+    # more device time than wall time, and no device time at all
+    from torch.autograd import DeviceType
+    prof = _Prof([(getattr(DeviceType, device), "gemm", 0.0, 1000.0)])
+    with pytest.raises(RuntimeError, match="no idle share"):
+        idle_share(prof, wall)
