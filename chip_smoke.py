@@ -235,16 +235,40 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
  32. the four tasks through the command line, 1 epoch each: the pickle,
      M4's forecast CSV read back by the port's M4Summary with a Naive2
      file, the anomaly run's precision, recall and F1;
- 33. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
+ 33. (a) the flagship with a Switch-MoE FFN in each encoder layer (8
+     experts, top-1, capacity factor 1.25, aux weight 0.01, dropout 0.1;
+     scripts/onchip_cert.py's MoE) at full width, B 64: 4 eager steps
+     against the same captured staged steps, bit for bit, K1 6, K2 6, K5
+     2, K6 2 a step; 10 replays after warm-up, capture and one replay,
+     their median and idle share beside the dense flagship's; the first
+     loss (with the aux term) and every gradient on 2 rows against the
+     CPU plain path; 64 rows served (K1 6, K5 2), 4 of them against the
+     CPU; one top-2 step at B 16;
+ 34. (b) the attention variants ds, prob and lsh in the flagship encoder
+     (dropout 0.1): 3 eager steps each, K1 6 and K2 6 a step and no K5/K6;
+     eval logits of 2 rows against the CPU plain path;
+ 35. (c) InterpGN with each of Autoformer, FEDformer, ETSformer,
+     Pyraformer and Crossformer as its expert (scripts/onchip_cert.py's
+     configuration: d_model 128, d_ff 256, 8 heads, 2 layers, B 16,
+     dropout 0.1, amp): 5 eager steps against 5 staged ones (warm-up,
+     capture, 3 replays), bit for bit, K1 6 and K2 6 a step; the first
+     loss on 2 rows against the CPU plain path; a 16-row request;
+ 36. (d) the five forecasters at phase 31 (a)'s settings, 5 eager steps
+     each, first loss against the CPU; one imputation and one anomaly
+     step of each dense head; --dnn_type FEDformer through the CLI on
+     the forecast task for 1 epoch;
+ 37. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
      timed training steps of each kernel's path, plus, split in
      `launches_by_path`, phases 16, 17 and 19's UEA run for K1 and K2, the
      serving paths for K1, K3 and K5: phase 5, phase 11's requests, phase
      20's bundles and phase 22's exported program, phases 23, 24, 26 and
-     30 for K1, K2, K5 and K6, phases 27-29 for K1 and K2, and phase
-     31 (b) for K5 and K6 as `forecast_long`), then the device line.
+     30 for K1, K2, K5 and K6, phases 27-29 for K1 and K2, phase 31 (b)
+     for K5 and K6 as `forecast_long`, phase 33 for K1, K2, K5 and K6 as
+     `moe`, phases 34 and 35 for K1 and K2 as `variants` and
+     `extra_experts`), then the device line.
 
 The K5 and K6 phases (4, 6, 8, 12), the serving phases (20-22) and
-phases 23-32 run under a time limit that ends the process (and the
+phases 23-36 run under a time limit that ends the process (and the
 servers it started), so that a kernel that hangs fails the run instead of
 holding the card. Times
 are CUDA-event times after warm-up (kernels) or host-clock times of work
@@ -1038,7 +1062,8 @@ WATCH = ("sbm.shapelets_0", "sbm.output_layer.weight",
          "deep_model.projection.weight")
 
 
-def train_steps(cfg, ds, want: dict, warmup: int, steps: int, tag: str):
+def train_steps(cfg, ds, want: dict, warmup: int, steps: int, tag: str,
+                watch: tuple = WATCH):
     """`warmup` then `steps` timed `Trainer.train_step_indexed` steps of
     cfg.batch_size rows gathered on the card from `ds` (held there), each
     checked for `want` launches a step and none of the other kernels, a
@@ -1058,7 +1083,7 @@ def train_steps(cfg, ds, want: dict, warmup: int, steps: int, tag: str):
     expect = Counts.full(want)
 
     def step(i):
-        before = {k: params[k].detach().clone() for k in WATCH}
+        before = {k: params[k].detach().clone() for k in watch}
         c0 = counts.read()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1070,7 +1095,7 @@ def train_steps(cfg, ds, want: dict, warmup: int, steps: int, tag: str):
             fail(f"{tag} step {i}: launches {got}, want {expect}")
         if not np.isfinite(float(loss)):
             fail(f"{tag} step {i}: loss {float(loss)}")
-        still = [k for k in WATCH if torch.equal(before[k], params[k])]
+        still = [k for k in watch if torch.equal(before[k], params[k])]
         if still:
             fail(f"{tag} step {i}: parameters did not move: {still}")
         return ms, float(loss)
@@ -1791,7 +1816,8 @@ def batch_stats(model) -> dict:
 
 
 def graph_against_eager(cfg, ds, sched, n: int, want: dict, tag: str,
-                        exact: bool, stats: bool = True):
+                        exact: bool, stats: bool = True,
+                        unused: frozenset = frozenset()):
     """Two trainers from the seed-0 weights and generator state, `ds` held
     on the card: `n` eager `train_step_indexed` steps over the schedule
     `sched`, each followed by the same step through `train_step_staged`
@@ -1800,8 +1826,9 @@ def graph_against_eager(cfg, ds, sched, n: int, want: dict, tag: str,
     warm-up and the capture the same, a replay nothing. After every step
     the losses, parameters and BatchNorm buffers of the two are compared:
     bit for bit when `exact`, else within LOSS_RTOL and PARAM_TOL x lr.
-    Fails unless every buffer and parameter moved (and, with `stats`, the
-    model has BatchNorm buffers). Returns (the eager trainer, the median
+    Fails unless every buffer and parameter moved (the names in `unused`,
+    parameters the loss never reads, excepted; with `stats`, the model
+    must have BatchNorm buffers). Returns (the eager trainer, the median
     eager and graph step ms over the replays, whether all was
     bit-equal)."""
     from sie_tpu_torch.train.trainer import Trainer
@@ -1854,7 +1881,7 @@ def graph_against_eager(cfg, ds, sched, n: int, want: dict, tag: str,
             fail(f"{tag} step {i}: graph loss {float(lg)} against eager "
                  f"{float(le)}; worst tensor difference {worst}")
     still = [k for k, p in eager.model.named_parameters()
-             if torch.equal(p, start_p[k])]
+             if torch.equal(p, start_p[k]) and k not in unused]
     frozen = [k for k, v in batch_stats(eager.model).items()
               if torch.equal(v, start_s[k])]
     if still or frozen or (stats and not start_s):
@@ -3592,13 +3619,15 @@ def cpu_loss(exp, batch, keep=None) -> float:
         exp.model = card
 
 
-def task_steps(cfg, task: str, want: dict, tag: str, smi: str) -> dict:
-    """TASK_STEPS eager steps of `task`'s experiment on the card from the
+def task_steps(cfg, task: str, want: dict, tag: str, smi: str,
+               steps: int = TASK_STEPS) -> dict:
+    """`steps` eager steps of `task`'s experiment on the card from the
     seed-0 weights: each checked for `want` launches (none of the other
     kernels), a finite loss and moved weights; the first step's loss
     against the CPU plain path on the same batch (and keep mask); the
-    median step and the idle share of 3 more. The counts are zeroed just
-    before the steps and read just after. Returns the launches."""
+    median step and the idle share of 3 more (only when steps > 1). The
+    counts are zeroed just before the steps and read just after. Returns
+    the launches."""
     from sie_tpu_torch.train.tasks import TASK_EXPERIMENTS
     counts = Counts()
     t_start = time.perf_counter()
@@ -3607,14 +3636,14 @@ def task_steps(cfg, task: str, want: dict, tag: str, smi: str) -> dict:
     n = len(exp.train_data[0])
     order = torch.from_numpy(np.random.default_rng(0).permutation(n)).cuda()
     batches = [tuple(a[order[i * TASK_BATCH:(i + 1) * TASK_BATCH]]
-                     for a in exp.train_data) for i in range(TASK_STEPS + 4)]
+                     for a in exp.train_data) for i in range(steps + 4)]
     imputing = task == "imputation"
     first = (exp.mask_generator.get_state() if imputing else None)
     params = list(exp.model.parameters())
     expect = Counts.full(want)
     times, losses = [], []
     counts.zero()   # the path's main run
-    for i in range(TASK_STEPS):
+    for i in range(steps):
         before = [p.detach().clone() for p in (params[0], params[-1])]
         c0 = counts.read()
         torch.cuda.synchronize()
@@ -3642,14 +3671,16 @@ def task_steps(cfg, task: str, want: dict, tag: str, smi: str) -> dict:
         fail(f"{tag}: first step's loss {losses[0]} on the card, {ref} "
              f"on the CPU plain path")
     t_cpu = time.perf_counter()
-    it = iter(batches[TASK_STEPS:])
-    if np.median(times) < 200:
+    it = iter(batches[steps:])
+    if steps == 1:
+        idle = "not measured (one step)"
+    elif np.median(times) < 200:
         idle = f"{idle_share(lambda: exp._step(next(it)), 3)[1]:.3f}"
     else:
         # TimesNet's eager step is ~25k launches: the profiler takes ~45 s
         # over one (0.909-0.934 over three in an earlier run, PERF.md)
         idle = "not measured"
-    print(f"[{tag}] {TASK_STEPS} eager steps (B {TASK_BATCH}): median "
+    print(f"[{tag}] {steps} eager steps (B {TASK_BATCH}): median "
           f"{np.median(times):.3f} ms (idle share {idle}); losses "
           f"{losses[0]:.4f} .. {losses[-1]:.4f}, first "
           f"within {abs(losses[0] - ref) / abs(ref):.2e} of the CPU's "
@@ -3820,6 +3851,382 @@ def phase_stream_and_tasks(tmp: str, smi: str) -> tuple:
     return streamed, long
 
 
+MOE = dict(moe_experts=8, moe_top_k=1, moe_capacity_factor=1.25,
+           moe_aux_weight=0.01)   # scripts/onchip_cert.py:101-106's MoE
+MOE_CHECK_STEPS = 4     # eager steps against graph steps, bit for bit
+MOE_TIMED = 10          # replays timed (after warm-up, capture, a replay)
+MOE_TOP2_B = 16
+VARIANT_STEPS = 3       # eager steps of each attention variant
+EXTRA_FAMILIES = ("Autoformer", "FEDformer", "ETSformer", "Pyraformer",
+                  "Crossformer")
+EXTRA_STEPS = 5         # staged steps of each expert: warm-up, capture, 3
+EXTRA_B = 16
+LOSS_TOL = 5e-2         # first loss, card vs CPU plain path, relative
+
+
+def moe_config(**kw):
+    """The flagship (phase 9's training settings) with a Switch-MoE FFN in
+    each encoder layer: 8 experts, top-1, capacity factor 1.25, aux weight
+    0.01, dropout 0.1."""
+    return train_config(dropout=RATE, **dict(MOE, **kw))
+
+
+def loss_and_grads(cfg, model, device, batch) -> tuple:
+    """(the training loss, with the layers' aux losses, and every
+    parameter's gradient on the host in float32) of `model` on `batch`."""
+    from sie_tpu_torch.train.trainer import Trainer
+    t = Trainer(cfg, 1, model=model, device=device)
+    loss, _ = t.loss_fn(t.model, t._device_batch(batch), 1.0, None)
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.float().cpu()
+                         for k, p in t.model.named_parameters()}
+
+
+def loss_only(cfg, model, device, batch) -> float:
+    """The training-mode loss (aux losses included) of `model` on
+    `batch`, without a backward pass."""
+    from sie_tpu_torch.train.trainer import Trainer
+    t = Trainer(cfg, 1, model=model, device=device)
+    return float(t.loss_fn(t.model, t._device_batch(batch), 1.0, None)[0])
+
+
+def against_cpu(cfg, ds, tag: str, grads: bool) -> None:
+    """The seed-0 weights' first training loss on 2 rows (aux losses
+    included) on the card against the CPU plain path, within LOSS_TOL
+    relative; with `grads`, every parameter's gradient within GRAD_TOL
+    (relative norm). Dropout 0: the two paths draw no masks."""
+    from sie_tpu_torch.models.registry import build_model
+    cfg0 = cfg.replace(dropout=0.0)
+    fresh = build_model(cfg0, "cuda", torch.Generator().manual_seed(0))
+    cpu = copy.deepcopy(fresh).cpu()
+    batch = (ds.x[:2], ds.y[:2], ds.padding_mask[:2], np.ones(2, np.float32))
+    if grads:
+        got, gg = loss_and_grads(cfg0, fresh, "cuda", batch)
+        want, gw = loss_and_grads(cfg0, cpu, "cpu", batch)
+    else:
+        with torch.no_grad():
+            got, want = (loss_only(cfg0, m, d, batch)
+                         for m, d in ((fresh, "cuda"), (cpu, "cpu")))
+    err = abs(got - want) / abs(want)
+    if not err <= LOSS_TOL:
+        fail(f"{tag}: first loss {got} on the card, {want} on the CPU")
+    extra = ""
+    if grads:
+        worst = worst_gradient(gg, gw, f"{tag} card vs CPU")
+        extra = f"; worst gradient {worst[1]:.3e} ({worst[0]})"
+    print(f"[{tag}] card vs CPU plain path, 2 rows: loss {got:.6f} vs "
+          f"{want:.6f} ({err:.2e} relative){extra}")
+
+
+def replay_ms(cfg, ds, sched, tag: str) -> tuple:
+    """Median ms and idle share of MOE_TIMED replays of the staged step
+    (after its eager warm-up, capture and one replay)."""
+    t = seed0_trainer(cfg)
+    dev = t.device_data("train", ds)
+    staged = t.stage_steps(sched, 1.0)
+    for k in range(3):
+        t.train_step_staged(dev, staged, k % len(sched))
+    it = iter(range(10 ** 6))
+    step = lambda: t.train_step_staged(dev, staged, next(it) % len(sched))
+    times = timed(step, MOE_TIMED)
+    _, idle = idle_share(step, 3)
+    print(f"[{tag}] {MOE_TIMED} replays (B={cfg.batch_size}): "
+          + ", ".join(f"{v:.3f}" for v in times)
+          + f"; median {np.median(times):.3f} ms, idle share {idle:.3f}")
+    return float(np.median(times)), idle
+
+
+def phase_moe(smi: str) -> dict:
+    """(a) The flagship with a Switch-MoE FFN at full width: eager steps
+    against the captured staged steps, bit for bit, K1 6, K2 6, K5 2, K6 2
+    a step (counts zeroed just before, read just after); replays' median
+    and idle share beside the dense flagship's; the first loss (with the
+    aux term) and the gradients against the CPU plain path; 64 rows
+    served, 4 of them against the CPU; one top-2 step at B 16."""
+    from sie_tpu_torch.serve import Predictor
+    from sie_tpu_torch.train.trainer import Trainer
+    cfg = moe_config()
+    ds = random_rows(cfg, 4 * cfg.batch_size)
+    sched = schedule(cfg, len(ds.y), MOE_CHECK_STEPS)
+    counts = Counts()
+    counts.zero()   # the path's main run
+    eager, _, _ = graph_against_eager(cfg, ds, sched, MOE_CHECK_STEPS,
+                                      TRAIN_WANT, "moe", True, stats=False)
+    launches = counts.read()
+    print(f"[moe] launches over the run {launches}")
+    moe_ms, moe_idle = replay_ms(cfg, ds, sched, "moe")
+    dense_ms, dense_idle = replay_ms(train_config(dropout=RATE), ds, sched,
+                                     "moe/dense")
+    print(f"[moe] replayed step: MoE {moe_ms:.3f} ms (idle {moe_idle:.3f})"
+          f" against dense {dense_ms:.3f} ms (idle {dense_idle:.3f}), "
+          f"+{moe_ms - dense_ms:.3f} ms; {smi}")
+    against_cpu(cfg, ds, "moe", grads=True)
+    # the seed-0 weights: after 4 steps at lr 5e-3 the flatten head
+    # saturates, and card and CPU logits would agree for that alone
+    fresh = seed0_trainer(cfg).model
+    pred = Predictor.from_module(cfg, fresh, device="cuda", max_batch=64)
+    x = ds.x[:64]
+    c0 = counts.read()
+    t0 = time.perf_counter()
+    out = pred.predict(x)
+    ms = 1e3 * (time.perf_counter() - t0)
+    got = counts.since(c0)
+    if got != Counts.full({"K1": 6, "K5": 2}) or \
+            out.logits.shape != (64, 3) or not np.isfinite(out.logits).all():
+        fail(f"moe: a 64-row request launched {got}, logits "
+             f"{out.logits.shape}")
+    cpu = Predictor.from_module(cfg, copy.deepcopy(fresh).cpu(),
+                                device="cpu", max_batch=64)
+    e = float(np.abs(out.logits[:4] - cpu.predict(x[:4]).logits).max())
+    if not e <= SERVE_TOL:
+        fail(f"moe: served logits differ from the CPU plain path by {e}")
+    print(f"[moe] 64 rows served in {ms:.3f} ms, launches {got}; rows 0-3 "
+          f"against the CPU plain path: max |dlogits| {e:.3e}")
+    top2 = cfg.replace(moe_top_k=2, batch_size=MOE_TOP2_B)
+    t = Trainer(top2, 1, device="cuda",
+                generator=torch.Generator().manual_seed(0))
+    dev = t.device_data("train", ds)
+    c0 = counts.read()
+    loss, _ = t.train_step_indexed(dev, np.arange(MOE_TOP2_B),
+                                   np.ones(MOE_TOP2_B, np.float32), 1.0)
+    got = counts.since(c0)
+    if got != Counts.full(TRAIN_WANT) or not np.isfinite(float(loss)):
+        fail(f"moe top-2 step: launches {got}, loss {float(loss)}")
+    print(f"[moe] top-2 step at B {MOE_TOP2_B}: loss {float(loss):.4f}, "
+          f"launches {got}")
+    return launches
+
+
+LSH_FLIP_MAX = 1e-3   # share of bf16 buckets that may differ, card vs CPU
+LSH_ROWS = 4
+
+
+def lsh_amp_against_cpu(cfg, ds) -> None:
+    """The seed-0 lsh model's first attention layer under amp, card
+    against the CPU plain path, on the CPU's embedding of LSH_ROWS rows:
+    fails if more than LSH_FLIP_MAX of its (row, head, round, position)
+    buckets differ, or if at the rows whose buckets all agree its output
+    is not within SERVE_TOL + 1/128 of the CPU's (a row with a
+    flipped bucket sorts, and so attends, otherwise: a discrete jump).
+    Prints the whole model's eval logits gap, which such jumps move."""
+    t = seed0_trainer(cfg)
+    cpu = copy.deepcopy(t.model).cpu().eval()
+    x, mask = ds.x[:LSH_ROWS], ds.padding_mask[:LSH_ROWS]
+    got, _ = t.eval_step((x, ds.y[:LSH_ROWS], mask,
+                          np.ones(LSH_ROWS, np.float32)))
+    t.model.eval()
+    card = t.model.deep_model.encoder.layers[0].attention
+    host = cpu.deep_model.encoder.layers[0].attention
+    with torch.no_grad():
+        want, _ = cpu(torch.from_numpy(x), torch.from_numpy(mask))
+        enc = cpu.deep_model.enc_embedding(
+            torch.from_numpy(x).to(cfg.compute_dtype))
+        flips = card.buckets_of(enc.cuda()).cpu() != host.buckets_of(enc)
+        out, ref = card(enc.cuda()).float().cpu(), host(enc).float()
+    clean = ~flips.reshape(LSH_ROWS, -1).any(-1)
+    share = float(flips.float().mean())
+    err = (out - ref).abs()[clean]
+    over = err > SERVE_TOL + ref.abs()[clean] / 128
+    if not share <= LSH_FLIP_MAX or not bool(clean.any()) or \
+            bool(over.any()):
+        fail(f"variants/lsh amp: {100 * share:.4f} % of the first layer's "
+             f"buckets differ (limit {100 * LSH_FLIP_MAX} %); rows without "
+             f"a flip {clean.tolist()}, {int(over.sum())} outputs there "
+             f"beyond {SERVE_TOL} + 1/128 relative")
+    e = float((got.float().cpu() - want).abs().max())
+    print(f"[variants/lsh] amp, first layer, {LSH_ROWS} rows: "
+          f"{100 * share:.4f} % of buckets differ (limit "
+          f"{100 * LSH_FLIP_MAX} %); at the {int(clean.sum())} rows without "
+          f"a flip max |dout| {float(err.max()):.3e} (max |out| "
+          f"{float(ref.abs().max()):.3f}); the model's eval logits card vs "
+          f"CPU max |dlogits| {e:.3e}")
+
+
+def phase_variants(smi: str) -> dict:
+    """(b) The attention variants ds, prob and lsh in the flagship encoder
+    (dropout 0.1): VARIANT_STEPS eager steps each, K1 6 and K2 6 a step and
+    no K5/K6; the seed-0 weights' eval logits of 2 rows against the CPU
+    plain path. Returns the launches over the three runs."""
+    total = Counts.full({})
+    for variant in ("ds", "prob", "lsh"):
+        cfg = train_config(dropout=RATE, attention_variant=variant)
+        ds = random_rows(cfg, 2 * cfg.batch_size)
+        # the lsh layer's shared query-key projection is `qk`
+        watch = tuple(w.replace(".query.", ".qk.") if variant == "lsh"
+                      else w for w in WATCH)
+        trainer, *_, launches = train_steps(cfg, ds, SBM_WANT, 0,
+                                            VARIANT_STEPS,
+                                            f"variants/{variant}", watch)
+        total = {k: total[k] + launches[k] for k in total}
+        if variant == "lsh":
+            # bf16 keys round differently on the card and the CPU, and a
+            # key near a rotation's tie changes bucket (a discrete jump):
+            # under amp the buckets and the first layer's unflipped rows
+            # are held, the logits at 5e-2 in f32
+            lsh_amp_against_cpu(cfg, ds)
+            cfg_eval = cfg.replace(amp=False)
+        else:
+            cfg_eval = cfg
+        eval_against_cpu(seed0_trainer(cfg_eval), ds, 2, SERVE_TOL,
+                         f"variants/{variant}")
+        del trainer
+    print(f"[variants] launches over the three runs {total}; {smi}")
+    return total
+
+
+def extra_config(family: str):
+    """InterpGN with an extra family as the expert at the configuration
+    the repo runs them in (scripts/onchip_cert.py:142-146): the CHISCO
+    shape, d_model 128, d_ff 256, 8 heads, 2 layers, 10 shapelets a bank,
+    B 16, dropout 0.1, amp (the family itself runs in f32, as in the JAX
+    package); c_out = enc_in, which ETSformer's level needs."""
+    return train_config(dnn_type=family, d_model=128, d_ff=256, n_heads=8,
+                        e_layers=2, dropout=RATE, c_out=122).replace(
+                            batch_size=EXTRA_B)
+
+
+# The parameters that the InterpGN training loss leaves unread with each
+# family as the expert (2 layers), as the JAX package's models do:
+# FEDformer's Fourier self-attention reads only its queries, ETSformer's
+# classifier reads neither its level nor its last layer's residual stream,
+# and Crossformer's dimension receiver attends over `factor` = 1 router
+# vector, where the softmax is 1 whatever its query and key. Their
+# gradients are exactly zero in the JAX package, which
+# tests/test_torch_port_extra_models.py holds this table to.
+_ENC = "deep_model.rep.encoder.layers."
+_WB = ("weight", "bias")
+UNREAD = {
+    "Autoformer": frozenset(),
+    "FEDformer": frozenset(f"{_ENC}{i}.attention.{p}.{w}" for i in (0, 1)
+                           for p in ("key", "value") for w in _WB),
+    "ETSformer": frozenset(
+        [f"{_ENC}{i}.level.{m}.{w}" for i in (0, 1)
+         for m in ("growth_pred", "season_pred") for w in _WB]
+        + [f"{_ENC}{i}.level.es.{p}" for i in (0, 1)
+           for p in ("smoothing_weight", "v0")]
+        + [f"{_ENC}1.{m}.weight" for m in ("ff1", "ff2")]
+        + [f"{_ENC}1.norm{i}.{w}" for i in (1, 2) for w in _WB]),
+    "Pyraformer": frozenset(),
+    "Crossformer": frozenset(
+        f"deep_model.scales.encoder.block_{i}.encode_layer_0.dim_receiver."
+        f"{p}.{w}" for i in (0, 1) for p in ("query", "key") for w in _WB),
+}
+
+
+def unread_params(cfg, ds) -> frozenset:
+    """The parameters whose gradient the training loss (2 rows, dropout 0)
+    leaves at none or exactly zero on the card."""
+    from sie_tpu_torch.models.registry import build_model
+    from sie_tpu_torch.train.trainer import Trainer
+    model = build_model(cfg.replace(dropout=0.0), "cuda",
+                        torch.Generator().manual_seed(0))
+    t = Trainer(cfg.replace(dropout=0.0), 1, model=model, device="cuda")
+    batch = t._device_batch((ds.x[:2], ds.y[:2], ds.padding_mask[:2],
+                             np.ones(2, np.float32)))
+    loss, _ = t.loss_fn(t.model, batch, 1.0, None)
+    names, params = zip(*t.model.named_parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return frozenset(n for n, g in zip(names, grads)
+                     if g is None or not bool(g.any()))
+
+
+def phase_extra_experts(smi: str) -> dict:
+    """(c) InterpGN with each family as its expert: the parameters that
+    the loss leaves without a gradient on the card are UNREAD's; eager
+    steps against EXTRA_STEPS staged ones (warm-up, capture, replays), bit
+    for bit, K1 6 and K2 6 a step, every parameter but UNREAD's moved; the
+    first loss against the CPU plain path; a 16-row request. Returns the
+    launches over the five runs."""
+    from sie_tpu_torch.serve import Predictor
+    counts = Counts()
+    total = Counts.full({})
+    for family in EXTRA_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = extra_config(family)
+        ds = random_rows(cfg, 4 * cfg.batch_size)
+        sched = schedule(cfg, len(ds.y), EXTRA_STEPS)
+        unread = unread_params(cfg, ds)
+        if unread != UNREAD[family]:
+            fail(f"extra/{family}: the loss leaves {sorted(unread)} unread "
+                 f"on the card, the JAX package {sorted(UNREAD[family])}")
+        print(f"[extra/{family}] {len(unread)} parameters without a "
+              f"gradient, as in the JAX package")
+        counts.zero()   # the path's main run
+        eager, med, _ = graph_against_eager(
+            cfg, ds, sched, EXTRA_STEPS, SBM_WANT, f"extra/{family}", True,
+            stats=False, unused=UNREAD[family])
+        launches = counts.read()
+        total = {k: total[k] + launches[k] for k in total}
+        against_cpu(cfg, ds, f"extra/{family}", grads=False)
+        out = Predictor.from_module(cfg, eager.model, device="cuda",
+                                    max_batch=64).predict(ds.x[:16])
+        if out.logits.shape != (16, 3) or not np.isfinite(out.logits).all():
+            fail(f"extra/{family}: 16-row request gave {out.logits.shape}")
+        print(f"[extra/{family}] replays bit-equal to eager; "
+              f"16-row request ok; {time.perf_counter() - t0:.1f} s; "
+              f"launches {launches}; {smi}")
+        del eager
+    return total
+
+
+EXTRA_TASK_STEPS = 5
+
+
+def phase_extra_tasks(tmp: str, smi: str) -> None:
+    """(d) The five forecasters at phase 31 (a)'s settings (ETTh1 shape,
+    seq_len 96, label 48, pred 96, run.py's default widths, B 32): 5 eager
+    steps each; one imputation and one anomaly step of each dense head;
+    one CLI run of --dnn_type FEDformer on the forecast task for 1
+    epoch. No kernel is launched on these paths."""
+    root = os.path.join(tmp, "tasks")
+    if not os.path.isdir(root):
+        write_task_data(tmp)
+    ett = dict(data="ETTh1", dataset="ETTh1", data_root=root, seq_len=96,
+               label_len=48, pred_len=96)
+    smd = dict(data="SMD", data_root=root, seq_len=100, anomaly_ratio=0.5)
+    for fam in EXTRA_FAMILIES:
+        task_steps(task_config(dnn_type=fam, **ett), "long_term_forecast",
+                   {}, f"extra_tasks/forecast {fam}", smi, EXTRA_TASK_STEPS)
+        task_steps(task_config(dnn_type=fam, mask_rate=0.25, **ett),
+                   "imputation", {}, f"extra_tasks/imputation {fam}", smi, 1)
+        task_steps(task_config(dnn_type=fam, **smd), "anomaly_detection", {},
+                   f"extra_tasks/anomaly {fam}", smi, 1)
+    t0 = time.perf_counter()
+    result = os.path.join(tmp, "extra_result")
+    _, res = run_cli(["--task_name", "long_term_forecast", "--data", "ETTh1",
+                      "--dataset", "ETTh1", "--data_root", root, "--model",
+                      "DNN", "--dnn_type", "FEDformer", "--train_epochs",
+                      "1", "--batch_size", str(TASK_BATCH), "--lr", "1e-4",
+                      "--seed", "0", "--result_dir", result,
+                      "--checkpoint_dir", os.path.join(tmp, "extra_ck"),
+                      "--cache_dir", os.path.join(tmp, "cache")])
+    metrics = res[0][2]
+    pkl = os.path.join(result, "DNN", "long_term_forecast_seed0.pkl")
+    if not os.path.exists(pkl) or not all(np.isfinite(v)
+                                          for v in metrics.values()):
+        fail(f"FEDformer forecast through the CLI: {metrics}")
+    print(f"[extra_tasks] FEDformer through the CLI, 1 epoch: "
+          f"{time.perf_counter() - t0:.1f} s, " + ", ".join(
+              f"{k} {v:.4f}" for k, v in metrics.items()))
+
+
+def phase_extra(tmp: str, smi: str) -> tuple:
+    """Phases 33-36 under one time limit -> the launches of (a), (b) and
+    (c)."""
+    t = [time.perf_counter()]
+    moe = phase_moe(smi)
+    t.append(time.perf_counter())
+    variants = phase_variants(smi)
+    t.append(time.perf_counter())
+    experts = phase_extra_experts(smi)
+    t.append(time.perf_counter())
+    phase_extra_tasks(tmp, smi)
+    t.append(time.perf_counter())
+    print("[extra] phases 33-36: " + " + ".join(
+        f"{b - a:.1f}" for a, b in zip(t, t[1:])) + " s")
+    return moe, variants, experts
+
+
 def main() -> None:
     import tempfile
     smi = phase_device()
@@ -3868,6 +4275,8 @@ def main() -> None:
                   f"{t2 - t1:.1f} + {time.perf_counter() - t2:.1f} s")
         with time_limit(600, "the streaming and task phases"):
             streamed, forecast_long = phase_stream_and_tasks(work, smi)
+        with time_limit(600, "the MoE, variant and extra-family phases"):
+            moe, variants, extra_experts = phase_extra(work, smi)
     finally:
         for proc in list(CHILDREN):
             stop_server(proc)
@@ -3877,7 +4286,8 @@ def main() -> None:
     options = {"augment": augmented, "regression": regression,
                "loso": loso, "stream": streamed}
     sbm_paths = {**backbones, "cli_patchtst": by_cli["PatchTST"],
-                 "cli_timesnet": by_cli["TimesNet"]}
+                 "cli_timesnet": by_cli["TimesNet"], "moe": moe,
+                 "variants": variants, "extra_experts": extra_experts}
     others = {"K1": {"uea_fcn": uea_fcn, "uea_resnet": uea_resnet,
                      "cli_uea_fcn": cli_uea, "serve": serve_launches,
                      "serve_bundle": bundle, "serve_export": exported,
@@ -3887,8 +4297,8 @@ def main() -> None:
               "K3": {"serve_fused": fused_serve},
               "K5": {"serve": serve_launches, "serve_bundle": bundle,
                      "serve_export": exported, **options,
-                     "forecast_long": forecast_long},
-              "K6": {**options, "forecast_long": forecast_long}}
+                     "forecast_long": forecast_long, "moe": moe},
+              "K6": {**options, "forecast_long": forecast_long, "moe": moe}}
     paths = ((k1, launches, "K1"), (k2, launches, "K2"),
              (k3, fused, "K3"), (k4, fused, "K4"), (k5, launches, "K5"),
              (k6, launches, "K6"), (k7, long_launches, "K5"),

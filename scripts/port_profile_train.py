@@ -1,7 +1,8 @@
 """Where a training step's time goes in sie_tpu_torch, on one CUDA card.
 
     python scripts/port_profile_train.py [--config flagship|fused|eigenworms|
-        uea_fcn|eegcnn|regression|patchtst|timesnet] [--path indexed|staged]
+        uea_fcn|eegcnn|regression|patchtst|timesnet|moe]
+        [--path indexed|staged]
         [--steps 10] [--no-profile] [--out DIR]
 
 Builds the configuration's model (weights from seed 0) under `Trainer` on
@@ -14,8 +15,9 @@ flagship's InterpGN at chip_smoke.py phase 24's BIDMC32HR shape (C = 2,
 T = 1000 after subsampling, 10 bins, lr 1e-5, B=64) with the CRPS head and
 float targets, `patchtst` and `timesnet` chip_smoke.py's InterpGN +
 PatchTST (full width, four recomputed chunks) and + TimesNet (d_model 32)
-at the flagship's data shape, dropout 0.1. Holds four batches of random
-rows on the card.
+at the flagship's data shape, dropout 0.1, and `moe` chip_smoke.py's
+flagship with a Switch-MoE FFN (8 experts, top-1, dropout 0.1). Holds
+four batches of random rows on the card.
 `--path indexed` (the default) trains through the eager
 `train_step_indexed`; `--path staged` stages a schedule of four batches
 and trains through `train_step_staged`, whose first call is the eager
@@ -56,7 +58,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="flagship",
                     choices=("flagship", "fused", "eigenworms", "uea_fcn",
-                             "eegcnn", "regression", "patchtst", "timesnet"))
+                             "eegcnn", "regression", "patchtst", "timesnet",
+                             "moe"))
     ap.add_argument("--path", default="indexed", choices=("indexed", "staged"))
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--no-profile", action="store_true")
@@ -64,8 +67,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    from chip_smoke import (eegcnn_config, long_config, patchtst_config,
-                            timesnet_config, train_config, uea_config)
+    from chip_smoke import (eegcnn_config, long_config, moe_config,
+                            patchtst_config, timesnet_config, train_config,
+                            uea_config)
     from sie_tpu_torch.train.trainer import Trainer
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -79,6 +83,7 @@ def main(argv=None) -> None:
            "regression": lambda: train_config(seq_len=1000, enc_in=2,
                                               num_class=10).replace(lr=1e-5),
            "patchtst": patchtst_config, "timesnet": timesnet_config,
+           "moe": moe_config,
            }[args.config]()
     batch = cfg.batch_size
     rows = 4 * batch

@@ -2,9 +2,11 @@
 modules, in both directions.
 
 The port names its submodules after the flax scopes, so a flax path maps
-to a PyTorch parameter or buffer name by three renames (`TokenEmbedding_0`
--> `token_embedding`, `FullAttentionLayer_0` -> `attention`, `layer_<i>`
--> `layers.<i>`) and by the leaf's kind:
+to a PyTorch parameter or buffer name by a few renames (`TokenEmbedding_0`
+-> `token_embedding`; `FullAttentionLayer_0`, and the encoder layer's
+variants `DSAttentionLayer_0`, `ProbAttentionLayer_0` and
+`LSHAttentionLayer_0` -> `attention`; `layer_<i>` -> `layers.<i>`) and by
+the leaf's kind:
 
 - Dense `kernel` (in, out)            -> Linear `weight`, transposed;
 - Conv `kernel` (k, C_in, C_out)      -> Conv1d `weight`, transpose(2, 1, 0);
@@ -12,14 +14,21 @@ to a PyTorch parameter or buffer name by three renames (`TokenEmbedding_0`
                                       -> Conv2d `weight`, transpose(3, 2, 0, 1);
 - LayerNorm and BatchNorm `scale`     -> `weight`;
 - `bias`, and the raw parameters `shapelets_<i>` (n, C, L),
-  `threshold_<i>`, `bilinear_w`, `pos_embed` -> as they are;
+  `threshold_<i>`, `bilinear_w`, `pos_embed`, the MoE experts'
+  `expert_wi`/`expert_bi`/`expert_wo`/`expert_bo`, the Fourier and
+  multiwavelet `weights_real`/`weights_imag`, ETSformer's
+  `smoothing_weight`, `v0`, `z0` and `damping_factor`, the two-stage
+  layer's `router` and Crossformer's `enc_pos_embedding` and
+  `dec_pos_embedding` -> as they are;
 - `batch_stats` `mean` and `var`      -> the BatchNorm's buffers.
 
 The task heads' scopes need no rename: `dec_embedding`, each embedding's
 `temporal_embedding` (a bias-free Dense), `decoder/layer_<i>/
 {self_attention, cross_attention, norm1, norm2, norm3, conv1, conv2}`,
-`decoder/{norm, projection}`, TimesNet's `predict_linear` and PatchTST's
-`head` are the port's attribute names too.
+`decoder/{norm, projection}`, TimesNet's `predict_linear`, PatchTST's
+`head`, and every scope of the extra families (models/extra; the seasonal
+norm's auto-named `LayerNorm_0` included) are the port's attribute names
+too.
 
 `load_jax_variables` fills a module from {"params", "batch_stats"};
 `load_jax_params` is its params-only case. Every flax leaf is consumed
@@ -61,7 +70,10 @@ class ParamLoadError(ValueError):
 
 
 _RENAMES = {"TokenEmbedding_0": "token_embedding",
-            "FullAttentionLayer_0": "attention"}
+            "FullAttentionLayer_0": "attention",
+            "DSAttentionLayer_0": "attention",
+            "ProbAttentionLayer_0": "attention",
+            "LSHAttentionLayer_0": "attention"}
 
 
 def _flatten(tree: Any, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
@@ -222,7 +234,10 @@ def port_layout(module: nn.Module, tree: Any) -> Dict[str, np.ndarray]:
 
 # the port's module class behind each renamed flax scope
 _KINDS = {"TokenEmbedding_0": "TokenEmbedding",
-          "FullAttentionLayer_0": "FullAttentionLayer"}
+          "FullAttentionLayer_0": "FullAttentionLayer",
+          "DSAttentionLayer_0": "DSAttentionLayer",
+          "ProbAttentionLayer_0": "ProbAttentionLayer",
+          "LSHAttentionLayer_0": "LSHAttentionLayer"}
 
 
 def _flax_scope(part: str, child: nn.Module) -> str:

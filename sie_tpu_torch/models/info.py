@@ -19,3 +19,6 @@ class ModelInfo:
     dnn_preds: Optional[torch.Tensor] = None      # deep-branch logits
     preds: Optional[torch.Tensor] = None          # blended logits
     loss: Optional[torch.Tensor] = None           # model reg loss, shape (1,)
+    # sum of the losses the layers add in training (the MoE load balance;
+    # flax's "losses" collection), a 0-d f32 tensor; None in eval
+    aux_loss: Optional[torch.Tensor] = None

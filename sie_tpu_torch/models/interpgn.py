@@ -31,7 +31,8 @@ class InterpGN(nn.Module):
         """`generator` draws the dropout masks in training (see
         models/layers.py); at eval nothing is drawn."""
         sbm_out, info = self.sbm(x, padding_mask, generator=generator)
-        deep_out = self.deep_model(x, padding_mask, generator)
+        from sie_tpu_torch.models.registry import call_dnn
+        deep_out, aux = call_dnn(self.deep_model, x, padding_mask, generator)
         c = sbm_out.shape[-1]
         probs = torch.softmax(sbm_out, dim=-1)
         gini = probs.square().sum(dim=-1, keepdim=True)
@@ -42,4 +43,4 @@ class InterpGN(nn.Module):
         out = eta * sbm_out + (1.0 - eta) * deep_out
         return out, ModelInfo(d=info.d, p=info.p, eta=eta,
                               shapelet_preds=sbm_out, dnn_preds=deep_out,
-                              preds=out, loss=info.loss)
+                              preds=out, loss=info.loss, aux_loss=aux)

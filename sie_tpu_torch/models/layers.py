@@ -68,6 +68,53 @@ def linear(in_features: int, out_features: int, g: torch.Generator,
     return lin
 
 
+# std of the unit normal truncated to [-2, 2]: flax's lecun_normal divides
+# by it so that the truncated draw keeps variance 1/fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
+    """flax's `lecun_normal` (the default kernel init of `nn.Dense` and
+    `nn.Conv`): a normal of std sqrt(1/fan_in)/0.8796 truncated at 2 std."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=g)
+
+
+def lecun_linear(in_features: int, out_features: int, g: torch.Generator,
+                 bias: bool = True) -> nn.Linear:
+    """nn.Linear initialised as flax's default `nn.Dense`: a lecun_normal
+    kernel and a zero bias."""
+    lin = nn.utils.skip_init(nn.Linear, in_features, out_features, bias=bias)
+    lecun_normal_(lin.weight, in_features, g)
+    if bias:
+        with torch.no_grad():
+            lin.bias.zero_()
+    return lin
+
+
+def lecun_conv(cls, in_channels: int, out_channels: int, kernel_size,
+               g: torch.Generator, bias: bool = True, stride: int = 1):
+    """nn.Conv1d or nn.Conv2d (`cls`) initialised as flax's default
+    `nn.Conv`: a lecun_normal kernel (fan_in = in_channels x taps) and a
+    zero bias."""
+    c = nn.utils.skip_init(cls, in_channels, out_channels, kernel_size,
+                           stride=stride, bias=bias)
+    lecun_normal_(c.weight, c.weight[0].numel(), g)
+    if bias:
+        with torch.no_grad():
+            c.bias.zero_()
+    return c
+
+
+def normal_param(shape, std: float, g: torch.Generator) -> nn.Parameter:
+    """A raw parameter drawn from N(0, std^2) (flax `initializers.normal`)."""
+    p = nn.Parameter(torch.empty(shape))
+    normal_(p, std, g)
+    return p
+
+
 def layer_norm_module(d: int) -> nn.LayerNorm:
     return nn.LayerNorm(d, eps=_LN_EPS)
 
@@ -269,17 +316,20 @@ def mark_width(freq: str, marks_width: int) -> int:
 
 
 class DataEmbedding(nn.Module):
-    """Token + sinusoidal position embedding, + with `mark_width` > 0 the
-    temporal embedding (`temporal_embedding`, a bias-free dense layer on
-    the marks' first `mark_width` columns), then dropout. The
-    classification models and the anomaly heads pass no marks and have no
-    temporal embedding, as their flax trees have none."""
+    """Token + sinusoidal position embedding (no position table when
+    `positional` is False: the reference's DataEmbedding_wo_pos, which the
+    Autoformer family uses), + with `mark_width` > 0 the temporal embedding
+    (`temporal_embedding`, a bias-free dense layer on the marks' first
+    `mark_width` columns), then dropout. The classification models and the
+    anomaly heads pass no marks and have no temporal embedding, as their
+    flax trees have none."""
 
     def __init__(self, c_in: int, d_model: int, dtype: torch.dtype,
                  g: torch.Generator, dropout: float = 0.0,
-                 mark_width: int = 0):
+                 mark_width: int = 0, positional: bool = True):
         super().__init__()
         self.d_model = d_model
+        self.positional = positional
         self.dropout = dropout
         self.dtype = dtype
         self.token_embedding = TokenEmbedding(c_in, d_model, dtype, g)
@@ -299,7 +349,8 @@ class DataEmbedding(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 x_mark: Optional[torch.Tensor] = None) -> torch.Tensor:
         v = self.token_embedding(x)
-        out = v + self._position(x.shape[1], v)[None]
+        out = v + self._position(x.shape[1], v)[None] if self.positional \
+            else v
         if x_mark is not None:
             if self.temporal_embedding is None:
                 raise ValueError("time marks passed to a DataEmbedding built "
@@ -384,43 +435,73 @@ class FullAttentionLayer(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """Post-norm attention + pointwise FFN (variant 'full', no MoE)."""
+    """Post-norm attention + pointwise FFN. `variant` picks the attention:
+    'full' (`FullAttentionLayer`, kernels K5/K6 behind its gate), or the
+    JAX package's extra variants 'ds', 'prob' and 'lsh'
+    (models/extra/attention_variants.py; plain PyTorch, as the JAX package
+    leaves them to XLA; 'lsh' is shared-QK self-attention). With
+    `moe_experts` > 0 a Switch mixture of expert FFNs (`moe_ffn`,
+    models/moe.py) replaces the dense one (`conv1`, `conv2`); its training
+    forward appends its load-balance loss to the `aux` list."""
 
     def __init__(self, d_model: int, d_ff: int, n_heads: int,
                  dtype: torch.dtype, g: torch.Generator,
                  activation: str = "gelu", use_fused: bool = False,
                  fused_max_len: int = 4096, fused_min_len: int = 256,
                  use_flash: bool = False, variant: str = "full",
-                 moe_experts: int = 0, dropout: float = 0.0):
+                 moe_experts: int = 0, moe_capacity_factor: float = 1.25,
+                 moe_top_k: int = 1, moe_aux_weight: float = 0.01,
+                 dropout: float = 0.0):
         super().__init__()
-        if variant != "full":
-            raise not_ported(f"attention_variant={variant!r}")
-        if moe_experts > 0:
-            raise not_ported("the MoE FFN (moe_experts > 0)")
         self.dtype = dtype
         self.activation = activation
         self.dropout = dropout
-        self.attention = FullAttentionLayer(
-            d_model, n_heads, dtype, g, use_fused=use_fused,
-            fused_max_len=fused_max_len, fused_min_len=fused_min_len,
-            use_flash=use_flash, attention_dropout=dropout)
+        self.variant = variant
+        if variant == "full":
+            self.attention = FullAttentionLayer(
+                d_model, n_heads, dtype, g, use_fused=use_fused,
+                fused_max_len=fused_max_len, fused_min_len=fused_min_len,
+                use_flash=use_flash, attention_dropout=dropout)
+        else:
+            from sie_tpu_torch.models.extra import attention_variants as av
+            cls = {"ds": av.DSAttentionLayer, "prob": av.ProbAttentionLayer,
+                   "lsh": av.LSHAttentionLayer}.get(variant)
+            if cls is None:
+                raise ValueError(f"unknown attention_variant {variant!r}")
+            self.attention = cls(d_model, n_heads, dtype, g,
+                                 attention_dropout=dropout)
         self.norm1 = layer_norm_module(d_model)
-        self.conv1 = linear(d_model, d_ff, g)
-        self.conv2 = linear(d_ff, d_model, g)
+        if moe_experts > 0:
+            from sie_tpu_torch.models.moe import MoEFFN
+            self.moe_ffn = MoEFFN(d_model, d_ff, moe_experts, dtype, g,
+                                  moe_capacity_factor, moe_top_k, dropout,
+                                  activation, moe_aux_weight)
+        else:
+            self.conv1 = linear(d_model, d_ff, g)
+            self.conv2 = linear(d_ff, d_model, g)
         self.norm2 = layer_norm_module(d_model)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                aux: Optional[list] = None):
         drop = lambda z: dropout(z, self.dropout, generator, self.training)
-        x = x + drop(self.attention(x, x, x, generator))
+        if self.variant == "lsh":
+            attn = self.attention(x, generator)
+        else:
+            attn = self.attention(x, x, x, generator)
+        x = x + drop(attn)
         x = y = layer_norm(self.norm1, x)
-        act = F.relu if self.activation == "relu" else gelu
-        y = drop(act(dense(y, self.conv1, self.dtype)))
-        y = drop(dense(y, self.conv2, self.dtype))
+        if hasattr(self, "moe_ffn"):
+            y = drop(self.moe_ffn(y, generator, aux))
+        else:
+            act = F.relu if self.activation == "relu" else gelu
+            y = drop(act(dense(y, self.conv1, self.dtype)))
+            y = drop(dense(y, self.conv2, self.dtype))
         return layer_norm(self.norm2, x + y)
 
 
 class Encoder(nn.Module):
-    """Stack of EncoderLayers + final LayerNorm."""
+    """Stack of EncoderLayers + final LayerNorm. `aux` collects the MoE
+    layers' training losses (EncoderLayer)."""
 
     def __init__(self, e_layers: int, d_model: int, **kw):
         super().__init__()
@@ -428,10 +509,32 @@ class Encoder(nn.Module):
             EncoderLayer(d_model, **kw) for _ in range(e_layers))
         self.norm = layer_norm_module(d_model)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                aux: Optional[list] = None):
         for layer in self.layers:
-            x = layer(x, generator)
+            x = layer(x, generator, aux)
         return layer_norm(self.norm, x)
+
+
+class ConvLayer(nn.Module):
+    """The distil downsampling between encoder layers (the JAX package's
+    `ConvLayer`): circular pad of 2 on each side of time, a k=3 conv
+    (`downConv`, PyTorch's default init), BatchNorm (`norm`), ELU, then
+    max-pool k=3, stride 2, pad 1 (-inf padding). (B, T, D) ->
+    (B, floor((T+1)/2) + 1, D). No model of either package reaches it."""
+
+    def __init__(self, d_model: int, dtype: torch.dtype, g: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        self.downConv = conv(nn.Conv1d, d_model, d_model, 3, g,
+                             bias_fan_in=3 * d_model)
+        self.norm = BatchNorm(d_model, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xp = torch.cat([x[:, -2:], x, x[:, :2]], dim=1).transpose(1, 2)
+        h = F.elu(self.norm(conv_forward(self.downConv, xp, self.dtype)))
+        h = F.max_pool1d(F.pad(h, (1, 1), value=float("-inf")), 3, 2)
+        return h.transpose(1, 2)
 
 
 class DecoderLayer(nn.Module):

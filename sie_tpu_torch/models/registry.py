@@ -1,9 +1,11 @@
 """Model registry (counterpart of sie_tpu/models/registry.py): the models
-this slice ports. Other names raise NotImplementedError."""
+and the deep backbones (`DNNS`, as the JAX package's `DNN_REGISTRY`:
+the stock five and the Autoformer, FEDformer, ETSformer, Pyraformer and
+Crossformer classifiers of models/extra/backbones.py). Other names raise."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -11,16 +13,20 @@ from torch import nn
 from sie_tpu_torch.config import Config
 from sie_tpu_torch.device import DeviceLike, resolve_device
 from sie_tpu_torch.models.info import ModelInfo
-from sie_tpu_torch.models.layers import not_ported
 
 MODELS = ("InterpGN", "SBM", "LTS", "DNN", "EEGCNN")
-DNNS = ("Transformer", "FCN", "ResNet", "TimesNet", "PatchTST")
+EXTRA_DNNS = ("Autoformer", "FEDformer", "ETSformer", "Pyraformer",
+              "Crossformer")
+DNNS = ("Transformer", "FCN", "ResNet", "TimesNet", "PatchTST") + EXTRA_DNNS
 
 
 def build_dnn(cfg: Config, g: torch.Generator) -> nn.Module:
     """The backbone `cfg.dnn_type`, one of DNNS."""
     if cfg.dnn_type not in DNNS:
-        raise not_ported(f"dnn_type={cfg.dnn_type!r}")
+        raise ValueError(f"dnn_type {cfg.dnn_type!r} not in {DNNS}")
+    if cfg.dnn_type in EXTRA_DNNS:
+        from sie_tpu_torch.models.extra.backbones import BACKBONES
+        return BACKBONES[cfg.dnn_type](cfg, g)
     if cfg.dnn_type == "FCN":
         from sie_tpu_torch.models.fcn import FullyConvNetwork
         return FullyConvNetwork(cfg, g)
@@ -37,6 +43,20 @@ def build_dnn(cfg: Config, g: torch.Generator) -> nn.Module:
     return Transformer(cfg, g)
 
 
+def call_dnn(dnn: nn.Module, x, padding_mask,
+             generator: Optional[torch.Generator]
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(logits, the sum of the losses its layers add in training, or None)
+    of backbone `dnn`. A backbone whose `sows_losses` is true (the
+    Transformer with a MoE encoder) takes a list `aux` that its layers
+    append to, as flax layers sow into "losses"."""
+    if not (dnn.training and getattr(dnn, "sows_losses", False)):
+        return dnn(x, padding_mask, generator), None
+    sown: list = []
+    logits = dnn(x, padding_mask, generator, aux=sown)
+    return logits, (torch.stack(sown).sum() if sown else None)
+
+
 class DNNWrapper(nn.Module):
     """Bare backbone presented with the (logits, ModelInfo) interface."""
 
@@ -46,9 +66,10 @@ class DNNWrapper(nn.Module):
 
     def forward(self, x, padding_mask=None, gating_value=None,
                 generator: Optional[torch.Generator] = None):
-        logits = self.backbone(x, padding_mask, generator)
+        logits, aux = call_dnn(self.backbone, x, padding_mask, generator)
         return logits, ModelInfo(preds=logits,
-                                 loss=torch.zeros(1, device=logits.device))
+                                 loss=torch.zeros(1, device=logits.device),
+                                 aux_loss=aux)
 
 
 def build_model(cfg: Config, device: DeviceLike = None,
@@ -70,5 +91,5 @@ def build_model(cfg: Config, device: DeviceLike = None,
         from sie_tpu_torch.models.eegcnn import EEGCNNTransformer
         model = EEGCNNTransformer(cfg, g)
     else:
-        raise not_ported(f"model={cfg.model!r}")
+        raise ValueError(f"model {cfg.model!r} not in {MODELS}")
     return model.to(dev).eval()

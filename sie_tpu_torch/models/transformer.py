@@ -10,7 +10,10 @@
 - `TransformerImputer`: encoder + per-step projection; the anomaly
   detector is the same network called without time marks.
 
-The encoder's attention takes kernels K5/K6 at `seq_len` >= the config's
+The classifier's encoder takes the config's `attention_variant` and
+`moe_*` (models/layers.py `EncoderLayer`); a MoE encoder's training
+losses go to the `aux` list `forward` takes. The encoder's full attention
+takes kernels K5/K6 at `seq_len` >= the config's
 `fused_attention_min_len` (256), as in the JAX package; the decoder's
 attentions always take the plain branch. `mark_width` is the width of
 the temporal embedding (layers.mark_width; 0 = no time marks).
@@ -51,14 +54,21 @@ class Transformer(nn.Module):
         self.enc_embedding = _embedding(cfg, cfg.enc_in, g)
         self.encoder = _encoder(cfg, g, use_flash=cfg.use_flash_attention,
                                 variant=cfg.attention_variant,
-                                moe_experts=cfg.moe_experts)
+                                moe_experts=cfg.moe_experts,
+                                moe_capacity_factor=cfg.moe_capacity_factor,
+                                moe_top_k=cfg.moe_top_k,
+                                moe_aux_weight=cfg.moe_aux_weight)
         self.projection = linear(cfg.seq_len * cfg.d_model, cfg.num_class, g)
+        self.sows_losses = cfg.moe_experts > 0
 
     def forward(self, x: torch.Tensor,
                 padding_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                aux: Optional[list] = None) -> torch.Tensor:
+        """`aux`, a list, collects the MoE layers' training losses."""
         dt = self.cfg.compute_dtype
-        h = self.encoder(self.enc_embedding(x.to(dt), generator), generator)
+        h = self.encoder(self.enc_embedding(x.to(dt), generator), generator,
+                         aux)
         h = dropout(gelu(h), self.cfg.dropout, generator, self.training)
         if padding_mask is not None:
             h = h * padding_mask.to(h.dtype)[..., None]

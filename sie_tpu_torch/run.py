@@ -33,9 +33,9 @@ classification and regression splits in memmap caches under
 train step or eval pass makes, naming the step and the operation
 (utils/profiling.py). The flags of paths the port does not have yet raise
 NotImplementedError naming ROADMAP.md: `--mesh`, and `--loso` when the
-environment asks for several processes (SIE_TPU_COORDINATOR). Models,
-backbones, attention variants, data families and checkpoint converters
-that are not ported raise where they are built. `--no_pallas`,
+environment asks for several processes (SIE_TPU_COORDINATOR). Checkpoint
+converters the reference lacks (the extra backbones) raise where they are
+called. `--no_pallas`,
 `--multi_gpu` and `--num_workers` are accepted and change nothing, as in
 run.py off a TPU.
 """
@@ -103,8 +103,8 @@ def get_args(argv=None):
                    choices=["FCN", "Transformer", "TimesNet", "PatchTST",
                             "ResNet", "Autoformer", "FEDformer", "ETSformer",
                             "Pyraformer", "Crossformer"],
-                   help="Transformer, FCN, ResNet, TimesNet and PatchTST "
-                        "are ported; the others raise")
+                   help="deep backbone (InterpGN's expert, DNN, and the "
+                        "forecast, imputation and anomaly branches)")
     p.add_argument("--dataset", type=str, default="BasicMotions")
     p.add_argument("--lambda_reg", type=float, default=0.1)
     p.add_argument("--lambda_div", type=float, default=0.1)
@@ -181,7 +181,9 @@ def get_args(argv=None):
                    help="not ported yet (ROADMAP.md)")
     p.add_argument("--mesh_axes", type=str, default="data,model")
     p.add_argument("--moe_experts", type=int, default=0,
-                   help="not ported yet: > 0 raises")
+                   help="replace the Transformer encoder's FFN with a "
+                        "Switch mixture of this many expert FFNs "
+                        "(models/moe.py)")
     p.add_argument("--moe_capacity_factor", type=float, default=1.25)
     p.add_argument("--moe_top_k", type=int, default=1)
     p.add_argument("--moe_aux_weight", type=float, default=0.01)
@@ -204,7 +206,9 @@ def get_args(argv=None):
                         "plain path (0 = always the kernel)")
     p.add_argument("--attention_variant", type=str, default="full",
                    choices=["full", "ds", "prob", "lsh"],
-                   help="full is ported; the others raise")
+                   help="the Transformer encoder's attention (full runs "
+                        "the fused kernels; ds, prob and lsh are "
+                        "models/extra/attention_variants.py)")
     p.add_argument("--loso", action="store_true",
                    help="leave-one-subject-out sweep (EEG), the folds one "
                         "after another on one device")

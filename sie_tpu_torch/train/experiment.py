@@ -103,6 +103,20 @@ class Experiment:
         # memmaps): copying them whole to the device would defeat it
         self.device_resident = (not cfg.stream_from_disk
                                 and total_bytes < _HOST_LIMIT)
+        # MoE capacity counts every step of a row, real or padded
+        # (models/moe.py): warn once on ragged batches, as the JAX package
+        if cfg.moe_experts > 0:
+            pm = getattr(self.train_data, "padding_mask", None)
+            if pm is not None and float(np.min(pm)) == 0.0:
+                frac = 1.0 - float(np.mean(pm))
+                self._log(
+                    f"WARNING: --moe_experts with ragged batches — "
+                    f"{100 * frac:.1f}% of timesteps are padding and are "
+                    f"routed like real tokens, consuming expert capacity "
+                    f"(models/moe.py). Real tokens may be dropped at the "
+                    f"capacity margin; raise --moe_capacity_factor (e.g. by "
+                    f"1/(1-{frac:.2f}) = {1.0 / max(1e-6, 1 - frac):.2f}x) "
+                    f"to absorb the padded load.")
 
     def _log(self, msg: str):
         if self.verbose:

@@ -47,15 +47,10 @@ from torch import nn
 from sie_tpu_torch.config import Config
 from sie_tpu_torch.data.provider import data_provider
 from sie_tpu_torch.device import DeviceLike, resolve_device
-from sie_tpu_torch.models.layers import mark_width, not_ported
+from sie_tpu_torch.models.layers import mark_width
 from sie_tpu_torch.train.trainer import make_optimizer
 from sie_tpu_torch.utils.metrics import MAE, MAPE, MSE, MSPE, RMSE
 from sie_tpu_torch.utils.tools import EarlyStopping
-
-# the JAX package's other task backbones (models/extra), not ported yet
-_UNPORTED_FAMILIES = ("Autoformer", "FEDformer", "ETSformer", "Pyraformer",
-                      "Crossformer")
-
 
 def build_task_model(cfg: Config, task: str,
                      g: Optional[torch.Generator] = None,
@@ -63,10 +58,16 @@ def build_task_model(cfg: Config, task: str,
     """The `task` ('forecast', 'imputation' or 'anomaly') branch of backbone
     `cfg.dnn_type`, its weights from `g` (default seed 0) and its temporal
     embedding reading `marks` columns of time marks (0: none; the anomaly
-    heads read none)."""
+    heads read none). The extra families (Autoformer, FEDformer,
+    ETSformer, Pyraformer, Crossformer) forecast with models/extra/
+    forecasters.py and impute and detect anomalies with
+    `make_dense_task`, as in the JAX package."""
+    from sie_tpu_torch.models.extra import forecasters as fc
+    from sie_tpu_torch.models.extra.backbones import make_dense_task
     from sie_tpu_torch.models.patchtst import (PatchTSTAnomalyDetector,
                                                PatchTSTForecaster,
                                                PatchTSTImputer)
+    from sie_tpu_torch.models.registry import EXTRA_DNNS
     from sie_tpu_torch.models.timesnet import (TimesNetAnomalyDetector,
                                                TimesNetForecaster,
                                                TimesNetImputer)
@@ -76,7 +77,12 @@ def build_task_model(cfg: Config, task: str,
     table = {
         "forecast": {"Transformer": TransformerForecaster,
                      "TimesNet": TimesNetForecaster,
-                     "PatchTST": PatchTSTForecaster},
+                     "PatchTST": PatchTSTForecaster,
+                     "Autoformer": fc.AutoformerForecaster,
+                     "FEDformer": fc.FEDformerForecaster,
+                     "ETSformer": fc.ETSformerForecaster,
+                     "Pyraformer": fc.PyraformerForecaster,
+                     "Crossformer": fc.CrossformerForecaster},
         "imputation": {"Transformer": TransformerImputer,
                        "TimesNet": TimesNetImputer,
                        "PatchTST": PatchTSTImputer},
@@ -84,12 +90,13 @@ def build_task_model(cfg: Config, task: str,
                     "TimesNet": TimesNetAnomalyDetector,
                     "PatchTST": PatchTSTAnomalyDetector},
     }
-    if cfg.dnn_type in _UNPORTED_FAMILIES:
-        raise not_ported(f"the {cfg.dnn_type} {task} branch")
+    for fam in EXTRA_DNNS:
+        table["imputation"][fam] = table["anomaly"][fam] = \
+            make_dense_task(fam)
     if cfg.dnn_type not in table[task]:
         raise ValueError(
             f"dnn_type {cfg.dnn_type!r} has no {task} branch "
-            f"(available: {sorted(table[task]) + list(_UNPORTED_FAMILIES)})")
+            f"(available: {sorted(table[task])})")
     g = torch.Generator().manual_seed(0) if g is None else g
     # the anomaly heads are called without marks, so flax builds no
     # temporal embedding there
@@ -256,8 +263,11 @@ class ForecastExperiment(_TaskExperiment):
 
     task = "forecast"
     test_data = None   # staged at the first test
-    # backbones that take the encoder-decoder protocol (ported: Transformer)
-    _ENC_DEC = frozenset({"Transformer"})
+    # backbones that take TSlib's encoder-decoder protocol (the extra
+    # families read the decoder's marks; the Autoformer family builds its
+    # own decoder input from the look-back)
+    _ENC_DEC = frozenset({"Transformer", "Autoformer", "FEDformer",
+                          "ETSformer", "Pyraformer", "Crossformer"})
 
     def _derive_cfg(self, cfg: Config) -> Config:
         ds = data_provider(cfg, "train")[0]

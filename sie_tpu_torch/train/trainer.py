@@ -111,10 +111,12 @@ def weighted_ce(logits: torch.Tensor, labels: torch.Tensor,
 
 def make_loss_fn(cfg: Config, loss_head: Optional[Callable] = None):
     """loss_fn(model, batch, beta, generator) -> (loss, (logits, info)):
-    the head of the logits + the mean model loss (+ beta * the head of the
-    SBM logits for InterpGN); beta is a float or a 0-d f32 tensor on the
-    batch's device. loss_head(logits, targets, weights) -> scalar defaults
-    to `weighted_ce`; the regression experiment passes a CRPS head."""
+    the head of the logits + the layers' training losses (`info.aux_loss`,
+    the MoE load balance; the JAX package's sown "losses") + the mean
+    model loss (+ beta * the head of the SBM logits for InterpGN); beta is
+    a float or a 0-d f32 tensor on the batch's device. loss_head(logits,
+    targets, weights) -> scalar defaults to `weighted_ce`; the regression
+    experiment passes a CRPS head."""
     head = loss_head or weighted_ce
     is_interpgn = cfg.model == "InterpGN"
 
@@ -123,6 +125,8 @@ def make_loss_fn(cfg: Config, loss_head: Optional[Callable] = None):
         x, y, mask, w = batch
         logits, info = model(x, mask, generator=generator)
         loss = head(logits, y, w)
+        if info.aux_loss is not None:
+            loss = loss + info.aux_loss
         if info.loss is not None:
             loss = loss + info.loss.mean()
         if is_interpgn:

@@ -5,7 +5,9 @@ that lazily imported modules count too. chip_smoke.py and the port's
 profiling scripts run on a machine without JAX. Nor `msgpack`: the port
 reads and writes flax's checkpoint format with the standard library. Nor
 `pandas`, which that machine lacks: the port reads and writes its CSVs
-with the `csv` module."""
+with the `csv` module. Nor `scipy`: the port keeps its own copies of what
+the JAX package takes from it (`next_fast_len`, the Gauss-Legendre rule
+through numpy)."""
 
 import ast
 import glob
@@ -15,7 +17,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "sie_tpu", "msgpack",
-             "pandas"}
+             "pandas", "scipy"}
 FILES = sorted(
     [os.path.relpath(p, ROOT) for p in
      glob.glob(os.path.join(ROOT, "sie_tpu_torch", "**", "*.py"),
@@ -54,6 +56,13 @@ def test_the_list_covers_the_port():
                 "data/m4.py", "data/anomaly.py", "data/table.py",
                 "utils/losses.py", "utils/masking.py",
                 "utils/timefeatures.py", "utils/m4_summary.py",
-                "utils/metrics.py", "train/tasks.py"):
+                "utils/metrics.py", "train/tasks.py", "models/moe.py",
+                "utils/threefry.py", "models/extra/attention_variants.py",
+                "models/extra/autoformer.py", "models/extra/fourier.py",
+                "models/extra/etsformer.py", "models/extra/pyraformer.py",
+                "models/extra/crossformer.py",
+                "models/extra/conv_blocks.py", "models/extra/backbones.py",
+                "models/extra/forecasters.py",
+                "models/extra/multiwavelet.py"):
         assert f"sie_tpu_torch/{new}" in FILES
     assert len(FILES) >= 45

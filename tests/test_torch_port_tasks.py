@@ -13,7 +13,9 @@ semantics Adam, so
   loss and the test metrics within 1e-5 relative, given the keep masks
   the JAX package draws (reproduced here with jax.random);
 - `adjust_predictions` bit-equal; the command line writes the pickle
-  and M4's forecast CSV; the Autoformer family raises naming ROADMAP.md.
+  and M4's forecast CSV; the Autoformer family's forecast (Autoformer),
+  imputation (FEDformer) and anomaly (Crossformer) experiments run as the
+  JAX ones.
 """
 
 import os
@@ -147,9 +149,13 @@ def test_short_term_smape_like_jax(root):
 
 @pytest.mark.parametrize("dnn", ["TimesNet", "Transformer"])
 def test_imputation_loss_and_test_with_the_jax_masks(root, dnn):
+    _imputes_like_jax(root, dnn)
+
+
+def _imputes_like_jax(root, dnn, **kw):
     jexp, params, pexp = _pair("ImputationExperiment", dnn_type=dnn,
                                data="custom", data_root=root, dataset="ett",
-                               mask_rate=0.25)
+                               mask_rate=0.25, **kw)
     rate = 0.25
     x, xm = (np.array(a[:16]) for a in jexp.train_data)
     rng = jax.random.key(11)
@@ -217,6 +223,24 @@ def test_cli_writes_the_pickle_and_the_m4_forecasts(root, capsys):
 
 
 @pytest.mark.parametrize("task", ["forecast", "imputation", "anomaly"])
-def test_autoformer_family_raises_naming_the_roadmap(task):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ptasks.build_task_model(Config(dnn_type="Autoformer"), task)
+def test_autoformer_family_raises_naming_the_roadmap(root, task):
+    """Once a refusal (the family was not ported; the name is kept): the
+    Autoformer family's branch of each task now runs as the JAX one from
+    the same weights. Forecast (Autoformer): 2 epochs' losses and the test
+    metrics within 1e-4 relative; imputation (FEDformer): the loss and the
+    test metrics under the JAX masks within 1e-5; anomaly (Crossformer): 2
+    epochs' losses and the metrics within 1e-4."""
+    if task == "forecast":
+        jexp, _, pexp = _pair("ForecastExperiment", dnn_type="Autoformer",
+                              data="custom", data_root=root, dataset="ett",
+                              features="MS", moving_avg=5)
+        best, pbest = _trains_like_jax(jexp, pexp)
+        _close(pexp.test(pbest), jexp.test(best), REL)
+    elif task == "imputation":
+        _imputes_like_jax(root, "FEDformer", moving_avg=5)
+    else:
+        jexp, _, pexp = _pair("AnomalyExperiment", dnn_type="Crossformer",
+                              data="SMD", data_root=root, seq_len=40,
+                              anomaly_ratio=5.0)
+        best, pbest = _trains_like_jax(jexp, pexp)
+        _close(pexp.test(pbest), jexp.test(best), REL)

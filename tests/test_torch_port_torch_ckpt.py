@@ -25,7 +25,8 @@ from sie_tpu.compat.torch_export import export_state_dict as jax_export
 from sie_tpu.config import Config as JConfig
 from sie_tpu.models import build_model as jax_build
 from sie_tpu_torch import run as port_run
-from sie_tpu_torch.compat.from_jax import to_jax_variables
+from sie_tpu_torch.compat.from_jax import (load_jax_variables,
+                                           to_jax_variables)
 from sie_tpu_torch.compat.torch_export import export_state_dict
 from sie_tpu_torch.compat.torch_import import (TorchImportError,
                                                convert_state_dict,
@@ -172,11 +173,29 @@ def test_timesnet_and_patchtst_converters_round_trip_through_both_packages(
 @pytest.mark.parametrize("dnn", ["Autoformer", "FEDformer", "ETSformer",
                                  "Pyraformer", "Crossformer"])
 def test_unported_backbones_raise_naming_the_roadmap(dnn):
-    """The JAX package's extra backbones, which the port lacks: building
-    one raises naming ROADMAP.md, and the importer has no converter."""
-    cfg = Config(**dict(BASE, model="InterpGN", dnn_type=dnn))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, "cpu")
+    """The JAX package's extra backbones, which the reference has no
+    checkpoint.pth layout for: the importer has no converter for them and
+    raises, as the JAX package's does. (Building one raised naming
+    ROADMAP.md while the port lacked them; InterpGN with each now builds
+    on the CPU and loads the JAX package's weights leaf for leaf.)"""
+    cfg = Config(**dict(BASE, model="InterpGN", dnn_type=dnn, c_out=3,
+                        moving_avg=5))
+    jcfg = JConfig(**dict(BASE, model="InterpGN", dnn_type=dnn, c_out=3,
+                          moving_avg=5, use_pallas=False))
+    x = jnp.zeros((2, cfg.seq_len, cfg.enc_in), jnp.float32)
+    shapes = jax.eval_shape(
+        lambda: jax_build(jcfg).init({"params": jax.random.key(0),
+                                      "dropout": jax.random.key(1)}, x,
+                                     jnp.ones(x.shape[:2]), train=False))
+    rng = np.random.default_rng(2)
+    variables = jax.tree.map(lambda a: rng.normal(size=a.shape).astype(
+        np.float32), dict(shapes))
+    model = load_jax_variables(build_model(cfg, "cpu"), variables)
+    back = to_jax_variables(model)
+    for key in variables:
+        for a, b in zip(jax.tree.leaves(back[key]),
+                        jax.tree.leaves(variables[key])):
+            np.testing.assert_array_equal(a, b)
     sd = {"sbm.shapelets.0.weights": np.zeros((2, 3, 4), np.float32),
           "sbm.output_layer.weight": np.zeros((3, 2), np.float32)}
     with pytest.raises(TorchImportError, match="no torch importer"):
