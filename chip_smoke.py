@@ -257,7 +257,26 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      each, first loss against the CPU; one imputation and one anomaly
      step of each dense head; --dnn_type FEDformer through the CLI on
      the forecast task for 1 epoch;
- 37. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
+ 37. (a) the multi-seed ensemble (train/ensemble.py) at the flagship's
+     width: five seeds (DEFAULT_SEEDS) trained as one captured step, each
+     on its own schedule over 640 numpy-seeded rows held on the card, B
+     64 a seed, dropout 0.1: the warm-up and the capture launch K1 30, K2
+     30, K5 10, K6 10 and a replay nothing; after 5 steps every seed's
+     losses, parameters and Adam state equal a lone Trainer's graph
+     replays of that seed, bit for bit; the median of 10 replays and its
+     idle share beside the sum of the lone replays' medians; the peak
+     memory of 5 seeds and of 1; seed 42 stopped at step 3 stays frozen
+     (parameters, moments, count) while the others move, without a new
+     capture;
+ 38. (b) the UEA sweep: a SelfRegulationSCP2-shaped synthetic archive (7
+     channels x 1152, 200 train and 180 test cases, noise added) through
+     scripts/port_uea_ensemble_sweep.py with run_uea.sh's flags (InterpGN
+     + FCN, f32, 6 epochs at patience 2) and a missing dataset beside it:
+     parsed by the native .ts scanner, K1 30 and K2 30 a step (warm-up and
+     capture) and no K5/K6, the missing dataset skipped, each seed's
+     result equal to a driver run of that seed alone, a seed stopped
+     early; the sweep's seconds against the five lone runs';
+ 39. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
      timed training steps of each kernel's path, plus, split in
      `launches_by_path`, phases 16, 17 and 19's UEA run for K1 and K2, the
      serving paths for K1, K3 and K5: phase 5, phase 11's requests, phase
@@ -265,10 +284,12 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      30 for K1, K2, K5 and K6, phases 27-29 for K1 and K2, phase 31 (b)
      for K5 and K6 as `forecast_long`, phase 33 for K1, K2, K5 and K6 as
      `moe`, phases 34 and 35 for K1 and K2 as `variants` and
-     `extra_experts`), then the device line.
+     `extra_experts`, phase 37 for K1, K2, K5 and K6 as `ensemble`, phase
+     38 for K1 and K2 as `ensemble_uea`), then the device line.
 
-The K5 and K6 phases (4, 6, 8, 12), the serving phases (20-22) and
-phases 23-36 run under a time limit that ends the process (and the
+After each phase a `[time]` line gives its seconds and the seconds since
+the start. The K5 and K6 phases (4, 6, 8, 12), the serving phases (20-22)
+and phases 23-38 run under a time limit that ends the process (and the
 servers it started), so that a kernel that hangs fails the run instead of
 holding the card. Times
 are CUDA-event times after warm-up (kernels) or host-clock times of work
@@ -4227,56 +4248,402 @@ def phase_extra(tmp: str, smi: str) -> tuple:
     return moe, variants, experts
 
 
+# ---- phases 37-38: the multi-seed ensemble ---------------------------------
+ENS_SEEDS = (0, 42, 1234, 8237, 2023)   # DEFAULT_SEEDS, run.py's five seeds
+ENS_ROWS = 640          # numpy-seeded rows held on the card
+ENS_CHECK = 5           # steps held against lone replays, bit for bit
+ENS_WARMUP, ENS_TIMED = 3, 10
+ENS_STOP_SEED, ENS_STOP_STEP = 42, 3
+ENS_WANT = {"K1": 30, "K2": 30, "K5": 10, "K6": 10}   # 5 x a flagship step
+UEA_ENS_WANT = {"K1": 30, "K2": 30}   # 5 x six stride-1 banks, FCN expert
+SCP2 = dict(n_train=200, n_test=180, n_dims=7, length=1152, n_classes=2)
+SWEEP_EPOCHS, SWEEP_PATIENCE = 6, 2   # run_uea.sh's 500 and 50, cut
+SCP2_NOISE = 4.0        # the series' noise, against sines of amplitude 1
+
+
+def ens_schedules(n_rows: int, b: int, seeds) -> list:
+    """Each seed's schedule of one epoch over n_rows: its own permutation
+    (np.random.default_rng(seed + 100)) in batches of b."""
+    out = []
+    for s in seeds:
+        order = np.random.default_rng(s + 100).permutation(n_rows)
+        out.append([(order[i * b:(i + 1) * b], np.ones(b, np.float32))
+                    for i in range(n_rows // b)])
+    return out
+
+
+def moved_state(trainer) -> list:
+    """Copies of what a train step moves: parameters, Adam's moments and
+    step counts, and the optimizer count."""
+    opt = trainer.optimizer
+    return ([p.detach().clone() for p in opt.params]
+            + [opt.adam.state[p][k].clone() for p in opt.params
+               for k in ("exp_avg", "exp_avg_sq", "step")]
+            + [opt.count_t.clone()])
+
+
+def peak_mb(since: int) -> float:
+    return (torch.cuda.max_memory_allocated() - since) / 2 ** 20
+
+
+def lone_replays(cfg, seed: int, ds, sched, steps: int, timed_n: int):
+    """Seed `seed`'s lone trainer over its schedule: the losses of `steps`
+    staged steps (warm-up, capture, replays), then `timed_n` timed replays
+    -> (trainer, losses, replay ms)."""
+    from sie_tpu_torch.train.trainer import Trainer
+    t = Trainer(cfg.replace(seed=seed), len(sched), device="cuda",
+                generator=torch.Generator().manual_seed(max(seed, 0)))
+    dev = t.device_data("train", ds)
+    staged = t.stage_steps(sched, 1.0)
+    losses = [t.train_step_staged(dev, staged, k)[0] for k in range(steps)]
+    state = moved_state(t)
+    it = iter(range(steps, 10 ** 6))
+    ms = timed(lambda: t.train_step_staged(dev, staged,
+                                           next(it) % len(sched)), timed_n)
+    return state, losses, ms
+
+
+def phase_ensemble(smi: str) -> dict:
+    """(a) The flagship ensemble at full width: five seeds (DEFAULT_SEEDS)
+    trained as one captured step, each on its own schedule over ENS_ROWS
+    numpy-seeded rows held on the card, dropout RATE. Each step's warm-up
+    and capture launch K1 30, K2 30, K5 10, K6 10 and a replay nothing;
+    after ENS_CHECK steps every seed's losses, parameters and Adam state
+    equal a lone Trainer's graph replays of that seed, bit for bit; the
+    median of ENS_TIMED replays and the idle share beside the sum of the
+    lone replays' medians, and the peak memory of 5 seeds and of 1; a
+    second ensemble with seed ENS_STOP_SEED stopped at step ENS_STOP_STEP:
+    its state frozen, the others moving, no new capture. Returns the
+    launches counted over the ensemble's steps."""
+    from sie_tpu_torch.train.ensemble import EnsembleTrainer
+    cfg = train_config(dropout=RATE)
+    ds = random_rows(cfg, ENS_ROWS)
+    scheds = ens_schedules(ENS_ROWS, cfg.batch_size, ENS_SEEDS)
+    counts = Counts()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counts.zero()   # the path's main run
+    et = EnsembleTrainer(cfg, len(scheds[0]), ENS_SEEDS, device="cuda")
+    dev = et.device_data("train", ds)
+    staged = et.stage_steps(scheds, 1.0)
+    expect, none = Counts.full(ENS_WANT), Counts.full({})
+    losses = []
+    for k in range(ENS_CHECK):
+        c0 = counts.read()
+        loss, logits = et.train_step_staged(dev, staged, k)
+        got = counts.since(c0)
+        if got != (expect if k < 2 else none) or \
+                not torch.isfinite(loss).all() or \
+                logits.shape != (len(ENS_SEEDS), cfg.batch_size,
+                                 cfg.num_class):
+            fail(f"ensemble step {k}: launches {got}, losses {loss}")
+        losses.append(loss)
+    launches = counts.read()
+    torch.cuda.synchronize()
+    peak5 = peak_mb(base)
+    if len(et.captures) != 1:
+        fail(f"ensemble: {len(et.captures)} graphs captured, want 1")
+    lone_ms = []
+    peak1 = None
+    for i, s in enumerate(ENS_SEEDS):
+        torch.cuda.synchronize()
+        base1 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state, lone_losses, ms = lone_replays(cfg, s, ds, scheds[i],
+                                              ENS_CHECK, ENS_TIMED)
+        if peak1 is None:
+            torch.cuda.synchronize()
+            peak1 = peak_mb(base1)
+        lone_ms.append(float(np.median(ms)))
+        same = all(torch.equal(a, b[i]) for a, b in zip(lone_losses, losses))
+        same = same and all(torch.equal(a, b) for a, b in zip(
+            state, moved_state(et.trainers[i])))
+        if not same:
+            fail(f"ensemble seed {s}: losses or state after {ENS_CHECK} "
+                 f"steps differ from its lone replays")
+        del state, lone_losses
+        torch.cuda.empty_cache()
+    print(f"[ensemble] {ENS_CHECK} steps of {len(ENS_SEEDS)} seeds: "
+          f"launches {launches} (warm-up and capture, replays none); "
+          f"every seed's losses, parameters and Adam state bit-equal to "
+          f"its lone replays; losses at step {ENS_CHECK - 1}: "
+          f"{[round(float(v), 6) for v in losses[-1]]}")
+    it = iter(range(ENS_CHECK, 10 ** 6))
+    step = lambda: et.train_step_staged(dev, staged,
+                                        next(it) % len(scheds[0]))
+    for _ in range(ENS_WARMUP):
+        step()
+    times = timed(step, ENS_TIMED)
+    _, idle = idle_share(step, 3)
+    ens_ms = float(np.median(times))
+    print(f"[ensemble] {ENS_TIMED} replays of the 5-seed step (B="
+          f"{cfg.batch_size} a seed): " + ", ".join(f"{v:.3f}" for v in times)
+          + f"; median {ens_ms:.3f} ms, idle share {idle:.4f}; lone "
+          f"replays' medians {[round(v, 3) for v in lone_ms]}, sum "
+          f"{sum(lone_ms):.3f} ms; ratio {ens_ms / sum(lone_ms):.4f}; {smi}")
+    print(f"[ensemble] peak memory above the data: 5 seeds {peak5:.1f} MiB"
+          f", 1 seed {peak1:.1f} MiB; {smi}")
+    del et, dev, staged, losses
+    torch.cuda.empty_cache()
+    # a seed stopped at ENS_STOP_STEP: frozen, the others moving, one graph
+    et = EnsembleTrainer(cfg, len(scheds[0]), ENS_SEEDS, device="cuda")
+    dev = et.device_data("train", ds)
+    staged = et.stage_steps(scheds, 1.0)
+    alive = np.ones(len(ENS_SEEDS), np.float32)
+    stop = ENS_SEEDS.index(ENS_STOP_SEED)
+    for k in range(ENS_CHECK + 1):
+        if k == ENS_STOP_STEP:
+            alive[stop] = 0.0
+            before = [moved_state(t) for t in et.trainers]
+        et.train_step_staged(dev, staged, k, alive)
+    after = [moved_state(t) for t in et.trainers]
+    frozen = all(torch.equal(a, b) for a, b in zip(before[stop],
+                                                   after[stop]))
+    moving = [i for i in range(len(ENS_SEEDS)) if i != stop and not any(
+        torch.equal(a, b) for a, b in zip(before[i][:1], after[i][:1]))]
+    count = et.trainers[stop].optimizer.count
+    if not frozen or len(moving) != len(ENS_SEEDS) - 1 or \
+            len(et.captures) != 1 or count != ENS_STOP_STEP:
+        fail(f"ensemble alive: seed {ENS_STOP_SEED} frozen {frozen}, "
+             f"moving seeds {moving}, count {count}, {len(et.captures)} "
+             f"graphs")
+    print(f"[ensemble] seed {ENS_STOP_SEED} stopped at step "
+          f"{ENS_STOP_STEP}: parameters, moments and count ({count}) "
+          f"frozen over {ENS_CHECK + 1 - ENS_STOP_STEP} steps, the other "
+          f"{len(moving)} seeds moved, {len(et.captures)} graph captured")
+    del et, dev, staged, before, after
+    torch.cuda.empty_cache()
+    return launches
+
+
+def add_noise(path: str, sigma: float, seed: int) -> None:
+    """Adds noise of deviation `sigma` from np.random.default_rng(seed) to
+    every value of a .ts file: the synthetic classes separate at the first
+    epoch (validation accuracy 1, and a tie resets the patience), as
+    SelfRegulationSCP2's do not."""
+    rng = np.random.default_rng(seed)
+    with open(path) as f:
+        lines = f.read().splitlines()
+    start = next(i for i, l in enumerate(lines) if l.startswith("@data")) + 1
+    for i in range(start, len(lines)):
+        *dims, label = lines[i].split(":")
+        noisy = []
+        for d in dims:
+            v = np.array(d.split(","), np.float64)
+            v += rng.normal(0.0, sigma, v.shape)
+            noisy.append(",".join(f"{x:.6f}" for x in v))
+        lines[i] = ":".join(noisy + [label])
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def sweep_argv(root: str, tmp: str, datasets) -> list:
+    """run_uea.sh's flags through the port's sweep script, its epochs and
+    patience cut to SWEEP_EPOCHS and SWEEP_PATIENCE."""
+    return ["--data", "UEA", "--data_root", root, "--datasets", *datasets,
+            "--model", "InterpGN", "--dnn_type", "FCN", "--num_shapelet",
+            "10", "--lambda_div", "0.1", "--lambda_reg", "0.1", "--epsilon",
+            "1", "--gating_value", "1", "--batch_size", "32", "--lr", "5e-3",
+            "--no-amp", "--train_epochs", str(SWEEP_EPOCHS), "--patience",
+            str(SWEEP_PATIENCE),
+            "--log_interval", "100", "--cache_dir", os.path.join(tmp, "c"),
+            "--checkpoint_dir", os.path.join(tmp, "ck"), "--result_dir",
+            os.path.join(tmp, "r"), "--device", "cuda"]
+
+
+def phase_ensemble_uea(tmp: str, smi: str) -> dict:
+    """(b) The UEA sweep: a SelfRegulationSCP2-shaped synthetic archive (7
+    channels x 1152, 2 classes, 200 train and 180 test cases) through
+    scripts/port_uea_ensemble_sweep.py with run_uea.sh's flags (InterpGN +
+    FCN, f32), 6 epochs at patience 2, five seeds, and a missing dataset
+    beside it; noise of deviation SCP2_NOISE added to the series
+    (`add_noise`), so that early stopping is reached. Fails unless the native .ts scanner parsed the
+    archive, each training step's warm-up and capture launch K1 30 and K2
+    30 (six stride-1 banks a seed) and no K5/K6 and a replay nothing, the
+    missing
+    dataset is skipped, each seed's result equals a driver run with that
+    seed alone, and a seed stopped early. Returns the launches counted
+    over the sweep."""
+    import importlib
+    from sie_tpu_torch.data import native
+    from sie_tpu_torch.data.synthetic import write_synthetic_uea
+    from sie_tpu_torch.train import ensemble, ensemble_driver
+    sys.path.insert(0, ROOT)
+    sweep = importlib.import_module("scripts.port_uea_ensemble_sweep")
+    root = os.path.join(tmp, "uea_scp2")
+    write_synthetic_uea(root, "SelfRegulationSCP2", seed=0, **SCP2)
+    for i, split in enumerate(("TRAIN", "TEST")):
+        add_noise(os.path.join(root, "SelfRegulationSCP2",
+                               f"SelfRegulationSCP2_{split}.ts"),
+                  SCP2_NOISE, seed=i)
+    counts = Counts()
+    per_step, results = [], []
+    step_fn = ensemble.EnsembleTrainer.train_step_staged
+    run_fn = ensemble_driver.run_ensemble_experiment
+
+    def counted_step(self, *a, **kw):
+        c0 = counts.read()
+        out = step_fn(self, *a, **kw)
+        per_step.append(counts.since(c0))
+        return out
+
+    def recorded_run(*a, **kw):
+        out = run_fn(*a, **kw)
+        results.append(out)
+        return out
+
+    from sie_tpu_torch.run import args_to_config, get_args
+    args = get_args([a for a in sweep_argv(root, tmp, [])
+                     if a != "--datasets"])
+    config = lambda s: args_to_config(args, seed=s).replace(
+        data="UEA", dataset="SelfRegulationSCP2")
+    # untimed: the process's first FCN steps, cuDNN's and the graphs' set-up
+    run_fn(config(ENS_SEEDS[0]).replace(train_epochs=1),
+           seeds=ENS_SEEDS[:1], verbose=False, device="cuda")
+    parsed = native.files_parsed
+    ensemble.EnsembleTrainer.train_step_staged = counted_step
+    ensemble_driver.run_ensemble_experiment = recorded_run
+    try:
+        counts.zero()   # the path's main run
+        t0 = time.perf_counter()
+        summary = sweep.main(sweep_argv(root, tmp, ["SelfRegulationSCP2",
+                                                    "Missing"]))
+        sweep_s = time.perf_counter() - t0
+        launches = counts.read()
+        swept = native.files_parsed - parsed
+    finally:
+        ensemble.EnsembleTrainer.train_step_staged = step_fn
+        ensemble_driver.run_ensemble_experiment = run_fn
+    if not native.native_available() or swept < 2:
+        fail(f"ensemble_uea: the native scanner parsed {swept} files")
+    if set(summary) != {"SelfRegulationSCP2"} or len(results) != 1:
+        fail(f"ensemble_uea: summary {summary}")
+    want, none = Counts.full(UEA_ENS_WANT), Counts.full({})
+    bad = [(k, got) for k, got in enumerate(per_step)
+           if got != (want if k < 2 else none)]
+    if bad or launches["K5"] or launches["K6"]:
+        fail(f"ensemble_uea: step launches {bad[:3]}, run {launches}")
+    lone_s, lone = [], []
+    for s in ENS_SEEDS:
+        t0 = time.perf_counter()
+        lone += run_fn(config(s), seeds=(s,), verbose=False, device="cuda")
+        lone_s.append(time.perf_counter() - t0)
+    if lone != results[0]:
+        fail(f"ensemble_uea: the sweep's seeds {results[0]} against lone "
+             f"driver runs {lone}")
+    if all(r["epoch_stop"] == SWEEP_EPOCHS - 1 for r in lone):
+        fail(f"ensemble_uea: no seed stopped early: {lone}")
+    print(f"[ensemble_uea] the sweep's native scanner parsed {swept} "
+          f"files; {len(per_step)} training steps, launches of the first "
+          f"two {per_step[:2]}, replays none; 'Missing' "
+          f"skipped; results {results[0]} equal to five lone driver runs")
+    print(f"[ensemble_uea] 5-seed sweep {sweep_s:.3f} s against five lone "
+          f"driver runs {[round(v, 3) for v in lone_s]} = "
+          f"{sum(lone_s):.3f} s; {smi}")
+    return launches
+
+
+def phase_ensembles(tmp: str, smi: str) -> tuple:
+    """Phases 37-38 under one time limit -> the launches of (a) and (b)."""
+    t0 = time.perf_counter()
+    flagship = phase_ensemble(smi)
+    t1 = time.perf_counter()
+    uea = phase_ensemble_uea(tmp, smi)
+    print(f"[ensemble] phases 37-38: {t1 - t0:.1f} + "
+          f"{time.perf_counter() - t1:.1f} s")
+    return flagship, uea
+
+
+def lap(what: str) -> None:
+    """Prints the seconds since the previous lap (a phase's time) and since
+    the start."""
+    now = time.perf_counter()
+    print(f"[time] {what}: {now - lap.last:.1f} s (at {now - lap.start:.1f} "
+          f"s)", flush=True)
+    lap.last = now
+
+
 def main() -> None:
     import tempfile
+    lap.last = lap.start = time.perf_counter()
     smi = phase_device()
+    lap("device")
     phase_build()
+    lap("build")
     k1 = phase_k1()
+    lap("k1")
     with time_limit(300, "the K5 phase"):
         k5 = phase_k5()
+        lap("k5")
     served, serve_launches = phase_serve()
+    lap("serve")
     with time_limit(300, "the K5 dropout phase"):
         phase_k5_dropout()
+        lap("k5_dropout")
     k2 = phase_k2()
+    lap("k2")
     with time_limit(300, "the K6 phase"):
         k6 = phase_k6()
+        lap("k6")
     launches = phase_train()
+    lap("train")
     k3, k4 = phase_k3_k4()
+    lap("k3_k4")
     fused, fused_serve = phase_fused(served)
+    lap("fused")
     del served
     with time_limit(600, "the long-sequence K5/K6 phase"):
         k7, k8a, k8b = phase_long_attention()
+        lap("long_attention")
     long_launches = phase_train_long()
+    lap("train_long")
     phase_graphs(smi)
+    lap("graphs")
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_cli(work)
+        lap("cli")
         uea_fcn = phase_uea("FCN", UEA_STEPS, True, "uea_fcn")
+        lap("uea_fcn")
         uea_resnet = phase_uea("ResNet", RESNET_STEPS, False, "uea_resnet")
+        lap("uea_resnet")
         phase_eegcnn(smi)
+        lap("eegcnn")
         cli_uea = phase_cli_bn()
+        lap("cli_bn")
         with time_limit(600, "the serving phases"):
             pred, bundle_dir, xs, bundle_ms, bundle = phase_bundle(work)
+            lap("bundle")
             phase_http(work, pred, bundle_dir, xs, bundle_ms)
+            lap("http")
             exported = phase_export(work, pred, xs)
+            lap("export")
         with time_limit(600, "the phases of run.py's other options"):
             augmented = phase_augment(smi)
+            lap("augment")
             regression = phase_regression(work)
+            lap("regression")
             phase_torch_ckpt(work)
+            lap("torch_ckpt")
             loso = phase_loso(work)
+            lap("loso")
         with time_limit(600, "the PatchTST and TimesNet phases"):
-            t0 = time.perf_counter()
             backbones = {"patchtst": phase_patchtst(smi)}
-            t1 = time.perf_counter()
+            lap("patchtst")
             backbones["timesnet"] = phase_timesnet(smi)
-            t2 = time.perf_counter()
+            lap("timesnet")
             by_cli = phase_backbone_cli(work)
-            print(f"[backbones] phases 27-29: {t1 - t0:.1f} + "
-                  f"{t2 - t1:.1f} + {time.perf_counter() - t2:.1f} s")
+            lap("backbone_cli")
         with time_limit(600, "the streaming and task phases"):
             streamed, forecast_long = phase_stream_and_tasks(work, smi)
+            lap("stream_and_tasks")
         with time_limit(600, "the MoE, variant and extra-family phases"):
             moe, variants, extra_experts = phase_extra(work, smi)
+            lap("extra")
+        with time_limit(300, "the ensemble phases"):
+            ensemble, ensemble_uea = phase_ensembles(work, smi)
+            lap("ensembles")
     finally:
         for proc in list(CHILDREN):
             stop_server(proc)
@@ -4287,7 +4654,8 @@ def main() -> None:
                "loso": loso, "stream": streamed}
     sbm_paths = {**backbones, "cli_patchtst": by_cli["PatchTST"],
                  "cli_timesnet": by_cli["TimesNet"], "moe": moe,
-                 "variants": variants, "extra_experts": extra_experts}
+                 "variants": variants, "extra_experts": extra_experts,
+                 "ensemble": ensemble, "ensemble_uea": ensemble_uea}
     others = {"K1": {"uea_fcn": uea_fcn, "uea_resnet": uea_resnet,
                      "cli_uea_fcn": cli_uea, "serve": serve_launches,
                      "serve_bundle": bundle, "serve_export": exported,
@@ -4297,8 +4665,10 @@ def main() -> None:
               "K3": {"serve_fused": fused_serve},
               "K5": {"serve": serve_launches, "serve_bundle": bundle,
                      "serve_export": exported, **options,
-                     "forecast_long": forecast_long, "moe": moe},
-              "K6": {**options, "forecast_long": forecast_long, "moe": moe}}
+                     "forecast_long": forecast_long, "moe": moe,
+                     "ensemble": ensemble},
+              "K6": {**options, "forecast_long": forecast_long, "moe": moe,
+                     "ensemble": ensemble}}
     paths = ((k1, launches, "K1"), (k2, launches, "K2"),
              (k3, fused, "K3"), (k4, fused, "K4"), (k5, launches, "K5"),
              (k6, launches, "K6"), (k7, long_launches, "K5"),

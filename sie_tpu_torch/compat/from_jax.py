@@ -31,7 +31,9 @@ norm's auto-named `LayerNorm_0` included) are the port's attribute names
 too.
 
 `load_jax_variables` fills a module from {"params", "batch_stats"};
-`load_jax_params` is its params-only case. Every flax leaf is consumed
+`load_jax_params` is its params-only case; `load_jax_seed_variables` fills
+one module per seed from variables stacked on a leading seed axis (the JAX
+package's EnsembleTrainer state). Every flax leaf is consumed
 exactly once and every PyTorch parameter (and every BatchNorm buffer) is
 filled: an unknown, duplicate or missing leaf, or a shape that differs,
 raises `ParamLoadError`. Values are copied in place, so a captured CUDA
@@ -223,6 +225,27 @@ def load_jax_variables(module: nn.Module, variables: MappingT[str, Any]
     _fill(module, variables.get("batch_stats", {}),
           batch_stats_buffers(module), "batch_stats buffer")
     return module
+
+
+def _seed_slice(tree: Any, i: int) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _seed_slice(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def load_jax_seed_variables(modules, variables: MappingT[str, Any]) -> None:
+    """Flax variables {"params", "batch_stats"} stacked on a leading seed
+    axis (the JAX package's EnsembleTrainer state, N seeds) into
+    `modules`, slice i into modules[i] by `load_jax_variables`: every leaf
+    must hold N slices, and each slice is consumed exactly once."""
+    n = len(modules)
+    for part in ("params", "batch_stats"):
+        for path, leaf in _flatten(variables.get(part, {})).items():
+            if np.ndim(leaf) == 0 or np.shape(leaf)[0] != n:
+                raise ParamLoadError(f"{part} leaf {path} of shape "
+                                     f"{np.shape(leaf)} holds no {n} seeds")
+    for i, module in enumerate(modules):
+        load_jax_variables(module, _seed_slice(variables, i))
 
 
 def port_layout(module: nn.Module, tree: Any) -> Dict[str, np.ndarray]:

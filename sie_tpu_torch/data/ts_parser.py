@@ -1,7 +1,7 @@
 """Parser for the `.ts` time-series archive format (UEA and Monash): a copy
-of the Python parser of sie_tpu/data/ts_parser.py. The JAX package's
-native C++ scanner is not ported yet (ROADMAP.md), so the port always
-parses in Python.
+of sie_tpu/data/ts_parser.py. `parse_ts_file` takes the native C++ scanner
+(data/native.py, built with g++ at first use) when it is available, and
+this Python parser otherwise, or when SIE_TPU_NO_NATIVE is set.
 
   # comment lines
   @problemName <name>
@@ -43,8 +43,20 @@ class TsFile:
         return len(self.series)
 
 
-def parse_ts_file(path: str) -> TsFile:
-    """Parse a .ts archive."""
+def parse_ts_file(path: str, use_native: bool = True) -> TsFile:
+    """Parse a .ts archive: through the native scanner
+    (sie_tpu_torch/native/ts_scan.cpp) when it is available, else with the
+    Python parser below, the reference it is held to. Set
+    SIE_TPU_NO_NATIVE=1 to force the Python path."""
+    if use_native and not os.environ.get("SIE_TPU_NO_NATIVE"):
+        from sie_tpu_torch.data.native import parse_ts_file_fast
+        parsed = parse_ts_file_fast(path)
+        if parsed is not None:
+            return parsed
+    return _parse_ts_file_py(path)
+
+
+def _parse_ts_file_py(path: str) -> TsFile:
     series: List[List[np.ndarray]] = []
     labels: List[str] = []
     class_labels: Optional[List[str]] = None

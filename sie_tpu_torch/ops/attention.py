@@ -42,6 +42,14 @@ argument. At long T the (BH, T, T) plain versions cannot be held, so
 values over chunks of query rows (exact: the softmax is over keys), with the
 global rows and columns and the index of the first (batch, head) row in the
 hash, so that a slice of heads can be checked against a full launch.
+
+Several seeds. The multi-seed ensemble (train/ensemble.py) launches K5 and
+K6 once per layer and seed, unbatched, as a lone step does: the
+counterpart of the JAX package's `sequential_vmap`
+(sie_tpu/ops/pallas/seq_vmap.py:12-23). Folding the seed axis into BH
+would change each mask's `bh` in the dropout hash, so seed i's masks would
+no longer be a `--seed i` run's; one launch per seed keeps them so, bit
+for bit.
 """
 
 from __future__ import annotations

@@ -33,6 +33,13 @@ is inference only.
 
 The gradient with respect to x is None: the JAX package returns zeros, and
 the input is always instance-normalised data with no parameters upstream.
+
+Under the multi-seed ensemble (train/ensemble.py) each seed's step calls
+these wrappers as a lone step does, one K1/K2 launch per bank and seed:
+the counterpart of the JAX package's `sequential_vmap`
+(sie_tpu/ops/pallas/seq_vmap.py), which maps the unbatched Pallas op over
+the seed axis. There is nothing to fold: each seed has its own banks (n,
+C, L) and its own batch rows, while a launch takes one bank against one x.
 """
 
 from __future__ import annotations

@@ -327,7 +327,64 @@ def target_dtype(y) -> torch.dtype:
     return torch.float32 if kind else torch.int64
 
 
-class Trainer:
+class GraphSteps:
+    """The graph machinery of the staged paths (module docstring), shared by
+    `Trainer` and the multi-seed `train.ensemble.EnsembleTrainer`: a
+    subclass sets `device`, calls `_init_graphs` and names, in
+    `_generators`, the generators its steps draw from, which every graph
+    registers."""
+
+    def _init_graphs(self) -> None:
+        self._graphs: Dict[Hashable, Tuple[Any, Any, Tuple]] = {}
+        self._warm: set = set()
+        self._stream = None
+        self.captures: List[Hashable] = []   # graph keys, in capture order
+
+    def _generators(self) -> List[torch.Generator]:
+        raise NotImplementedError
+
+    def _run(self, key: Hashable, reads: Tuple[torch.Tensor, ...],
+             body: Callable[[], Any]):
+        """body() eagerly on the CPU. On the card: the first call of `key`
+        runs body() eagerly on the graph stream (the warm-up), the second
+        captures it into a CUDA graph and replays it, later calls replay;
+        a replay's outputs are copied, as the next replay overwrites them.
+        The graph keeps `reads`, the tensors it reads, alive, so their
+        memory cannot pass to other tensors under the same key. A failing
+        capture raises."""
+        if self.device.type != "cuda":
+            return body()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        if key not in self._graphs:
+            self._stream.wait_stream(current)
+            if key not in self._warm:
+                with torch.cuda.stream(self._stream):
+                    out = body()
+                current.wait_stream(self._stream)
+                self._warm.add(key)
+                return out
+            graph = torch.cuda.CUDAGraph()
+            for gen in self._generators():
+                graph.register_generator_state(gen)
+            with torch.cuda.graph(graph, stream=self._stream):
+                out = body()
+            self._graphs[key] = (graph, out, reads)
+            self.captures.append(key)
+        graph, out, _reads = self._graphs[key]
+        graph.replay()
+        return _clone(out)
+
+    @staticmethod
+    def _key(kind: str, reads: Tuple[torch.Tensor, ...], *extra):
+        """(a graph's key, the tensors it reads): the key holds the path,
+        the address, shape and type of each tensor read, and `extra`."""
+        return ((kind, tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                             for t in reads)) + extra, reads)
+
+
+class Trainer(GraphSteps):
     """Owns the model (in training mode on `device`, default the card), its
     optimizer, the dropout generator, seeded from cfg.seed + 17 as the
     JAX package's step rng is, and under `cfg.augment` the augmentation
@@ -369,13 +426,14 @@ class Trainer:
         self._idx: Dict[int, torch.Tensor] = {}
         self._beta_t = torch.zeros((), dtype=torch.float32,
                                    device=self.device)
-        self._graphs: Dict[Hashable, Tuple[Any, Any, Tuple]] = {}
-        self._warm: set = set()
-        self._stream = None
-        self.captures: List[Hashable] = []   # graph keys, in capture order
+        self._init_graphs()
         self.debug_nans = debug_nans_enabled()
         self._finite = torch.ones((), dtype=torch.bool, device=self.device)
         self._nan_step = 0    # the step a checked re-run is at
+
+    def _generators(self) -> List[torch.Generator]:
+        return [g for g in (self.generator, self.augment_generator)
+                if g is not None]
 
     # ---- steps ------------------------------------------------------------
     def _tensor(self, a, dtype: torch.dtype) -> torch.Tensor:
@@ -442,8 +500,7 @@ class Trainer:
 
     def _snapshot(self):
         """A copy of the trainer's state before a step."""
-        gens = [g for g in (self.generator, self.augment_generator)
-                if g is not None]
+        gens = self._generators()
         adam = {p: {k: v.clone() if torch.is_tensor(v) else v
                     for k, v in self.optimizer.adam.state.get(p, {}).items()}
                 for p in self.optimizer.params}
@@ -461,9 +518,7 @@ class Trainer:
                 live[p] = st
             else:
                 live.pop(p, None)
-        gens = [g for g in (self.generator, self.augment_generator)
-                if g is not None]
-        for g, st in zip(gens, gen_states):
+        for g, st in zip(self._generators(), gen_states):
             g.set_state(st)
 
     def _checked_train(self, run: Callable[[], Any],
@@ -542,48 +597,6 @@ class Trainer:
         x, y, mask = (leaf[idx] for leaf in dev_data)
         return self._update((x, y, mask, self._tensor(w, torch.float32)),
                             self._beta(beta))
-
-    # ---- graphs -----------------------------------------------------------
-    def _run(self, key: Hashable, reads: Tuple[torch.Tensor, ...],
-             body: Callable[[], Any]):
-        """body() eagerly on the CPU. On the card: the first call of `key`
-        runs body() eagerly on the graph stream (the warm-up), the second
-        captures it into a CUDA graph and replays it, later calls replay;
-        a replay's outputs are copied, as the next replay overwrites them.
-        The graph keeps `reads`, the tensors it reads, alive, so their
-        memory cannot pass to other tensors under the same key. A failing
-        capture raises."""
-        if self.device.type != "cuda":
-            return body()
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        current = torch.cuda.current_stream(self.device)
-        if key not in self._graphs:
-            self._stream.wait_stream(current)
-            if key not in self._warm:
-                with torch.cuda.stream(self._stream):
-                    out = body()
-                current.wait_stream(self._stream)
-                self._warm.add(key)
-                return out
-            graph = torch.cuda.CUDAGraph()
-            graph.register_generator_state(self.generator)
-            if self.augment_generator is not None:
-                graph.register_generator_state(self.augment_generator)
-            with torch.cuda.graph(graph, stream=self._stream):
-                out = body()
-            self._graphs[key] = (graph, out, reads)
-            self.captures.append(key)
-        graph, out, _reads = self._graphs[key]
-        graph.replay()
-        return _clone(out)
-
-    @staticmethod
-    def _key(kind: str, reads: Tuple[torch.Tensor, ...], *extra):
-        """(a graph's key, the tensors it reads): the key holds the path,
-        the address, shape and type of each tensor read, and `extra`."""
-        return ((kind, tuple((t.data_ptr(), tuple(t.shape), t.dtype)
-                             for t in reads)) + extra, reads)
 
     # ---- epoch-staged steps -----------------------------------------------
     def stage_steps(self, steps, beta: float = 0.0) -> Optional[Staged]:

@@ -7,7 +7,9 @@ reads and writes flax's checkpoint format with the standard library. Nor
 `pandas`, which that machine lacks: the port reads and writes its CSVs
 with the `csv` module. Nor `scipy`: the port keeps its own copies of what
 the JAX package takes from it (`next_fast_len`, the Gauss-Legendre rule
-through numpy)."""
+through numpy). `matplotlib` and `sklearn`, which that machine lacks too,
+are imported only inside the plotting functions
+(`utils/shapelet_util.py`), never at a module's top level."""
 
 import ast
 import glob
@@ -43,9 +45,31 @@ def test_imports_nothing_of_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+PLOTTING = {"matplotlib", "sklearn"}
+
+
+@pytest.mark.parametrize("path", FILES)
+def test_plotting_libraries_only_inside_functions(path):
+    with open(os.path.join(ROOT, path)) as fh:
+        tree = ast.parse(fh.read(), path)
+    inside = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            inside.update(id(n) for n in ast.walk(node))
+    bad = []
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module] if isinstance(node, ast.ImportFrom)
+                 and node.level == 0 else [])
+        bad += [m for m in names if m.split(".")[0] in PLOTTING
+                and id(node) not in inside]
+    assert not bad, f"{path} imports {bad} outside a function"
+
+
 def test_the_list_covers_the_port():
     assert "sie_tpu_torch/ops/shapelet_l1.py" in FILES
     assert "scripts/port_profile_kernels.py" in FILES
+    assert "scripts/port_uea_ensemble_sweep.py" in FILES
     for new in ("run.py", "train/experiment.py", "train/checkpoint.py",
                 "compat/flax_msgpack.py", "data/preprocess.py", "data/eeg.py",
                 "data/provider.py", "utils/shapelet_util.py",
@@ -63,6 +87,8 @@ def test_the_list_covers_the_port():
                 "models/extra/crossformer.py",
                 "models/extra/conv_blocks.py", "models/extra/backbones.py",
                 "models/extra/forecasters.py",
-                "models/extra/multiwavelet.py"):
+                "models/extra/multiwavelet.py", "train/ensemble.py",
+                "train/ensemble_driver.py", "data/native.py",
+                "data/uea_alt.py", "utils/print_args.py"):
         assert f"sie_tpu_torch/{new}" in FILES
     assert len(FILES) >= 45
