@@ -129,9 +129,9 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      than twice the error; `calibrate` on the validation rows, saved and
      reloaded at the same T; median ms a request of each bundle;
  21. HTTP: `python -m sie_tpu_torch.serve_http --bundle DIR --max_batch 64
-     --warmup 1 64` on a free local port: /healthz, /config; JSON-list,
-     x_b64 and npz requests of 1, 5, 64 and 150 rows, every output within
-     1e-6 of the in-process bundle predictor;
+     --warmup 1 64` on a free local port: /healthz, /config; JSON-list
+     requests of 1 and 5 rows, x_b64 and npz requests of 1, 5, 64 and 150
+     rows, every output within 1e-6 of the in-process bundle predictor;
      fields=["probs"]; a malformed body answered 400; /metrics counting
      the requests and the error; the port's InferenceClient; median ms at
      1 row (JSON lists) and 1 and 64 rows (x_b64 in a JSON body, and npz)
@@ -202,8 +202,9 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      --export_torch_ckpt and a run with --import_torch_ckpt at the same
      accuracy and test loss; f32 and int8 bundles of the checkpoint
      against the live weights at 64 rows (1e-4; phase 20's int8 limits);
-     --debug_nans with --profile_dir: the same losses as the plain run,
-     bit for bit, and K1 and K2 in the trace; a NaN inside a train row's
+     --debug_nans (PatchTST with --profile_dir): the same losses as the
+     plain run, bit for bit, and K1 and K2 in the trace; a NaN inside a
+     train row's
      valid region raising FloatingPointError that names the step and an
      op;
  30. streaming: phase 15's command for 1 epoch held on the device and
@@ -276,7 +277,25 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      capture) and no K5/K6, the missing dataset skipped, each seed's
      result equal to a driver run of that seed alone, a seed stopped
      early; the sweep's seconds against the five lone runs';
- 39. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
+ 39. the mesh (parallel/, each part a check of its own): (a) the
+     flagship at dropout 0.1 on a one-process NCCL group and `Mesh((1,),
+     ("data",))`: 5 staged steps (warm-up, capture, replays) bit-equal to
+     the trainer without a mesh, losses and parameters, K1 6, K2 6, K5 2,
+     K6 2 at warm-up and capture, the capture holding its 4 all-reduces;
+     10 replays of each in turns, their medians; (b) 'data' over two
+     processes that share the card (gloo, the launch variables): the
+     flagship in f32 at dropout 0, B 64 split 32/32, 3 eager steps of
+     `train_step` on global batches: the losses (rtol 1e-5, atol 1e-6)
+     and the parameters (rtol 1e-5, atol 1e-6 where every step's gradient
+     is >= 1e-4, else 2.1 lr a step) of one process on the global batch,
+     ms a global step; (c) the same over 'model': banks of 5 shapelets
+     (K1/K2), 4 heads (K5/K6 over 256 rows) and 1024 FFN columns a rank;
+     (d) phase 26's --loso command as two processes through `python -m
+     sie_tpu_torch.run`: disjoint folds that cover the 3 subjects, each
+     fold's accuracy phase 26's; (e) `Predictor` over `Mesh((1,),
+     ("data",), devices=["cuda:0"])` at 1, 5 and 64 rows, every output
+     bit-equal to the predictor without a mesh, K1 6 and K5 2 a request;
+ 40. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
      timed training steps of each kernel's path, plus, split in
      `launches_by_path`, phases 16, 17 and 19's UEA run for K1 and K2, the
      serving paths for K1, K3 and K5: phase 5, phase 11's requests, phase
@@ -285,11 +304,13 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      for K5 and K6 as `forecast_long`, phase 33 for K1, K2, K5 and K6 as
      `moe`, phases 34 and 35 for K1 and K2 as `variants` and
      `extra_experts`, phase 37 for K1, K2, K5 and K6 as `ensemble`, phase
-     38 for K1 and K2 as `ensemble_uea`), then the device line.
+     38 for K1 and K2 as `ensemble_uea`, phase 39's (a), (b) and (c)
+     steps (rank 0) and (e) for K1, K2, K5 and K6 as `mesh`), then the
+     device line.
 
 After each phase a `[time]` line gives its seconds and the seconds since
 the start. The K5 and K6 phases (4, 6, 8, 12), the serving phases (20-22)
-and phases 23-38 run under a time limit that ends the process (and the
+and phases 23-39 run under a time limit that ends the process (and the
 servers it started), so that a kernel that hangs fails the run instead of
 holding the card. Times
 are CUDA-event times after warm-up (kernels) or host-clock times of work
@@ -2097,6 +2118,7 @@ Q_ATOL, Q_RTOL = 0.05, 0.05   # int8 against f32 bundle logits, and
 Q_PROBS = 0.02                # probabilities: tests/test_quant.py's limits
 Q_BYTES = 0.3      # bytes the int8 leaves hold (q and scale) / their f32 bytes
 WIRE_TOL = 1e-6    # the server's outputs against the in-process predictor
+JSON_SIZES = (1, 5)   # rows of the JSON-list requests (b64 and npz: all)
 WINDOW_MS = 20     # micro-batching window of the batching server
 WINDOW_REQS, WINDOW_ROWS = 8, 8   # concurrent requests and their rows
 OUT_FIELDS = ("logits", "probs", "classes", "eta", "p", "d",
@@ -2342,8 +2364,10 @@ def phase_http(tmp: str, pred, bundle_dir: str, xs: dict,
                 code2 != 200 or json.loads(body2)["d_model"] != 512:
             fail(f"/healthz or /config: {health}")
         e = 0.0
+        # JSON lists of numbers only at the small sizes: a 150-row list is
+        # 15.5 M numbers to print and parse (tens of seconds a request)
         plan = [(how, b) for how in ("json", "b64", "npz")
-                for b in SERVE_SIZES]
+                for b in (JSON_SIZES if how == "json" else SERVE_SIZES)]
         for how, b in plan:
             code, got, _ = request(base, xs[b], how)
             sent += 1
@@ -2386,8 +2410,9 @@ def phase_http(tmp: str, pred, bundle_dir: str, xs: dict,
                  f"{errors} errors")
     finally:
         stop_server(proc)
-    print(f"[http] {len(plan)} requests (JSON lists, x_b64 and npz at "
-          f"{SERVE_SIZES} rows) equal to the in-process bundle predictor: "
+    print(f"[http] {len(plan)} requests (JSON lists at {JSON_SIZES} rows, "
+          f"x_b64 and npz at {SERVE_SIZES}) equal to the in-process bundle "
+          f"predictor: "
           f"max |d| {e:.3e}; fields, 400, /metrics ({sent} requests, "
           f"{errors} error) and the port's client checked")
     for (how, b), ms in times.items():
@@ -2932,6 +2957,7 @@ def phase_torch_ckpt(tmp: str) -> None:
 
 
 LOSO_TRIALS = 384    # synthetic CHISCO trials over 3 subjects
+LOSO_ACCURACY = {}   # phase 26's accuracy by held-out subject (phase 39 d)
 LOSO_CLI = CLI_FLAGS.replace("--synthetic_trials 640",
                              f"--synthetic_trials {LOSO_TRIALS}").replace(
     "--train_epochs 3", "--train_epochs 1") + " --loso --max_subjects 3"
@@ -2977,6 +3003,8 @@ def phase_loso(tmp: str) -> dict:
         if not glob.glob(os.path.join(tmp, "ck_loso", f"loso-{k}", "**",
                                       "checkpoint.msgpack"), recursive=True):
             fail(f"LOSO fold {k}: no checkpoint under loso-{k}")
+    LOSO_ACCURACY.update({int(k): float(v) for k, v in re.findall(
+        r"\[LOSO\] subject (\d+): acc ([0-9.]+)%", text)})
     mean = re.search(r"LOSO \(3 folds\): accuracy (\S+) \+/- (\S+)", text)
     if not mean or not all(launches[k] for k in TRAIN_WANT):
         fail(f"LOSO: no fold mean printed, or launches {launches}")
@@ -3302,6 +3330,9 @@ BACKBONE_CLI = {
         "--num_kernels 6")}
 
 
+PROFILED = ("PatchTST",)   # backbones whose CLI run writes a trace
+
+
 def trace_kernels(prof_dir: str) -> set:
     """The K1 and K2 kernel names found in a --profile_dir trace."""
     import glob
@@ -3396,11 +3427,15 @@ def backbone_cli(tmp: str, dnn: str) -> dict:
         if not ok:
             fail(f"{tag}: bundle (int8 {quantize}) logits {errs[quantize]} "
                  f"from the live weights")
+    # --profile_dir on PatchTST only: TimesNet's trace of its eager ops
+    # took ~40 s to write (PERF.md §7)
+    profiled = dnn in PROFILED
     prof = d("profile")
     text4, res4 = run_cli(base + ["--checkpoint_dir", d("ck_debug"),
-                                  "--debug_nans", "--profile_dir", prof,
-                                  "--metrics_jsonl", d("debug.jsonl")])
-    seen = trace_kernels(prof)
+                                  "--debug_nans",
+                                  "--metrics_jsonl", d("debug.jsonl")]
+                          + (["--profile_dir", prof] if profiled else []))
+    seen = trace_kernels(prof) if profiled else {"K1", "K2"}
     if losses_of(d("debug.jsonl")) != losses_of(d("plain.jsonl")) or \
             res4[0][2]["accuracy"] != acc or seen != {"K1", "K2"} or \
             "CUDA graphs captured" not in text4:
@@ -3411,13 +3446,14 @@ def backbone_cli(tmp: str, dnn: str) -> dict:
     if not re.search(r"train step \d+: the first non-finite value came "
                      r"from \S+", msg):
         fail(f"{tag}: --debug_nans raised {msg!r}")
+    traced = (f" with --profile_dir: the same losses, {sorted(seen)} in "
+              f"the trace" if profiled else ": the same losses")
     print(f"[{tag}] {secs:.1f} s for the first run (1 epoch); test accuracy "
           f"{acc:.2f}%, the same after the re-run, --export_torch_ckpt and "
           f"--import_torch_ckpt; bundles against the live weights at 64 "
           f"rows: f32 {errs[False]:.3e}, int8 {errs[True]:.3e}; "
-          f"--debug_nans with --profile_dir: the same losses, {sorted(seen)} "
-          f"in the trace; a NaN in a train row: {msg}; launches over the "
-          f"first run {launches}")
+          f"--debug_nans{traced}; a NaN in a train row: {msg}; launches "
+          f"over the first run {launches}")
     return launches
 
 
@@ -4555,6 +4591,376 @@ def phase_ensembles(tmp: str, smi: str) -> tuple:
     return flagship, uea
 
 
+# ---- phase 39: training and serving over a device mesh ---------------------
+MESH_FLAG = "--mesh-rank"   # argv[1] of a (b)/(c) rank: kind, output file
+MESH_A_STEPS = 5       # (a): warm-up, capture, 3 replays, held bit for bit
+MESH_A_TIMED = 10      # (a): replays timed, in turns with the lone trainer
+MESH_ROWS, MESH_STEPS = 256, 3   # (b)/(c): rows held, eager global steps
+MESH_SURE = 1e-4       # (b)/(c): |gradient| above which a parameter is held
+# at rtol 1e-5 / atol 1e-6 (tests/test_torch_port_mesh_dist.py)
+MESH_SIZES = (1, 5, 64)   # (e): request rows
+
+
+def mesh_config():
+    """(b)/(c): the flagship in f32 at dropout 0, global batch 64."""
+    return train_config(amp=False)
+
+
+def mesh_schedule(n_rows: int, b: int, steps: int) -> list:
+    rng = np.random.default_rng(5)
+    return [rng.permutation(n_rows)[:b] for _ in range(steps)]
+
+
+def mesh_rank(kind: str, out: str) -> None:
+    """One of the two processes of (b) ('data') or (c) ('model'), on the
+    card that both share, over gloo: MESH_STEPS eager `train_step`s of the
+    global batch; process 0 writes the losses, the ms of each step, each
+    step's launches, this rank's local shapes and the gathered variables
+    to `out`."""
+    import torch.distributed as dist
+    from sie_tpu_torch.compat.from_jax import _flatten, to_jax_variables
+    from sie_tpu_torch.parallel.mesh import Mesh
+    from sie_tpu_torch.parallel.multihost import init_distributed
+    from sie_tpu_torch.train.trainer import Trainer
+    init_distributed(device="cuda:0")
+    cfg = mesh_config()
+    ds = random_rows(cfg, MESH_ROWS)
+    t = Trainer(cfg, MESH_STEPS, device="cuda:0", mesh=Mesh((2,), (kind,)),
+                generator=torch.Generator().manual_seed(0))
+    counts = Counts()
+    w = np.ones(cfg.batch_size, np.float32)
+    losses, ms, launches = [], [], []
+    for idx in mesh_schedule(MESH_ROWS, cfg.batch_size, MESH_STEPS):
+        counts.zero()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = t.train_step((ds.x[idx], ds.y[idx], ds.padding_mask[idx],
+                                w), 1.0)
+        losses.append(float(loss))
+        ms.append(1e3 * (time.perf_counter() - t0))
+        launches.append(counts.read())
+    enc = t.model.deep_model.encoder.layers[0]
+    shapes = {"bank": list(t.model.sbm.shapelets_0.shape),
+              "query": list(enc.attention.query.weight.shape),
+              "conv1": list(enc.conv1.weight.shape)}
+    variables = to_jax_variables(t.model)    # gathered over 'model'
+    if dist.get_rank() == 0:
+        np.savez(out, losses=np.asarray(losses), ms=np.asarray(ms),
+                 meta=np.frombuffer(json.dumps(
+                     {"launches": launches, "shapes": shapes}).encode(),
+                     np.uint8),
+                 **{"/".join(k): v for k, v in _flatten(
+                     variables["params"]).items()})
+    dist.destroy_process_group()
+
+
+def mesh_ranks(kind: str, tmp: str) -> dict:
+    """(b)/(c)'s two processes on this card -> what process 0 wrote; a
+    failing process fails the phase with both logs' tails."""
+    out = os.path.join(tmp, f"mesh_{kind}.npz")
+    env = {**os.environ, "SIE_TPU_COORDINATOR": f"localhost:{free_port()}",
+           "SIE_TPU_NUM_PROCESSES": "2", "SIE_TPU_BACKEND": "gloo"}
+    logs = [os.path.join(tmp, f"mesh_{kind}_{i}.log") for i in range(2)]
+    procs = []
+    for i in range(2):
+        with open(logs[i], "wb") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), MESH_FLAG, kind,
+                 out], env={**env, "SIE_TPU_PROCESS_ID": str(i)}, stdout=f,
+                stderr=subprocess.STDOUT, cwd=ROOT))
+        CHILDREN.append(procs[-1])
+    deadline = time.time() + 240
+    while any(p.poll() is None for p in procs) and time.time() < deadline:
+        if any(p.poll() not in (None, 0) for p in procs):
+            break    # one failed: the other waits at a collective
+        time.sleep(0.5)
+    codes = [p.poll() for p in procs]
+    for p in procs:
+        stop_server(p)
+    if codes != [0, 0]:
+        for i, log in enumerate(logs):
+            with open(log, errors="replace") as f:
+                print(f"[mesh] ({kind}) process {i} exit {codes[i]}, log "
+                      f"tail:\n{f.read()[-3000:]}")
+        fail(f"mesh ({kind}): the processes exited {codes}")
+    got = dict(np.load(out))
+    got["meta"] = json.loads(bytes(got["meta"]).decode())
+    return got
+
+
+def mesh_one_process():
+    """(b)/(c)'s reference: one process on the global batch -> (losses,
+    flax params by "/" path, each step's gradients by the same path)."""
+    from sie_tpu_torch.compat.from_jax import (_flatten, to_jax_params,
+                                               to_jax_tree)
+    from sie_tpu_torch.train.trainer import Trainer
+    cfg = mesh_config()
+    ds = random_rows(cfg, MESH_ROWS)
+    t = Trainer(cfg, MESH_STEPS, device="cuda",
+                generator=torch.Generator().manual_seed(0))
+    w = np.ones(cfg.batch_size, np.float32)
+    flat = lambda tree: {"/".join(k): v for k, v in _flatten(tree).items()}
+    losses, grads = [], []
+    for idx in mesh_schedule(MESH_ROWS, cfg.batch_size, MESH_STEPS):
+        loss, _ = t.train_step((ds.x[idx], ds.y[idx], ds.padding_mask[idx],
+                                w), 1.0)
+        losses.append(float(loss))
+        grads.append(flat(to_jax_tree(t.model, {
+            n: torch.zeros_like(p) if p.grad is None else p.grad
+            for n, p in t.model.named_parameters()})))
+    return losses, flat(to_jax_params(t.model)), grads
+
+
+def mesh_against_one(kind: str, got: dict, ref, lr: float) -> tuple:
+    """(b)/(c)'s losses and gathered parameters against one process: the
+    CPU tests' limits -> (worst loss gap, worst held parameter gap)."""
+    losses, params, grads = ref
+    if not np.allclose(got["losses"], losses, rtol=1e-5, atol=1e-6):
+        fail(f"mesh ({kind}): losses {got['losses'].tolist()} against one "
+             f"process {losses}")
+    worst = 0.0
+    for key, want in params.items():
+        sure = np.all([np.abs(g[key]) >= MESH_SURE for g in grads], axis=0)
+        d = np.abs(got[key] - want)
+        if not np.all(d[sure] <= 1e-6 + 1e-5 * np.abs(want[sure])) or \
+                d.max() > MESH_STEPS * PARAM_TOL * lr:
+            fail(f"mesh ({kind}): {key} differs from one process by "
+                 f"{d[sure].max() if sure.any() else 0.0:.3e} where held, "
+                 f"{d.max():.3e} in all")
+        if sure.any():
+            worst = max(worst, float(d[sure].max()))
+    return float(np.abs(np.asarray(got["losses"]) - losses).max()), worst
+
+
+def mesh_world_one(smi: str) -> dict:
+    """(a): the flagship at dropout RATE on a one-process NCCL group and
+    `Mesh((1,), ("data",))` against the same trainer without a mesh:
+    staged steps (warm-up, capture, replays) bit for bit, the launches of
+    the warm-up and the capture, the all-reduces the capture holds, and
+    the replay ms of both -> the mesh trainer's launches."""
+    import torch.distributed as dist
+    from sie_tpu_torch.parallel import comm
+    from sie_tpu_torch.parallel.mesh import Mesh
+    from sie_tpu_torch.train.trainer import Trainer
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            device_id=dev)
+    try:
+        mesh = Mesh((1,), ("data",))
+        cfg = train_config(dropout=RATE)
+        ds = random_rows(cfg, 256)
+        b = cfg.batch_size
+        rng = np.random.default_rng(2)
+        steps = [(rng.permutation(len(ds.y))[:b], np.ones(b, np.float32))
+                 for _ in range(MESH_A_STEPS)]
+        trainers = [Trainer(cfg, MESH_A_STEPS, device="cuda", mesh=m,
+                            generator=torch.Generator().manual_seed(0))
+                    for m in (None, mesh)]
+        devs = [t.device_data("train", ds) for t in trainers]
+        staged = [t.stage_steps(steps, 1.0) for t in trainers]
+        counts, reduces = Counts(), []
+        real = comm.all_reduce_
+
+        def counted(t, group):
+            reduces.append(tuple(t.shape))
+            return real(t, group)
+
+        mesh_launches = Counts.full({})
+        for k in range(MESH_A_STEPS):
+            losses = []
+            for i, t in enumerate(trainers):
+                counts.zero()
+                comm.all_reduce_ = counted
+                try:
+                    loss, _ = t.train_step_staged(devs[i], staged[i], k)
+                finally:
+                    comm.all_reduce_ = real
+                losses.append(float(loss))
+                got = counts.read()
+                want = Counts.full(TRAIN_WANT if k < 2 else {})
+                if got != want:
+                    fail(f"mesh (a): step {k} of the {'mesh' if i else 'lone'}"
+                         f" trainer launched {got}, want {want}")
+                if i:
+                    mesh_launches = {n: mesh_launches[n] + got[n]
+                                     for n in got}
+            same = all(torch.equal(p, q) for p, q in zip(
+                trainers[0].model.parameters(), trainers[1].model.parameters()))
+            if losses[0] != losses[1] or not same:
+                fail(f"mesh (a): step {k}: losses {losses}, parameters "
+                     f"bit-equal {same}")
+        if len(reduces) != 8 or len(trainers[1].captures) != 1:
+            fail(f"mesh (a): all-reduces issued {reduces}, captures "
+                 f"{trainers[1].captures}")
+        times = {0: [], 1: []}
+        for r in range(MESH_A_TIMED):
+            for i, t in enumerate(trainers):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t.train_step_staged(devs[i], staged[i], r % MESH_A_STEPS)
+                torch.cuda.synchronize()
+                times[i].append(1e3 * (time.perf_counter() - t0))
+        med = {i: float(np.median(v)) for i, v in times.items()}
+        print(f"[mesh] (a) world-1 NCCL mesh, flagship B={b}, dropout "
+              f"{RATE}: {MESH_A_STEPS} staged steps (warm-up, capture, "
+              f"replays) bit-equal to the trainer without a mesh, losses "
+              f"and parameters; launches at warm-up and capture "
+              f"{Counts.full(TRAIN_WANT)} each, none at a replay; the "
+              f"capture holds {len(reduces) // 2} all-reduces (weight sums "
+              f"of the two heads, the gradients "
+              f"({max(int(np.prod(r)) for r in reduces)} f32), the loss)")
+        print(f"[mesh] (a) replay ms, {MESH_A_TIMED} each in turns: mesh "
+              + ", ".join(f"{v:.3f}" for v in times[1]) + f"; median "
+              f"{med[1]:.3f} against the lone replay's {med[0]:.3f} "
+              f"(+{med[1] - med[0]:.3f} ms); {smi}")
+        return mesh_launches
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_loso(tmp: str) -> None:
+    """(d): phase 26's --loso command as two processes (the launch
+    variables, gloo, both on this card) through `python -m
+    sie_tpu_torch.run`: the folds split disjoint and whole, each fold's
+    accuracy that of the one-process run (phase 26, or run here when
+    phase 26 did not run)."""
+    argv = LOSO_CLI.split() + [
+        "--data_root", os.path.join(tmp, "no_chisco_loso"),
+        "--checkpoint_dir", os.path.join(tmp, "ck_loso_mh"),
+        "--result_dir", os.path.join(tmp, "result"),
+        "--cache_dir", os.path.join(tmp, "cache")]
+    if not LOSO_ACCURACY:
+        text, _ = run_cli(argv[:argv.index("--checkpoint_dir") + 1]
+                          + [os.path.join(tmp, "ck_loso")]
+                          + argv[argv.index("--checkpoint_dir") + 2:])
+        LOSO_ACCURACY.update({int(k): float(v) for k, v in re.findall(
+            r"\[LOSO\] subject (\d+): acc ([0-9.]+)%", text)})
+    env = {**os.environ, "SIE_TPU_COORDINATOR": f"localhost:{free_port()}",
+           "SIE_TPU_NUM_PROCESSES": "2", "SIE_TPU_BACKEND": "gloo"}
+    logs = [os.path.join(tmp, f"loso_mh_{i}.log") for i in range(2)]
+    t0 = time.perf_counter()
+    procs = []
+    for i in range(2):
+        with open(logs[i], "wb") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "sie_tpu_torch.run", *argv],
+                env={**env, "SIE_TPU_PROCESS_ID": str(i)}, stdout=f,
+                stderr=subprocess.STDOUT, cwd=ROOT))
+        CHILDREN.append(procs[-1])
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(timeout=240))
+        except subprocess.TimeoutExpired:
+            codes.append(None)
+        stop_server(p)
+    secs = time.perf_counter() - t0
+    folds, accs, took = [], {}, []
+    for i, log in enumerate(logs):
+        with open(log, errors="replace") as f:
+            text = f.read()
+        m = re.search(r"\[multihost\] process (\d)/2 took folds "
+                      r"slice\((\d+), (\d+), None\)", text)
+        got = [int(s) for s in re.findall(r"\[LOSO\] subject (\d+)", text)]
+        if codes[i] != 0 or not m or int(m.group(1)) != i or \
+                got != list(range(int(m.group(2)), int(m.group(3)))):
+            print(f"[mesh] (d) process {i} exit {codes[i]}, log tail:\n"
+                  f"{text[-3000:]}")
+            fail(f"mesh (d): process {i} exited {codes[i]} with folds {got}")
+        took.append(m.group(0))
+        folds.extend(got)
+        accs.update({int(k): float(v) for k, v in re.findall(
+            r"\[LOSO\] subject (\d+): acc ([0-9.]+)%", text)})
+    if sorted(folds) != [0, 1, 2] or accs != LOSO_ACCURACY:
+        fail(f"mesh (d): folds {folds}, accuracies {accs} against one "
+             f"process {LOSO_ACCURACY}")
+    print(f"[mesh] (d) --loso over 2 processes on this card: {took}; fold "
+          f"accuracies {accs} equal to the one-process run; {secs:.1f} s")
+
+
+def mesh_serving() -> dict:
+    """(e): `Predictor` over `Mesh((1,), ("data",), devices=["cuda:0"])`
+    (its row block on a stream of its own) against the predictor without
+    a mesh at MESH_SIZES rows: every output bit-equal, K1 6 and K5 2 a
+    request -> the launches."""
+    from sie_tpu_torch.compat.from_jax import to_jax_variables
+    from sie_tpu_torch.models.registry import build_model
+    from sie_tpu_torch.parallel.mesh import Mesh
+    from sie_tpu_torch.serve import Predictor
+    cfg = flagship_config()
+    variables = to_jax_variables(build_model(
+        cfg, "cpu", torch.Generator().manual_seed(0)))
+    plain = Predictor(cfg, variables, device="cuda", max_batch=64)
+    meshed = Predictor(cfg, variables, max_batch=64,
+                       mesh=Mesh((1,), ("data",), devices=["cuda:0"]))
+    rng = np.random.default_rng(4)
+    counts = Counts()
+    launches = Counts.full({})
+    for b in MESH_SIZES:
+        x = rng.normal(size=(b, cfg.seq_len, cfg.enc_in)).astype(np.float32)
+        want = plain.predict(x)
+        counts.zero()
+        got = meshed.predict(x)
+        c = counts.read()
+        if c != Counts.full({"K1": 6, "K5": 2}):
+            fail(f"mesh (e): a {b}-row request launched {c}")
+        launches = {n: launches[n] + c[n] for n in c}
+        for f in OUT_FIELDS:
+            if not np.array_equal(getattr(got, f), getattr(want, f)):
+                fail(f"mesh (e): {f} of a {b}-row request differs")
+    print(f"[mesh] (e) Predictor over a one-device mesh: every output "
+          f"bit-equal to the predictor without a mesh at {MESH_SIZES} rows; "
+          f"launches {launches}")
+    return launches
+
+
+def phase_mesh(tmp: str, smi: str) -> dict:
+    """Phase 39, (a)-(e), each a check of its own -> the launches of (a),
+    (b), (c) and (e) summed (the mesh path's)."""
+    t0 = time.perf_counter()
+    total = mesh_world_one(smi)
+    lap_a = time.perf_counter()
+    cfg = mesh_config()
+    ref = mesh_one_process()
+    parts = {}
+    for kind in ("data", "model"):
+        t1 = time.perf_counter()
+        got = mesh_ranks(kind, tmp)
+        loss_gap, param_gap = mesh_against_one(kind, got, ref, cfg.lr)
+        meta = got["meta"]
+        for step in meta["launches"]:
+            if step != Counts.full(TRAIN_WANT):
+                fail(f"mesh ({kind}): a step launched {step} on rank 0")
+            total = {n: total[n] + step[n] for n in total}
+        want_shapes = ({"bank": [10, 122, 43], "query": [512, 512],
+                        "conv1": [2048, 512]} if kind == "data" else
+                       {"bank": [5, 122, 43], "query": [256, 512],
+                        "conv1": [1024, 512]})
+        if meta["shapes"] != want_shapes:
+            fail(f"mesh ({kind}): local shapes {meta['shapes']}")
+        parts[kind] = time.perf_counter() - t1
+        print(f"[mesh] ({'b' if kind == 'data' else 'c'}) '{kind}' over 2 "
+              f"processes on this card (gloo), flagship f32 B=64 "
+              f"({'32 rows a rank' if kind == 'data' else 'banks of 5 shapelets, 4 heads and 1024 FFN columns a rank'}): "
+              f"{MESH_STEPS} losses {got['losses'].tolist()} within "
+              f"{loss_gap:.3e} of one process, gathered parameters within "
+              f"{param_gap:.3e} where held; ms a global step "
+              + ", ".join(f"{v:.1f}" for v in got["ms"])
+              + f"; launches a step {TRAIN_WANT} on rank 0; {smi}")
+    t2 = time.perf_counter()
+    mesh_loso(tmp)
+    t3 = time.perf_counter()
+    served = mesh_serving()
+    total = {n: total[n] + served[n] for n in total}
+    print(f"[mesh] phase 39: (a) {lap_a - t0:.1f} s, one-process reference "
+          f"+ (b) {parts['data']:.1f} s + (c) {parts['model']:.1f} s, (d) "
+          f"{t3 - t2:.1f} s, (e) {time.perf_counter() - t3:.1f} s; "
+          f"launches {total}")
+    return total
+
+
 def lap(what: str) -> None:
     """Prints the seconds since the previous lap (a phase's time) and since
     the start."""
@@ -4644,6 +5050,9 @@ def main() -> None:
         with time_limit(300, "the ensemble phases"):
             ensemble, ensemble_uea = phase_ensembles(work, smi)
             lap("ensembles")
+        with time_limit(300, "the mesh phase"):
+            mesh = phase_mesh(work, smi)
+            lap("mesh")
     finally:
         for proc in list(CHILDREN):
             stop_server(proc)
@@ -4655,7 +5064,8 @@ def main() -> None:
     sbm_paths = {**backbones, "cli_patchtst": by_cli["PatchTST"],
                  "cli_timesnet": by_cli["TimesNet"], "moe": moe,
                  "variants": variants, "extra_experts": extra_experts,
-                 "ensemble": ensemble, "ensemble_uea": ensemble_uea}
+                 "ensemble": ensemble, "ensemble_uea": ensemble_uea,
+                 "mesh": mesh}
     others = {"K1": {"uea_fcn": uea_fcn, "uea_resnet": uea_resnet,
                      "cli_uea_fcn": cli_uea, "serve": serve_launches,
                      "serve_bundle": bundle, "serve_export": exported,
@@ -4666,9 +5076,9 @@ def main() -> None:
               "K5": {"serve": serve_launches, "serve_bundle": bundle,
                      "serve_export": exported, **options,
                      "forecast_long": forecast_long, "moe": moe,
-                     "ensemble": ensemble},
+                     "ensemble": ensemble, "mesh": mesh},
               "K6": {**options, "forecast_long": forecast_long, "moe": moe,
-                     "ensemble": ensemble}}
+                     "ensemble": ensemble, "mesh": mesh}}
     paths = ((k1, launches, "K1"), (k2, launches, "K2"),
              (k3, fused, "K3"), (k4, fused, "K4"), (k5, launches, "K5"),
              (k6, launches, "K6"), (k7, long_launches, "K5"),
@@ -4699,5 +5109,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == [K2_LIB_FLAG]:
         k2_library_child(int(sys.argv[2]), int(sys.argv[3]))
+    elif sys.argv[1:2] == [MESH_FLAG]:
+        mesh_rank(sys.argv[2], sys.argv[3])
     else:
         main()

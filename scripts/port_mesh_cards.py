@@ -1,0 +1,187 @@
+"""The flagship InterpGN trained over a mesh of cards, one process a card
+over NCCL:
+
+    python scripts/port_mesh_cards.py --mesh 4 [--mesh_axes data]
+        [--timed 10]
+    python scripts/port_mesh_cards.py --mesh 2x2 --mesh_axes data,model
+
+Without the launch variables (parallel/multihost.py) it builds the
+kernels, starts one worker a card with the variables set, waits for all
+under a deadline, and exits with the first failing worker's code; the
+host must have the mesh's cards. Each
+worker, on card (process id):
+1. the flagship (chip_smoke.py's `flagship_config`) in f32 at dropout 0,
+   a global batch of 64 numpy-seeded rows: 3 staged steps (warm-up,
+   capture with its all-reduces, replay) over the mesh; process 0 then
+   runs the same steps alone (no mesh) on its card and holds the losses
+   to rtol 1e-5, atol 1e-6 (tests/test_torch_port_mesh_dist.py's limits);
+2. the flagship as trained (amp, dropout 0.1), 64 rows a 'data' rank:
+   warm-up, capture, then `--timed` replays, each timed with the host
+   clock around a synchronisation; process 0 then times the lone
+   trainer's replays of 64 rows on its card.
+Process 0 prints the card's name and power limit, the losses and their
+gap, the medians of the mesh's and the lone replays, and the rows a
+second of each. Exits non-zero without the cards. Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+B = 64          # the f32 check's global batch; the timed rows a 'data' rank
+STEPS = 3       # staged steps of the f32 check
+DEADLINE = 900  # seconds the workers have in all
+
+
+def flagship(**kw):
+    from sie_tpu_torch.config import Config
+    return Config(model="InterpGN", dnn_type="Transformer", seq_len=845,
+                  enc_in=122, num_class=3, num_shapelet=10, d_model=512,
+                  d_ff=2048, n_heads=8, e_layers=2, dropout=0.0, amp=True,
+                  seed=0, batch_size=B, lr=5e-3).replace(**kw)
+
+
+def rows(cfg, n: int):
+    rng = np.random.default_rng(0)
+    return type("Rows", (), dict(
+        x=rng.normal(size=(n, cfg.seq_len, cfg.enc_in)).astype(np.float32),
+        y=rng.integers(0, cfg.num_class, n).astype(np.int32),
+        padding_mask=np.ones((n, cfg.seq_len), np.float32)))()
+
+
+def staged(cfg, ds, b: int, steps: int, mesh):
+    """A trainer at the seed-0 weights over `mesh` (None: alone), its
+    device data and a staged schedule of `steps` batches of b rows."""
+    from sie_tpu_torch.train.trainer import Trainer
+    t = Trainer(cfg, steps, device="cuda", mesh=mesh,
+                generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    sched = [(rng.permutation(len(ds.y))[:b], np.ones(b, np.float32))
+             for _ in range(steps)]
+    return t, t.device_data("train", ds), t.stage_steps(sched, 1.0)
+
+
+def replay_ms(t, dev, st, timed: int) -> list:
+    """Warm-up and capture, then `timed` replays, each timed."""
+    t.train_step_staged(dev, st, 0)
+    t.train_step_staged(dev, st, 1)
+    out = []
+    for k in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train_step_staged(dev, st, k % 2)
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def worker(shape, axes, timed: int) -> None:
+    import torch.distributed as dist
+    from sie_tpu_torch.parallel.mesh import Mesh
+    from sie_tpu_torch.parallel.multihost import init_distributed
+    init_distributed(device="cuda")
+    rank = dist.get_rank()
+    mesh = Mesh(shape, axes)
+    say = print if rank == 0 else (lambda *a, **k: None)
+    if rank == 0:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip().splitlines()
+        say(f"[cards] {len(out)} cards: {sorted(set(out))}; mesh "
+            f"{mesh.shape}, backend {mesh.backend}", flush=True)
+    cfg = flagship(amp=False)
+    ds = rows(cfg, 256)
+    t, dev, st = staged(cfg, ds, B, STEPS, mesh)
+    got = [float(t.train_step_staged(dev, st, k)[0]) for k in range(STEPS)]
+    del t, dev, st
+    if rank == 0:
+        t, dev, st = staged(cfg, ds, B, STEPS, None)
+        want = [float(t.train_step_staged(dev, st, k)[0])
+                for k in range(STEPS)]
+        del t, dev, st
+        ok = np.allclose(got, want, rtol=1e-5, atol=1e-6)
+        say(f"[cards] f32 staged steps (warm-up, capture, replay), global "
+            f"batch {B}: losses {got} against one card's {want}; max gap "
+            f"{max(abs(a - b) for a, b in zip(got, want)):.3e} "
+            f"({'within' if ok else 'OUTSIDE'} rtol 1e-5, atol 1e-6)",
+            flush=True)
+        if not ok:
+            raise SystemExit(1)
+    dist.barrier()
+    cfg = flagship(dropout=0.1)
+    dp = mesh.size("data")
+    ds = rows(cfg, 256 * dp)
+    t, dev, st = staged(cfg.replace(batch_size=B * dp), ds, B * dp, 2, mesh)
+    ms = replay_ms(t, dev, st, timed)
+    del t, dev, st
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        t, dev, st = staged(cfg, ds, B, 2, None)
+        lone = replay_ms(t, dev, st, timed)
+        m, lm = float(np.median(ms)), float(np.median(lone))
+        say(f"[cards] amp, dropout 0.1, {B} rows a 'data' rank: mesh "
+            f"replays " + ", ".join(f"{v:.3f}" for v in ms) + f" ms, "
+            f"median {m:.3f} ({B * dp / m * 1e3:.1f} rows/s); one card "
+            f"alone {lm:.3f} ms ({B / lm * 1e3:.1f} rows/s); "
+            f"{B * dp / m / (B / lm):.3f} x one card's rows a second",
+            flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def main() -> None:
+    p = argparse.ArgumentParser()
+    p.add_argument("--mesh", default="4")
+    p.add_argument("--mesh_axes", default="data,model")
+    p.add_argument("--timed", type=int, default=10)
+    args = p.parse_args()
+    shape = tuple(int(s) for s in args.mesh.split("x"))
+    axes = tuple(a.strip() for a in args.mesh_axes.split(","))
+    if os.environ.get("SIE_TPU_COORDINATOR"):
+        worker(shape, axes, args.timed)
+        return
+    from sie_tpu_torch.ops import build
+    from sie_tpu_torch.parallel.multihost import free_port
+    n = int(np.prod(shape))
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n > have:
+        raise SystemExit(f"mesh {shape} needs {n} cards, have {have}")
+    build.build()   # once, before the workers load the kernels
+    env = {**os.environ, "SIE_TPU_COORDINATOR": f"localhost:{free_port()}",
+           "SIE_TPU_NUM_PROCESSES": str(n), "SIE_TPU_BACKEND": "nccl"}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               *sys.argv[1:]],
+                              env={**env, "SIE_TPU_PROCESS_ID": str(i)})
+             for i in range(n)]
+    end = time.time() + DEADLINE
+    try:
+        while time.time() < end:
+            codes = [q.poll() for q in procs]
+            failed = [c for c in codes if c not in (None, 0)]
+            if failed or all(c == 0 for c in codes):
+                break
+            time.sleep(0.5)
+    finally:
+        for q in procs:
+            if q.poll() is None:
+                q.kill()
+                q.wait()
+    codes = [q.returncode for q in procs]
+    print(f"[cards] worker exit codes {codes}", flush=True)
+    if any(codes):
+        raise SystemExit(next(c for c in codes if c) or 1)
+
+
+if __name__ == "__main__":
+    main()

@@ -50,6 +50,13 @@ parametrization: q and scale are what the module holds, and each use of
 the weight computes q.float() * scale, the JAX package's
 `dequantize_tensor`. Such a module has no f32 copy of the weight and is for
 inference only.
+
+A model split over a mesh's 'model' axis (parallel/mesh.py
+`shard_params`) lists its split parameters in `tp_shards`: the flax tree
+stays the full one. Loading (`_fill`, `port_layout`) keeps this rank's
+block of each such leaf, and `to_jax_tree` gathers every rank's blocks (a
+collective on every 'model' rank), so checkpoints cross between the
+packages as before.
 """
 
 from __future__ import annotations
@@ -174,6 +181,18 @@ def is_quantized(module: nn.Module) -> bool:
     return any(isinstance(m, Dequantize) for m in module.modules())
 
 
+def _local(module: nn.Module, name: str, value: Any) -> Any:
+    """This rank's block of a full leaf laid out for parameter `name`, when
+    `module` splits it over 'model'; else the value as it is."""
+    shard = getattr(module, "tp_shards", {}).get(name)
+    if shard is None:
+        return value
+    if isinstance(value, QTensor):
+        raise ParamLoadError(f"{name!r} is split over 'model'; an int8 "
+                             f"leaf cannot be loaded into it")
+    return shard.local(value)
+
+
 def _fill(module: nn.Module, tree: Any, targets: Dict[str, torch.Tensor],
           what: str) -> None:
     """Copies every leaf of the flax tree into its target tensor in place
@@ -183,6 +202,7 @@ def _fill(module: nn.Module, tree: Any, targets: Dict[str, torch.Tensor],
     with torch.no_grad():
         for path, value in _flatten(tree).items():
             name, value = _target(module, path, value)
+            value = _local(module, name, value)
             if name not in targets:
                 raise ParamLoadError(f"flax leaf {path} has no {what} "
                                      f"{name!r} in the port")
@@ -251,8 +271,9 @@ def load_jax_seed_variables(modules, variables: MappingT[str, Any]) -> None:
 def port_layout(module: nn.Module, tree: Any) -> Dict[str, np.ndarray]:
     """{PyTorch parameter name: array laid out for it} of a flax-shaped
     tree (params, or a per-parameter state such as Adam's moments)."""
-    return dict(_target(module, path, np.asarray(v))
-                for path, v in _flatten(tree).items())
+    out = dict(_target(module, path, np.asarray(v))
+               for path, v in _flatten(tree).items())
+    return {k: _local(module, k, v) for k, v in out.items()}
 
 
 # the port's module class behind each renamed flax scope
@@ -277,7 +298,10 @@ def to_jax_tree(module: nn.Module,
     tensors keyed by `module`'s parameter or buffer names: the parameters
     themselves, state of the same shapes, or the BatchNorm buffers."""
     tree: Dict[str, Any] = {}
+    shards = getattr(module, "tp_shards", {})
     for name, value in tensors.items():
+        if name in shards:
+            value = shards[name].gather(value)
         parts = name.split(".")
         owner, path = module, []
         for part in parts[:-1]:

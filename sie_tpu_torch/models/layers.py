@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sie_tpu_torch.ops.attention import fused_attention
+from sie_tpu_torch.parallel import comm
 from sie_tpu_torch.utils.masking import triangular_causal_mask
 
 _LN_EPS = 1e-6   # flax LayerNorm default
@@ -214,22 +215,51 @@ def _draw_seed(generator: torch.Generator) -> torch.Tensor:
 Stream = Union[torch.Generator, ReplayDropout]
 
 
+def _global_draw(shape, batch_dim: int, model_dim: Optional[int], mesh):
+    """(the shape the mask is drawn at, the cut that keeps this rank's
+    part): under a step's mesh (parallel/comm.py) the global batch along
+    `batch_dim`, and with a 'model'-sharded `model_dim` the full width
+    there, so every rank draws what one process would and keeps its
+    block."""
+    full, cuts = list(shape), []
+    data = comm.current()
+    if data is not None and data.size("data") > 1:
+        full[batch_dim] *= data.size("data")
+        cuts.append((batch_dim, data.index("data"), shape[batch_dim]))
+    if model_dim is not None and mesh is not None:
+        full[model_dim] *= mesh.size("model")
+        cuts.append((model_dim, mesh.index("model"), shape[model_dim]))
+
+    def cut(t: torch.Tensor) -> torch.Tensor:
+        for dim, i, n in cuts:
+            t = t.narrow(dim, i * n, n)
+        return t
+    return tuple(full), cut
+
+
 def dropout(x: torch.Tensor, rate: float, generator: Optional[Stream],
-            training: bool) -> torch.Tensor:
+            training: bool, batch_dim: int = 0,
+            model_dim: Optional[int] = None, mesh=None) -> torch.Tensor:
     """flax `nn.Dropout(rate)`: keep each element with probability
     1 - rate and scale the kept ones by 1/(1 - rate), the mask drawn from
     `generator` (on x's device; a `ReplayDropout` draws or replays it).
-    The identity when not training or at rate 0."""
+    The identity when not training or at rate 0. Under a mesh the mask is
+    drawn at the global shape and cut (`_global_draw`): `batch_dim` is
+    x's batch-major axis, `model_dim` an axis split over `mesh`'s
+    'model'."""
     if not training or rate == 0.0:
         return x
     if generator is None:
         raise ValueError(f"dropout at rate {rate} in training needs a "
                          f"torch.Generator")
+    full, cut = _global_draw(tuple(x.shape), batch_dim % x.ndim,
+                             None if model_dim is None else model_dim % x.ndim,
+                             mesh)
     if isinstance(generator, ReplayDropout):
-        keep = generator.keep(tuple(x.shape), rate)
+        keep = cut(generator.keep(full, rate))
     else:
-        keep = torch.rand(x.shape, generator=generator,
-                          device=x.device) < 1.0 - rate
+        keep = cut(torch.rand(full, generator=generator,
+                              device=x.device) < 1.0 - rate)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
 
@@ -260,6 +290,26 @@ def dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     # f32-accumulated sum.
     y = F.linear(x.to(dtype).float(), lin.weight.to(dtype).float()).to(dtype)
     return y if bias is None else y + bias
+
+
+def row_parallel(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype,
+                 mesh) -> torch.Tensor:
+    """`dense` of a row-parallel layer: this rank's input block times its
+    rows of the kernel, summed over 'model' (`comm.reduce_from_model`),
+    then the whole bias once."""
+    y = comm.reduce_from_model(F.linear(x.to(dtype), lin.weight.to(dtype)),
+                               mesh)
+    return y if lin.bias is None else y + lin.bias.to(dtype)
+
+
+def copy_inputs(mesh, *xs):
+    """`comm.copy_to_model` of each distinct input (the same tensor given
+    twice is copied once)."""
+    seen = {}
+    for x in xs:
+        if id(x) not in seen:
+            seen[id(x)] = comm.copy_to_model(x, mesh)
+    return tuple(seen[id(x)] for x in xs)
 
 
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -373,7 +423,12 @@ class FullAttentionLayer(nn.Module):
     and everywhere else takes these two branches, as this layer does.
     `causal` (the decoder's self-attention) scores -inf where the key
     comes after the query and always takes the plain branch, as a
-    cross-attention (query and key lengths differ) does."""
+    cross-attention (query and key lengths differ) does.
+
+    Split over a mesh's 'model' axis (`tp`, parallel/mesh.py
+    `shard_params`), `query`, `key` and `value` hold this rank's H/M heads
+    (column-parallel: K5/K6 run on B·H/M rows) and `out` their rows of the
+    output kernel (row-parallel, summed over 'model')."""
 
     def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype,
                  g: torch.Generator, use_fused: bool = False,
@@ -393,6 +448,7 @@ class FullAttentionLayer(nn.Module):
         self.key = linear(d_model, dk * n_heads, g)
         self.value = linear(d_model, dk * n_heads, g)
         self.out = linear(dk * n_heads, d_model, g)
+        self.tp = None
 
     def uses_kernel(self, q_len: int, k_len: int, dk: int) -> bool:
         return (self.use_fused and not self.causal and q_len == k_len
@@ -402,7 +458,10 @@ class FullAttentionLayer(nn.Module):
 
     def forward(self, q_in, k_in, v_in,
                 generator: Optional[torch.Generator] = None):
-        h = self.n_heads
+        tp = self.tp
+        h = self.n_heads if tp is None else self.n_heads // tp.size("model")
+        if tp is not None:
+            q_in, k_in, v_in = copy_inputs(tp, q_in, k_in, v_in)
         b, l = q_in.shape[:2]
         dt = self.dtype
         q = dense(q_in, self.query, dt).unflatten(-1, (h, -1))   # (B, L, H, dk)
@@ -428,9 +487,12 @@ class FullAttentionLayer(nn.Module):
                 later = triangular_causal_mask(1, l, scores.device)[0, 0]
                 scores = scores.masked_fill(later, float("-inf"))
             a = torch.softmax(scores / math.sqrt(dk), dim=-1)
-            a = dropout(a, self.attention_dropout, generator, self.training)
+            a = dropout(a, self.attention_dropout, generator, self.training,
+                        model_dim=None if tp is None else 1, mesh=tp)
             out = torch.matmul(a.to(vh.dtype), vh).transpose(1, 2)
         out = out.reshape(b, l, h * dk).to(dt)
+        if tp is not None:
+            return row_parallel(out, self.out, dt, tp)
         return dense(out, self.out, dt)
 
 
@@ -480,6 +542,7 @@ class EncoderLayer(nn.Module):
             self.conv1 = linear(d_model, d_ff, g)
             self.conv2 = linear(d_ff, d_model, g)
         self.norm2 = layer_norm_module(d_model)
+        self.tp = None   # a mesh: conv1 column-, conv2 row-parallel
 
     def forward(self, x, generator: Optional[torch.Generator] = None,
                 aux: Optional[list] = None):
@@ -490,10 +553,15 @@ class EncoderLayer(nn.Module):
             attn = self.attention(x, x, x, generator)
         x = x + drop(attn)
         x = y = layer_norm(self.norm1, x)
+        act = F.relu if self.activation == "relu" else gelu
         if hasattr(self, "moe_ffn"):
             y = drop(self.moe_ffn(y, generator, aux))
+        elif self.tp is not None:
+            (y,) = copy_inputs(self.tp, y)
+            y = dropout(act(dense(y, self.conv1, self.dtype)), self.dropout,
+                        generator, self.training, model_dim=-1, mesh=self.tp)
+            y = drop(row_parallel(y, self.conv2, self.dtype, self.tp))
         else:
-            act = F.relu if self.activation == "relu" else gelu
             y = drop(act(dense(y, self.conv1, self.dtype)))
             y = drop(dense(y, self.conv2, self.dtype))
         return layer_norm(self.norm2, x + y)
@@ -661,7 +729,10 @@ class BatchNorm(nn.Module):
     it normalises with the buffers and moves nothing. The normalisation is
     float32, (x - mean) * (rsqrt(var + eps) * weight) + bias, returned in
     `dtype`. Parameters `weight` and `bias` are flax's `scale` and `bias`
-    (1 and 0); buffers `mean` and `var` its `batch_stats` (0 and 1)."""
+    (1 and 0); buffers `mean` and `var` its `batch_stats` (0 and 1).
+    Under a step's mesh with more than one 'data' rank the statistics are
+    the global batch's: the f32 sums of x and x^2 are summed over 'data'
+    (`comm.data_sum`, with their gradient) before the division."""
 
     def __init__(self, features: int, dtype: torch.dtype,
                  momentum: float = 0.9, eps: float = 1e-5):
@@ -679,8 +750,17 @@ class BatchNorm(nn.Module):
         shape = (1, -1) + (1,) * (x.ndim - 2)
         if self.training:
             axes = (0,) + tuple(range(2, x.ndim))
-            mean = xf.mean(axes)
-            var = torch.clamp(xf.square().mean(axes) - mean.square(), min=0.0)
+            dp = comm.data_size()
+            if dp > 1:
+                sums = comm.data_sum(torch.stack([xf.sum(axes),
+                                                  xf.square().sum(axes)]))
+                n = (xf.numel() // xf.shape[1]) * dp
+                mean = sums[0] / n
+                var = torch.clamp(sums[1] / n - mean.square(), min=0.0)
+            else:
+                mean = xf.mean(axes)
+                var = torch.clamp(xf.square().mean(axes) - mean.square(),
+                                  min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.mul_(m).add_(mean * (1.0 - m))

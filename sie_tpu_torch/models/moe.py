@@ -40,6 +40,7 @@ from torch import nn
 
 from sie_tpu_torch.models.layers import (dense, dropout, gelu, lecun_linear,
                                          lecun_normal_)
+from sie_tpu_torch.parallel import comm
 
 
 def capacity(t: int, n_experts: int, top_k: int,
@@ -117,15 +118,23 @@ class MoEFFN(nn.Module):
     def aux_loss(self, logits: torch.Tensor,
                  probs: torch.Tensor) -> torch.Tensor:
         """The load-balance loss (+ the z-loss), measured on the first
-        choice."""
+        choice. Under a step's mesh the means are over the global batch
+        (the sums over 'data', parallel/comm.py)."""
         e = self.n_experts
         first = F.one_hot(torch.argmax(probs, -1), e).to(probs.dtype)
-        f_e = first.mean(dim=(0, 1))
-        p_e = probs.mean(dim=(0, 1))
+        if comm.data_size() > 1:
+            n = probs.shape[0] * probs.shape[1] * comm.data_size()
+            f_e = comm.data_total(first.sum(dim=(0, 1))) / n
+            p_e = comm.data_sum(probs.sum(dim=(0, 1))) / n
+        else:
+            f_e = first.mean(dim=(0, 1))
+            p_e = probs.mean(dim=(0, 1))
         aux = self.aux_weight * e * (f_e * p_e).sum()
         if self.zloss_weight > 0.0:
-            z = torch.logsumexp(logits, dim=-1)
-            aux = aux + self.zloss_weight * (z ** 2).mean()
+            z2 = torch.logsumexp(logits, dim=-1) ** 2
+            if comm.data_size() > 1:
+                z2 = comm.data_sum(z2.sum()) / (z2.numel() * comm.data_size())
+            aux = aux + self.zloss_weight * z2.mean()
         return aux
 
     def forward(self, x: torch.Tensor,
@@ -139,7 +148,7 @@ class MoEFFN(nn.Module):
         xin = torch.einsum("btec,btd->ebcd", dispatch.to(dt), x.to(dt))
         h = torch.einsum("ebcd,edf->ebcf", xin, self.expert_wi.to(dt))
         h = act(h + self.expert_bi.to(dt)[:, None, None, :])
-        h = dropout(h, self.dropout, generator, self.training)
+        h = dropout(h, self.dropout, generator, self.training, batch_dim=1)
         y = torch.einsum("ebcf,efd->ebcd", h, self.expert_wo.to(dt))
         y = y + self.expert_bo.to(dt)[:, None, None, :]
         out = torch.einsum("btec,ebcd->btd", combine.to(dt), y)

@@ -23,6 +23,12 @@ Under `cfg.fuse_short_banks`, with the metric resolved to 'euclidean' and
 at least two stride-1 banks, those banks take one grouped launch (kernels
 K3 forward and K4 backward), the others one K1 launch each, as in the JAX
 package; the distances are the same either way.
+
+Split over a mesh's 'model' axis (`tp`, parallel/mesh.py `shard_params`),
+each bank holds this rank's n/M shapelets (and thresholds): the kernels
+run on them, and the predicates and distances of every rank are gathered
+back into the global order, bank-major, before the classifier, which is
+whole on every rank; the diversity loss reads each bank gathered whole.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from sie_tpu_torch.ops.shapelet import (diversity_loss, instance_norm, rbf,
                                         shapelet_stride, sliding_distance,
                                         ste_max, ste_min)
 from sie_tpu_torch.ops.shapelet_l1 import l1_sliding_distance_grouped
+from sie_tpu_torch.parallel import comm
 
 
 def bank_lengths(cfg: Config) -> Tuple[int, ...]:
@@ -118,6 +125,7 @@ class ShapeBottleneckModel(nn.Module):
             uniform_(self.bilinear_w, 1.0 / math.sqrt(total), g)
         elif cfg.sbm_cls == "attention":
             self.attention = PredicateAttention(total, cfg.compute_dtype, g)
+        self.tp = None
 
     @property
     def banks(self) -> List[torch.Tensor]:
@@ -173,7 +181,23 @@ class ShapeBottleneckModel(nn.Module):
                     thr[None] - (d_min if hard else ste_min(d_full, dim=-1)))
             ps.append(p.reshape(b, -1))
             ds.append(d_min.reshape(b, -1))
-        return torch.cat(ps, dim=-1), torch.cat(ds, dim=-1)
+        p, d = torch.cat(ps, dim=-1), torch.cat(ds, dim=-1)
+        if self.tp is not None:
+            widths = [t.shape[-1] for t in ps]
+            p, d = self._gather_banks(p, widths), self._gather_banks(d, widths)
+        return p, d
+
+    def _gather_banks(self, t: torch.Tensor, widths) -> torch.Tensor:
+        """(B, sum of local bank widths) of every 'model' rank -> (B,
+        total) in the global order: bank by bank, each bank's rows in rank
+        order (rank r holds shapelets r*n/M ... (r+1)*n/M - 1)."""
+        g = comm.gather_model(t, self.tp)                  # (M, B, F_local)
+        out, lo = [], 0
+        for w in widths:
+            out.append(g[:, :, lo:lo + w].transpose(0, 1).reshape(
+                g.shape[1], -1))
+            lo += w
+        return torch.cat(out, dim=-1)
 
     def classify(self, p: torch.Tensor,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -198,8 +222,11 @@ class ShapeBottleneckModel(nn.Module):
         cfg = self.cfg
         loss = cfg.lambda_reg * self.output_layer.weight.abs().mean()
         if cfg.lambda_div > 0.0:
+            banks = (self.banks if self.tp is None else
+                     [comm.gather_model_dim(b, self.tp, 0)
+                      for b in self.banks])
             loss = loss + cfg.lambda_div * sum(diversity_loss(b)
-                                               for b in self.banks)
+                                               for b in banks)
         return loss
 
     def forward(self, x, padding_mask=None, gating_value=None,

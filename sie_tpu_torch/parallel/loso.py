@@ -3,33 +3,23 @@ sie_tpu/parallel/loso.py).
 
 The reference collects per-trial subject ids but never splits by them
 (README.md:69 states LOSO as the intended protocol). Here each fold holds
-one subject out as the test set, and the folds run one after another on one
-device, each an `Experiment` with its checkpoints under
-`<checkpoint_dir>/loso-<subject>`. `fold_slice` takes a subset of the
-folds. Spreading the folds over hosts (the JAX package's
-`run_loso_multihost`) is not ported yet: `multihost_requested` tells the
-command line when the environment asks for it, and it raises naming
-ROADMAP.md.
+one subject out as the test set, and the folds run one after another,
+each an `Experiment` with its checkpoints under
+`<checkpoint_dir>/loso-<subject>`, on one device or, with `mesh`, each
+fold's steps over that device mesh. `fold_slice` takes a subset of the
+folds: parallel/multihost.py `run_loso_multihost` gives each process of a
+multi-process launch its own slice.
 """
 
 from __future__ import annotations
 
-import os
 from typing import List, Optional
 
 from sie_tpu_torch.config import Config
 from sie_tpu_torch.device import DeviceLike
 
 
-def multihost_requested() -> bool:
-    """True when the environment asks for several processes, as the JAX
-    package's `init_distributed` reads it (SIE_TPU_COORDINATOR and
-    SIE_TPU_NUM_PROCESSES > 1)."""
-    return bool(os.environ.get("SIE_TPU_COORDINATOR")) and int(
-        os.environ.get("SIE_TPU_NUM_PROCESSES", "1") or 1) > 1
-
-
-def run_loso(cfg: Config, n_subjects: Optional[int] = None,
+def run_loso(cfg: Config, n_subjects: Optional[int] = None, mesh=None,
              synthetic: Optional[bool] = None, verbose: bool = True,
              fold_slice: slice = slice(None),
              device: DeviceLike = None) -> List[dict]:
@@ -48,7 +38,7 @@ def run_loso(cfg: Config, n_subjects: Optional[int] = None,
     for subject in range(n_subjects)[fold_slice]:
         fold_cfg = cfg.replace(
             checkpoint_dir=f"{cfg.checkpoint_dir}/loso-{subject}")
-        exp = Experiment(fold_cfg, loso_test_subject=subject,
+        exp = Experiment(fold_cfg, mesh=mesh, loso_test_subject=subject,
                          verbose=verbose, device=device)
         exp.train()
         _loss, metrics, _ = exp.test(save_csv=False)

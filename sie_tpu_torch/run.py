@@ -22,8 +22,12 @@ several seeds, and `--export_torch_ckpt PATH` (a reference-layout
 `checkpoint.pth`, `.seed<n>` appended when there are several seeds) ->
 accuracy against the random baseline (classification). `--augment
 noise,scale,chdrop,tshift` augments the train batches on the device.
-`--loso` with EEG or EEG3 runs one fold per held-out subject on one device
-and prints the folds' mean accuracy. Serve a bundle with `python -m
+`--loso` with EEG or EEG3 runs one fold per held-out subject (each over
+the mesh under `--mesh`) and prints the folds' mean accuracy; under the
+launch variables of parallel/multihost.py (SIE_TPU_COORDINATOR,
+SIE_TPU_NUM_PROCESSES, SIE_TPU_PROCESS_ID) without `--mesh` each process
+takes its contiguous slice of the folds (`run_loso_multihost`) and prints
+`[multihost] process i/n took folds ...`. Serve a bundle with `python -m
 sie_tpu_torch.serve_http --bundle DIR`. `--stream_from_disk` keeps the
 classification and regression splits in memmap caches under
 `--cache_dir` and feeds training from the host (data/stream.py).
@@ -31,11 +35,19 @@ classification and regression splits in memmap caches under
 `--profile_dir DIR` writes a torch.profiler trace of training there, and
 `--debug_nans` raises FloatingPointError at the first non-finite value a
 train step or eval pass makes, naming the step and the operation
-(utils/profiling.py). The flags of paths the port does not have yet raise
-NotImplementedError naming ROADMAP.md: `--mesh`, and `--loso` when the
-environment asks for several processes (SIE_TPU_COORDINATOR). Checkpoint
-converters the reference lacks (the extra backbones) raise where they are
-called. `--no_pallas`,
+(utils/profiling.py).
+
+`--mesh 8` (or `4x2` over `--mesh_axes data,model`) trains, tests and
+serves over a process mesh (parallel/mesh.py), one process a card: under
+the launch variables this process is one rank; without them the command
+starts the workers itself (`multihost.spawn_workers`: one a local card
+over NCCL, or with `--device cpu` or an explicit `--device cuda:K` that
+many processes over gloo) and returns the first failing exit code.
+Classification and regression take the mesh; process 0 writes the
+checkpoints, CSVs, pickles and exports, gathered to the full layout. The
+'seq', 'expert' and 'pipe' axes raise NotImplementedError naming
+ROADMAP.md. Checkpoint converters the reference lacks (the extra
+backbones) raise where they are called. `--no_pallas`,
 `--multi_gpu` and `--num_workers` are accepted and change nothing, as in
 run.py off a TPU.
 """
@@ -46,6 +58,8 @@ import argparse
 import json
 import os
 import pickle
+
+import numpy as np
 
 from sie_tpu_torch.config import DEFAULT_SEEDS, Config
 from sie_tpu_torch.data.augment import validate as validate_augment
@@ -178,8 +192,12 @@ def get_args(argv=None):
                    help="'cuda' (the card; raises without one) or 'cpu' "
                         "(the kernels' plain PyTorch versions)")
     p.add_argument("--mesh", type=str, default="",
-                   help="not ported yet (ROADMAP.md)")
-    p.add_argument("--mesh_axes", type=str, default="data,model")
+                   help="device mesh, e.g. '8' (dp) or '4x2' (dp x mp): "
+                        "one process a card (parallel/mesh.py)")
+    p.add_argument("--mesh_axes", type=str, default="data,model",
+                   help="comma-separated mesh axis names matching --mesh "
+                        "('data', 'model'; 'seq', 'expert' and 'pipe' are "
+                        "not ported yet)")
     p.add_argument("--moe_experts", type=int, default=0,
                    help="replace the Transformer encoder's FFN with a "
                         "Switch mixture of this many expert FFNs "
@@ -211,7 +229,8 @@ def get_args(argv=None):
                         "models/extra/attention_variants.py)")
     p.add_argument("--loso", action="store_true",
                    help="leave-one-subject-out sweep (EEG), the folds one "
-                        "after another on one device")
+                        "after another, or split across the processes of "
+                        "a multi-process launch")
     p.add_argument("--checkpoint_dir", type=str, default="./checkpoints")
     p.add_argument("--result_dir", type=str, default="./result")
     p.add_argument("--cache_dir", type=str, default="./cache")
@@ -264,23 +283,35 @@ def get_args(argv=None):
 
 
 # flag -> what it asks for, when set to other than its default
-_UNPORTED = {
-    "mesh": "training on a device mesh (--mesh)",
-}
+_UNPORTED: dict = {}
+
+
+def mesh_shape(args) -> tuple:
+    return tuple(int(t) for t in args.mesh.split("x") if t) \
+        if args.mesh else ()
+
+
+def mesh_axes(args) -> tuple:
+    return tuple(t.strip() for t in args.mesh_axes.split(",") if t.strip())
 
 
 def refuse_unported(args) -> None:
     """Raises NotImplementedError, naming ROADMAP.md, for a flag whose path
-    the port does not have yet."""
+    the port does not have yet (a mesh axis of 'seq', 'expert' or 'pipe'),
+    and ValueError for a task that takes no mesh."""
+    from sie_tpu_torch.parallel.mesh import _NOT_PORTED
     for flag, what in _UNPORTED.items():
         if getattr(args, flag):
             raise not_ported(what)
-    if args.loso and args.data in ("EEG", "EEG3"):
-        from sie_tpu_torch.parallel.loso import multihost_requested
-        if multihost_requested():
-            raise not_ported("leave-one-subject-out folds over several "
-                             "processes (--loso under SIE_TPU_COORDINATOR, "
-                             "ROADMAP.md §1 item 5)")
+    shape = mesh_shape(args)
+    for axis, size in zip(mesh_axes(args), shape):
+        if axis in _NOT_PORTED and size > 1:
+            raise not_ported(_NOT_PORTED[axis])
+    meshed = int(np.prod(shape)) > 1 if shape else False
+    if meshed and args.task_name in TASKS:
+        raise ValueError(f"--mesh applies to classification and "
+                         f"regression; {args.task_name} runs without it, "
+                         f"as in the JAX package")
 
 
 def args_to_config(args, seed: int) -> Config:
@@ -294,9 +325,7 @@ def args_to_config(args, seed: int) -> Config:
               augment=validate_augment(
                   tuple(t.strip() for t in args.augment.split(",")
                         if t.strip())),
-              mesh_shape=(),
-              mesh_axes=tuple(t.strip() for t in args.mesh_axes.split(",")
-                              if t.strip()),
+              mesh_shape=mesh_shape(args), mesh_axes=mesh_axes(args),
               use_pallas=not args.no_pallas,
               eegcnn_pooling=pooling, gradient_clip=float(args.gradient_clip),
               dropout=float(args.dropout))
@@ -306,13 +335,17 @@ def args_to_config(args, seed: int) -> Config:
     return Config(**kw)
 
 
-def export(experiment, args, seed: int, n_seeds: int) -> None:
+def export(experiment, args, seed: int, n_seeds: int, variables=None,
+           device=None) -> None:
     """The tested weights as a serving bundle (--export_bundle,
     --quantize_bundle) and as ahead-of-time programs (--export_stablehlo),
-    each under seed-<n> when there are several seeds."""
+    each under seed-<n> when there are several seeds; under a mesh from
+    the gathered `variables`."""
     from sie_tpu_torch.serve import Predictor
-    pred = Predictor.from_module(experiment.cfg, experiment.trainer.model,
-                                 device=args.device)
+    device = device or args.device
+    pred = (Predictor.from_module(experiment.cfg, experiment.trainer.model,
+                                  device=device) if variables is None else
+            Predictor(experiment.cfg, variables, device=device))
     sub = lambda d: os.path.join(d, f"seed-{seed}") if n_seeds > 1 else d
     if args.export_bundle:
         bundle_dir = sub(args.export_bundle)
@@ -326,13 +359,29 @@ def export(experiment, args, seed: int, n_seeds: int) -> None:
         print(f"StableHLO serving artifacts exported to {hlo_dir}")
 
 
-def run_loso_folds(args, cfg, seed: int):
+def run_loso_folds(args, cfg, seed: int, mesh, device):
     """--loso on EEG/EEG3: one fold per held-out subject, one after another
-    on this process's device -> (seed, None, the folds' metrics)."""
-    import numpy as np
+    (each over `mesh` when there is one: every process trains every fold),
+    or, under a multi-process launch without --mesh, this process's slice
+    of the folds -> (seed, None, the folds' metrics)."""
     from sie_tpu_torch.parallel.loso import run_loso
-    fold_results = run_loso(cfg, device=args.device)
+    from sie_tpu_torch.parallel.multihost import (multihost_requested,
+                                                  rank_and_world,
+                                                  run_loso_multihost)
+    if multihost_requested() and mesh is None:
+        from sie_tpu_torch.data.eeg import load_eeg_dataset
+        probe = load_eeg_dataset(cfg, "train", three_class=(cfg.data == "EEG3"))
+        n_subj = (int(probe.subject_ids.max()) + 1
+                  if probe.subject_ids is not None else 1)
+        fold_results, sl = run_loso_multihost(cfg, n_subj, device=device)
+        rank, world = rank_and_world()
+        print(f"[multihost] process {rank}/{world} took folds {sl}")
+    else:
+        fold_results = run_loso(cfg, mesh=mesh, device=device)
     accs = [r["accuracy"] for r in fold_results]
+    if not accs:
+        print("LOSO: no folds assigned to this process")
+        return (seed, None, {"per_fold": []})
     num_class = 3 if cfg.data == "EEG3" else 39
     print(f"LOSO ({len(accs)} folds): accuracy "
           f"{np.mean(accs):.2f} +/- {np.std(accs):.2f} "
@@ -369,27 +418,47 @@ def run_task(args, cfg, seed: int):
 
 
 def main(argv=None):
+    import sys
+
+    import torch.distributed as dist
+
+    from sie_tpu_torch.parallel import multihost
     from sie_tpu_torch.utils.profiling import debug_nans
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = get_args(argv)
     refuse_unported(args)
-    with debug_nans(args.debug_nans):
-        return run_seeds(args)
+    n = int(np.prod(mesh_shape(args))) if args.mesh else 1
+    if n > 1 and not multihost.multihost_requested():
+        code = multihost.spawn_workers(argv, n, args.device)
+        if code:
+            raise SystemExit(code)
+        return []
+    started = multihost.init_distributed(device=args.device)
+    try:
+        with debug_nans(args.debug_nans):
+            return run_seeds(args, multihost.process_device(args.device))
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
-def run_seeds(args):
+def run_seeds(args, device):
     from sie_tpu_torch.compat.from_jax import to_jax_variables
+    from sie_tpu_torch.parallel.mesh import is_writer, make_mesh
     from sie_tpu_torch.train.experiment import Experiment
     from sie_tpu_torch.train.regression import RegressionExperiment
     from sie_tpu_torch.utils.profiling import trace
 
     seeds = list(DEFAULT_SEEDS) if args.seed == -1 else [args.seed]
     all_results = []
+    mesh = make_mesh(args_to_config(args, 0))
+    writer = is_writer(mesh)
 
     for i, seed in enumerate(seeds):
         print(f"\n===== experiment {i + 1}/{len(seeds)} — seed {seed} =====")
         cfg = args_to_config(args, seed)
         if args.loso and args.data in ("EEG", "EEG3"):
-            all_results.append(run_loso_folds(args, cfg, seed))
+            all_results.append(run_loso_folds(args, cfg, seed, mesh, device))
             continue
 
         if args.task_name in TASKS:
@@ -406,7 +475,8 @@ def run_seeds(args):
                     f.write(json.dumps(dict(rec, seed=_seed)) + "\n")
         kind = (RegressionExperiment if args.task_name == "regression"
                 else Experiment)
-        experiment = kind(cfg, metrics_hook=metrics_hook, device=args.device)
+        experiment = kind(cfg, metrics_hook=metrics_hook, device=device,
+                          mesh=mesh)
 
         if args.import_torch_ckpt:
             unused = experiment.load_torch_checkpoint(args.import_torch_ckpt)
@@ -425,21 +495,28 @@ def run_seeds(args):
         test_loss, test_metrics, test_result = experiment.test(
             save_csv=True, result_dir=os.path.join(args.result_dir, args.model))
         result_file = os.path.join(experiment.checkpoint_dir, "test_results.pkl")
-        os.makedirs(experiment.checkpoint_dir, exist_ok=True)
-        with open(result_file, "wb") as f:
-            # the per-seed bundle: the ClassificationResult carries x, p, d,
-            # eta, the shapelets and w (regression: its result dict)
-            pickle.dump({"test_loss": test_loss, "test_metrics": test_metrics,
-                         "result": test_result, "args": vars(args)}, f)
-        print(f"results pickled to {result_file}")
+        if writer:
+            os.makedirs(experiment.checkpoint_dir, exist_ok=True)
+            with open(result_file, "wb") as f:
+                # the per-seed bundle: the ClassificationResult carries x,
+                # p, d, eta, the shapelets and w (regression: its dict)
+                pickle.dump({"test_loss": test_loss,
+                             "test_metrics": test_metrics,
+                             "result": test_result, "args": vars(args)}, f)
+            print(f"results pickled to {result_file}")
 
-        if args.export_bundle or args.export_stablehlo:
-            export(experiment, args, seed, len(seeds))
-        if args.export_torch_ckpt:
+        exporting = (args.export_bundle or args.export_stablehlo
+                     or args.export_torch_ckpt)
+        # every 'model' rank takes part in gathering the weights
+        variables = (to_jax_variables(experiment.trainer.model)
+                     if exporting and mesh is not None else None)
+        if writer and (args.export_bundle or args.export_stablehlo):
+            export(experiment, args, seed, len(seeds), variables, device)
+        if writer and args.export_torch_ckpt:
             from sie_tpu_torch.compat.torch_export import save_torch_checkpoint
             pth = (args.export_torch_ckpt if len(seeds) == 1 else
                    args.export_torch_ckpt + f".seed{seed}")
-            save_torch_checkpoint(pth, to_jax_variables(
+            save_torch_checkpoint(pth, variables or to_jax_variables(
                 experiment.trainer.model), experiment.cfg)
             print(f"torch checkpoint exported to {pth}")
 
@@ -452,7 +529,6 @@ def run_seeds(args):
 
     accs = [m["accuracy"] for _, _, m in all_results if m and "accuracy" in m]
     if len(accs) > 1:
-        import numpy as np
         print(f"\n=== {len(accs)} seeds: accuracy "
               f"{np.mean(accs):.2f} +/- {np.std(accs):.2f} ===")
     return all_results

@@ -27,10 +27,21 @@ directory with `sie_tpu_torch.ops` and no model code.
 The forward runs under `torch.inference_mode()` on the predictor's device,
 the card unless the caller asks for the CPU. This module imports no model
 code at import time.
+
+Data-parallel serving: `mesh`, a single-process mesh over this process's
+devices (`parallel.mesh.make_mesh(cfg, devices=[...])`), holds a replica
+of the variables on each device of its 'data' axis (one model object for
+replicas on the same device; a 'model' axis is served replicated, on the
+first device of each 'data' row). Buckets start at the 'data' size and
+double, `max_batch` is rounded to a multiple of it, and each device runs
+its row block of a chunk on a stream of its own; the outputs are gathered
+in row order. The logits equal the predictor's without a mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -83,6 +94,27 @@ def _softmax_probs(logits: np.ndarray, temperature: float = 1.0
 def _empty(num_class: int) -> PredictOutput:
     z = np.zeros((0, num_class), np.float32)
     return PredictOutput(logits=z, probs=z, classes=np.zeros((0,), np.int64))
+
+
+def _first_device(mesh, device: DeviceLike) -> torch.device:
+    """The predictor's device: the mesh's first, or `device`."""
+    if mesh is None or mesh.devices is None:
+        return resolve_device(device)
+    return resolve_device(_data_devices(mesh)[0])
+
+
+def _data_devices(mesh) -> list:
+    """The device of each 'data' index of a single-process mesh: the first
+    along every other axis."""
+    axes = mesh.axis_names
+    index = tuple(slice(None) if a == "data" else 0 for a in axes)
+    devs = mesh.devices[index]
+    return list(np.atleast_1d(devs).reshape(-1))
+
+
+def _on(stream):
+    return contextlib.nullcontext() if stream is None else \
+        torch.cuda.stream(stream)
 
 
 def _pad(x: np.ndarray, mask: np.ndarray, bucket: int):
@@ -179,34 +211,52 @@ class Predictor:
 
     def __init__(self, cfg: Config, variables: Dict[str, Any],
                  device: DeviceLike = None, max_batch: int = 256,
-                 temperature: float = 1.0):
+                 temperature: float = 1.0, mesh=None):
         from sie_tpu_torch.compat.from_jax import load_jax_variables
         from sie_tpu_torch.models.registry import build_model
-        dev = resolve_device(device)
+        dev = _first_device(mesh, device)
         model = load_jax_variables(build_model(cfg, "cpu"), variables)
-        self._init(cfg, model.to(dev), dev, max_batch, temperature)
+        self._init(cfg, model.to(dev), dev, max_batch, temperature, mesh)
 
     @classmethod
     def from_module(cls, cfg: Config, module: nn.Module,
                     device: DeviceLike = None, max_batch: int = 256,
-                    temperature: float = 1.0) -> "Predictor":
+                    temperature: float = 1.0, mesh=None) -> "Predictor":
         """Serve a model built by `build_model` (weights initialised or
         loaded in PyTorch), with its BatchNorm buffers as they are."""
         self = cls.__new__(cls)
-        dev = resolve_device(device)
-        self._init(cfg, module.to(dev).eval(), dev, max_batch, temperature)
+        dev = _first_device(mesh, device)
+        self._init(cfg, module.to(dev).eval(), dev, max_batch, temperature,
+                   mesh)
         return self
 
-    def _init(self, cfg, model, device, max_batch, temperature):
+    def _init(self, cfg, model, device, max_batch, temperature, mesh=None):
         from sie_tpu_torch.compat.from_jax import is_quantized
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1; got {max_batch}")
+        if mesh is not None and mesh.devices is None:
+            raise ValueError("Predictor takes a mesh over this process's "
+                             "devices: make_mesh(cfg, devices=[...])")
         self.cfg = cfg
         self.model = model.eval()
         self.device = device
-        self.max_batch = max_batch
+        self.mesh = mesh
+        self._dp = 1 if mesh is None else mesh.size("data")
+        self.max_batch = max(max_batch // self._dp * self._dp, self._dp)
         self.temperature = float(temperature)   # scales probs only
         self.quantized = is_quantized(model)
+        # (device, model, stream) of each 'data' block of a chunk
+        self._replicas = [(device, self.model, None)]
+        if mesh is not None:
+            first = {device: self.model}
+            self._replicas = []
+            for d in _data_devices(mesh):
+                d = resolve_device(d)
+                if d not in first:
+                    first[d] = copy.deepcopy(self.model).to(d)
+                self._replicas.append(
+                    (d, first[d],
+                     torch.cuda.Stream(d) if d.type == "cuda" else None))
 
     # ---- construction -----------------------------------------------------
     @classmethod
@@ -355,7 +405,7 @@ class Predictor:
 
     # ---- inference ------------------------------------------------------
     def _bucket(self, b: int) -> int:
-        n = 1
+        n = self._dp
         while n < min(b, self.max_batch):
             n *= 2
         return min(n, self.max_batch)
@@ -403,17 +453,30 @@ class Predictor:
     def _predict_chunk(self, x, mask, gating_value, fields) -> Dict[str, Any]:
         b = x.shape[0]
         x, mask = _pad(x, mask, self._bucket(b))
+        rows = x.shape[0] // len(self._replicas)
         # an int8 weight is dequantised once a forward, where it is read
         # first, and its f32 copy freed with the forward's outputs
         with torch.inference_mode(), parametrize.cached():
-            xd = torch.from_numpy(x).to(self.device)
-            md = torch.from_numpy(mask).to(self.device)
-            logits, info = self.model(xd, md, gating_value=gating_value)
-            out = {"logits": logits.float()[:b].cpu().numpy()}
-            for k in _INFO_FIELDS:
-                a = getattr(info, k)
-                keep = a is not None and (fields is None or k in fields)
-                out[k] = a.float()[:b].cpu().numpy() if keep else None
+            launched = []
+            for i, (dev, model, stream) in enumerate(self._replicas):
+                lo = i * rows
+                with _on(stream):
+                    xd = torch.from_numpy(x[lo:lo + rows]).to(dev)
+                    md = torch.from_numpy(mask[lo:lo + rows]).to(dev)
+                    launched.append(model(xd, md, gating_value=gating_value))
+            parts = []
+            for (_dev, _model, stream), (logits, info) in zip(self._replicas,
+                                                              launched):
+                with _on(stream):
+                    part = {"logits": logits.float().cpu().numpy()}
+                    for k in _INFO_FIELDS:
+                        a = getattr(info, k)
+                        keep = a is not None and (fields is None or k in fields)
+                        part[k] = a.float().cpu().numpy() if keep else None
+                parts.append(part)
+        out = {k: (None if parts[0][k] is None else
+                   np.concatenate([p[k] for p in parts])[:b])
+               for k in parts[0]}
         out["probs"] = _softmax_probs(out["logits"], self.temperature)
         out["classes"] = np.argmax(out["logits"], -1)
         return out

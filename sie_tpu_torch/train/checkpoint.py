@@ -150,9 +150,13 @@ def has_checkpoint(ckpt_dir: str) -> bool:
 
 def save_train_state(ckpt_dir: str, trainer, epoch: int, early_state: dict):
     """Snapshot the trainer's whole state with the loop's position, so an
-    interrupted run resumes exactly."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    interrupted run resumes exactly. Under a process mesh every rank takes
+    part in gathering the state and process 0 writes it."""
+    from sie_tpu_torch.parallel.mesh import is_writer
     payload = dict(trainer.state_tree(), epoch=epoch, early=early_state)
+    if not is_writer(getattr(trainer, "mesh", None)):
+        return
+    os.makedirs(ckpt_dir, exist_ok=True)
     _atomic_write(os.path.join(ckpt_dir, FULL_STATE_NAME),
                   flax_msgpack.to_bytes(payload))
 

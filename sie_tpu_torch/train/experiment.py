@@ -43,6 +43,7 @@ from sie_tpu_torch.data.provider import data_provider
 from sie_tpu_torch.data.stream import prefetch_to_device
 from sie_tpu_torch.device import DeviceLike, resolve_device
 from sie_tpu_torch.models.info import ModelInfo
+from sie_tpu_torch.parallel.mesh import is_writer
 from sie_tpu_torch.train import checkpoint as ckpt
 from sie_tpu_torch.train.trainer import Trainer, compute_beta, per_sample_ce
 from sie_tpu_torch.utils.metrics import accuracy, class_distribution
@@ -67,12 +68,14 @@ def _map_info(info: Optional[ModelInfo], fn) -> Optional[ModelInfo]:
 class Experiment:
     def __init__(self, cfg: Config, verbose: bool = True, metrics_hook=None,
                  device: DeviceLike = None,
-                 loso_test_subject: Optional[int] = None):
+                 loso_test_subject: Optional[int] = None, mesh=None):
         device = resolve_device(device)   # without a card, before any data
-        self.verbose = verbose
+        # under a process mesh every rank trains; process 0 logs and writes
+        self.writer = is_writer(mesh)
+        self.verbose = verbose and self.writer
         # metrics_hook(dict) fires once per epoch with {epoch, train_loss,
         # val_loss, val_accuracy, beta, seconds}
-        self.metrics_hook = metrics_hook
+        self.metrics_hook = metrics_hook if self.writer else None
         # loso_test_subject: that EEG subject is the test split
         split = lambda flag: data_provider(
             cfg, flag, loso_test_subject=loso_test_subject)
@@ -92,7 +95,7 @@ class Experiment:
         self.cfg = cfg
         self.trainer = Trainer(
             cfg, steps_per_epoch=max(len(self.train_loader), 1),
-            device=device,
+            device=device, mesh=mesh,
             generator=torch.Generator().manual_seed(max(cfg.seed, 0)))
         self.checkpoint_dir = os.path.join(cfg.checkpoint_dir,
                                            cfg.checkpoint_key())
@@ -188,11 +191,12 @@ class Experiment:
                 if early(-val_acc):
                     best = to_jax_variables(tr.model)
                     # the write overlaps the next epoch; loads wait for it
-                    ckpt.save_checkpoint(self.checkpoint_dir, best["params"],
-                                         best["batch_stats"],
-                                         meta={"epoch_stop": epoch,
-                                               "val_accuracy": float(val_acc)},
-                                         background=True)
+                    if self.writer:
+                        ckpt.save_checkpoint(self.checkpoint_dir, best["params"],
+                            best["batch_stats"],
+                            meta={"epoch_stop": epoch,
+                                  "val_accuracy": float(val_acc)},
+                            background=True)
             if snapshot_every and (epoch + 1) % snapshot_every == 0:
                 ckpt.save_train_state(self.checkpoint_dir, tr, epoch + 1,
                                       early.state_dict())
@@ -336,7 +340,7 @@ class Experiment:
         self._log(f"Test accuracy {metrics['accuracy']:.2f}% "
                   f"(random baseline {metrics['random_baseline']:.2f}%)")
 
-        if save_csv:
+        if save_csv and self.writer:
             result.summary = self._summary_row(result)
             out_dir = result_dir or os.path.join(cfg.result_dir, cfg.model)
             os.makedirs(out_dir, exist_ok=True)

@@ -36,6 +36,8 @@ from sie_tpu_torch.compat.from_jax import (load_jax_variables, to_jax_params,
 from sie_tpu_torch.config import Config
 from sie_tpu_torch.data.provider import data_provider
 from sie_tpu_torch.device import DeviceLike, resolve_device
+from sie_tpu_torch.parallel import comm
+from sie_tpu_torch.parallel.mesh import is_writer
 from sie_tpu_torch.train import checkpoint as ckpt
 from sie_tpu_torch.train.trainer import Trainer, compute_beta
 from sie_tpu_torch.utils.shapelet_util import extract_shapelets
@@ -69,8 +71,8 @@ def make_crps_head(bin_edges: np.ndarray, truncate_targets: bool = False):
             t = torch.trunc(t)
         cdf_true = (e[None, :] >= t[:, None]).float()
         per_sample = (cdf_pred - cdf_true).square().sum(dim=1)
-        return (per_sample * weights).sum() / torch.clamp(weights.sum(),
-                                                          min=1.0)
+        return (per_sample * weights).sum() / torch.clamp(
+            comm.data_total(weights.sum()), min=1.0)
 
     return crps
 
@@ -78,12 +80,14 @@ def make_crps_head(bin_edges: np.ndarray, truncate_targets: bool = False):
 class RegressionExperiment:
     def __init__(self, cfg: Config, verbose: bool = True,
                  truncate_targets: bool = False, metrics_hook=None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         device = resolve_device(device)   # without a card, before any data
-        self.verbose = verbose
+        # under a process mesh every rank trains; process 0 logs and writes
+        self.writer = is_writer(mesh)
+        self.verbose = verbose and self.writer
         # metrics_hook(dict) fires once per epoch with {epoch, train_loss,
         # val_loss, beta, seconds}
-        self.metrics_hook = metrics_hook
+        self.metrics_hook = metrics_hook if self.writer else None
         self.train_data, self.train_loader = data_provider(cfg, "TRAIN")
         self.test_data, self.test_loader = data_provider(
             cfg, "TEST", bin_edges=self.train_data.bin_edges)
@@ -98,7 +102,7 @@ class RegressionExperiment:
                                         truncate_targets)
         self.trainer = Trainer(
             cfg, steps_per_epoch=max(len(self.train_loader), 1),
-            device=device, loss_head=self.loss_head,
+            device=device, loss_head=self.loss_head, mesh=mesh,
             generator=torch.Generator().manual_seed(max(cfg.seed, 0)))
         self.checkpoint_dir = os.path.join(cfg.checkpoint_dir,
                                            cfg.checkpoint_key())
@@ -143,11 +147,13 @@ class RegressionExperiment:
             if epoch >= cfg.min_epochs:
                 if early(val_loss):
                     best = to_jax_variables(tr.model)
-                    ckpt.save_checkpoint(self.checkpoint_dir, best["params"],
-                                         best["batch_stats"],
-                                         meta={"epoch_stop": epoch,
-                                               "val_loss": float(val_loss)},
-                                         background=True)
+                    if self.writer:
+                        ckpt.save_checkpoint(
+                            self.checkpoint_dir, best["params"],
+                            best["batch_stats"],
+                            meta={"epoch_stop": epoch,
+                                  "val_loss": float(val_loss)},
+                            background=True)
             if early.early_stop:
                 self._log("Early stopping")
                 self.epoch_stop = epoch
@@ -226,7 +232,7 @@ class RegressionExperiment:
                       shapelets=extract_shapelets(params),
                       eta=cat("eta"), sbm_pred=cat("sp"))
         self._log(f"Test loss {total_loss:.6f}")
-        if save_csv:
+        if save_csv and self.writer:
             row = {k: getattr(cfg, k) for k in (
                 "model", "dataset", "dnn_type", "train_epochs", "num_shapelet",
                 "lambda_reg", "lambda_div", "epsilon", "lr", "seed",

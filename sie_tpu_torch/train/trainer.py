@@ -83,9 +83,11 @@ from sie_tpu_torch.data.augment import draw as draw_augment
 from sie_tpu_torch.data.augment import validate as validate_augment
 from sie_tpu_torch.device import DeviceLike, resolve_device
 from sie_tpu_torch.models.info import ModelInfo
-from sie_tpu_torch.models.layers import not_ported
 from sie_tpu_torch.models.registry import build_model
 from sie_tpu_torch.models.sbm import clamp_sbm_weights
+from sie_tpu_torch.parallel import comm
+from sie_tpu_torch.parallel.mesh import (LocalBatch, data_block, shard_batch,
+                                         shard_state)
 from sie_tpu_torch.utils.profiling import (debug_nans_enabled,
                                            first_nonfinite_op)
 
@@ -104,9 +106,11 @@ def compute_beta(epoch: int, max_epoch: int, schedule: str = "cosine") -> float:
 def weighted_ce(logits: torch.Tensor, labels: torch.Tensor,
                 weights: torch.Tensor) -> torch.Tensor:
     """sum(ce * w) / max(sum(w), 1), ce the softmax cross entropy of f32
-    logits against integer labels."""
+    logits against integer labels; under a mesh this rank's share, the
+    weight sum taken over the global batch (`comm.data_total`)."""
     ce = F.cross_entropy(logits.float(), labels.long(), reduction="none")
-    return (ce * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    return (ce * weights).sum() / torch.clamp(comm.data_total(weights.sum()),
+                                              min=1.0)
 
 
 def make_loss_fn(cfg: Config, loss_head: Optional[Callable] = None):
@@ -116,7 +120,13 @@ def make_loss_fn(cfg: Config, loss_head: Optional[Callable] = None):
     model loss (+ beta * the head of the SBM logits for InterpGN); beta is
     a float or a 0-d f32 tensor on the batch's device. loss_head(logits,
     targets, weights) -> scalar defaults to `weighted_ce`; the regression
-    experiment passes a CRPS head."""
+    experiment passes a CRPS head.
+
+    Under a mesh (`comm.using`) the loss is this rank's share of the global
+    batch's: the heads divide by the global weight sum, and the batch-wide
+    terms, means over the global batch that every rank holds whole, are
+    divided by the 'data' size, so the shares sum to the global loss and
+    the gradients summed over 'data' are its gradient."""
     head = loss_head or weighted_ce
     is_interpgn = cfg.model == "InterpGN"
 
@@ -124,11 +134,13 @@ def make_loss_fn(cfg: Config, loss_head: Optional[Callable] = None):
                 generator: Optional[torch.Generator]):
         x, y, mask, w = batch
         logits, info = model(x, mask, generator=generator)
+        dp = comm.data_size()
+        share = (lambda t: t / dp) if dp > 1 else (lambda t: t)
         loss = head(logits, y, w)
         if info.aux_loss is not None:
-            loss = loss + info.aux_loss
+            loss = loss + share(info.aux_loss)
         if info.loss is not None:
-            loss = loss + info.loss.mean()
+            loss = loss + share(info.loss.mean())
         if is_interpgn:
             loss = loss + beta * head(info.shapelet_preds, y, w)
         return loss, (logits, info)
@@ -173,9 +185,14 @@ class Optimizer:
     `capturable` (and `foreach`) differ on the card."""
 
     def __init__(self, cfg: Config, steps_per_epoch: int,
-                 params: Iterable[nn.Parameter]):
+                 params: Iterable[nn.Parameter], mesh=None,
+                 sharded: Iterable[nn.Parameter] = ()):
         self.params: List[nn.Parameter] = [p for p in params
                                            if p.requires_grad]
+        # the clip's norm sums the 'model'-sharded gradients over 'model'
+        self.mesh = mesh
+        ids = {id(p) for p in sharded}
+        self.sharded = [id(p) in ids for p in self.params]
         self.accum = max(cfg.gradient_accumulation_steps, 1)
         self.clip = float(cfg.gradient_clip)
         self.schedule = make_schedule(cfg, steps_per_epoch)
@@ -206,7 +223,8 @@ class Optimizer:
                 return False
             grads = self._acc
         if self.clip > 0:
-            grads = clip_by_global_norm(grads, self.clip)
+            grads = clip_by_global_norm(grads, self.clip, self.sharded,
+                                        self.mesh)
         for p, g in zip(self.params, grads):
             p.grad = g
         self.lr.copy_(self.schedule(self.count_t))
@@ -248,19 +266,31 @@ class Optimizer:
         self.count_t.fill_(float(count))
 
 
-def clip_by_global_norm(grads: List[torch.Tensor],
-                        max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        sharded=None, mesh=None) -> List[torch.Tensor]:
     """optax.clip_by_global_norm: unchanged below max_norm, else each g
-    becomes (g / norm) * max_norm; decided on the device, no host sync."""
-    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    becomes (g / norm) * max_norm; decided on the device, no host sync.
+    `sharded` flags the gradients of 'model'-sharded parameters, whose
+    squares are summed over 'model' (the others are whole on every
+    rank)."""
+    if sharded is None or not any(sharded):
+        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    else:
+        sq = [(g.float() ** 2).sum() for g in grads]
+        split = sum(s for s, sh in zip(sq, sharded) if sh)
+        with torch.no_grad():
+            split = comm.all_reduce_(split.clone(), mesh.group("model"))
+        norm = torch.sqrt(sum(s for s, sh in zip(sq, sharded) if not sh)
+                          + split)
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm)
             for g in grads]
 
 
 def make_optimizer(cfg: Config, steps_per_epoch: int,
-                   params: Iterable[nn.Parameter]) -> Optimizer:
-    return Optimizer(cfg, steps_per_epoch, params)
+                   params: Iterable[nn.Parameter], mesh=None,
+                   sharded: Iterable[nn.Parameter] = ()) -> Optimizer:
+    return Optimizer(cfg, steps_per_epoch, params, mesh, sharded)
 
 
 def per_sample_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -352,7 +382,7 @@ class GraphSteps:
         The graph keeps `reads`, the tensors it reads, alive, so their
         memory cannot pass to other tensors under the same key. A failing
         capture raises."""
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or getattr(self, "_eager", False):
             return body()
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
@@ -393,7 +423,22 @@ class Trainer(GraphSteps):
     the same with and without augmentation; `generator` draws the initial
     weights when the trainer builds the model. `loss_head` as in
     `make_loss_fn`. A trainer built inside `utils.profiling.debug_nans()`
-    runs the NaN checks of the module docstring."""
+    runs the NaN checks of the module docstring.
+
+    `mesh`, a process mesh (parallel/mesh.py; this process is one of its
+    ranks, `device` its card): the model is split over 'model' and
+    replicated over 'data' (`shard_state`) before the optimizer is built;
+    the batches given are global (`cfg.batch_size` rows), and a step takes
+    this rank's rows (`shard_batch`, `data_block`), or a batch from
+    `device_batch_from_local` as it is. A step runs the global batch's
+    arithmetic (parallel/comm.py): the loss's weight sum and the batch-wide
+    terms over the global batch, the gradients summed over 'data', the
+    clip's norm global, BatchNorm's statistics over 'data', the dropout
+    masks drawn at the global shape and cut to this rank's rows (K5/K6's
+    hash stays keyed on the local rows). A train step returns the global
+    loss and this rank's logits; the eval paths return every rank's rows,
+    in global order. Over NCCL the staged steps and their collectives are
+    captured as CUDA graphs; over gloo every step runs eagerly."""
 
     AUGMENT_OFFSET = 9173
 
@@ -401,15 +446,21 @@ class Trainer(GraphSteps):
                  model: Optional[nn.Module] = None, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None, mesh=None,
                  loss_head: Optional[Callable] = None):
-        if mesh is not None:
-            raise not_ported("training on a device mesh")
+        if mesh is not None and mesh.devices is not None:
+            raise ValueError("Trainer takes a process mesh (make_mesh(cfg)); "
+                             "a mesh over devices is for serving")
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         if model is None:
             model = build_model(cfg, self.device, generator)
-        self.model = model.to(self.device).train()
-        self.optimizer = make_optimizer(cfg, steps_per_epoch,
-                                        self.model.parameters())
+        self.model = shard_state(model.to(self.device).train(), mesh)
+        shards = getattr(self.model, "tp_shards", {})
+        named = dict(self.model.named_parameters())
+        self.optimizer = make_optimizer(
+            cfg, steps_per_epoch, self.model.parameters(), mesh,
+            [named[n] for n in shards])
+        self._eager = mesh is not None and mesh.backend == "gloo"
         self.loss_fn = make_loss_fn(cfg, loss_head)
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 17)
@@ -441,11 +492,23 @@ class Trainer(GraphSteps):
                                dtype=dtype).to(self.device)
 
     def _device_batch(self, batch):
-        x, y, mask, w = batch
+        """This rank's rows of a global batch (all of it without a mesh),
+        as device tensors."""
+        x, y, mask, w = shard_batch(batch, self.mesh)
         return (self._tensor(x, torch.float32),
                 self._tensor(y, target_dtype(y)),
                 self._tensor(mask, torch.float32),
                 self._tensor(w, torch.float32))
+
+    def device_batch_from_local(self, batch) -> LocalBatch:
+        """`batch` holds this process's rows of the global batch (its row
+        block); the result passes through `train_step` and `eval_step`
+        uncut."""
+        return LocalBatch(self._device_batch(LocalBatch(batch)))
+
+    def _rows(self, a):
+        """This rank's block of the rows of `a`."""
+        return a[data_block(len(a), self.mesh)]
 
     def _beta(self, beta) -> torch.Tensor:
         """beta in the eager steps' device scalar (a fill, no copy from
@@ -456,17 +519,25 @@ class Trainer(GraphSteps):
         """The device work of one train step (what a graph captures):
         loss and gradients, the optimizer at micro-batch `position` of its
         group, the pos_weight clamp."""
+        with comm.using(self.mesh):
+            return self._device_step_body(batch, beta, position)
+
+    def _device_step_body(self, batch, beta: torch.Tensor, position: int):
         self.model.train()
         for p in self.model.parameters():
             p.grad = None
         if self.augment_generator is not None:
             x, y, mask, w = batch
-            x, mask = apply_augmentations(self.cfg, x, mask, draw_augment(
-                self.cfg, tuple(x.shape), self.augment_generator))
+            shape = (x.shape[0] * comm.data_size(),) + tuple(x.shape[1:])
+            draws = [self._rows(d) for d in draw_augment(
+                self.cfg, shape, self.augment_generator)]
+            x, mask = apply_augmentations(self.cfg, x, mask, draws)
             batch = (x, y, mask, w)
         loss, (logits, _info) = self.loss_fn(self.model, batch, beta,
                                              self.generator)
         loss.backward()
+        comm.sum_grads(self.optimizer.params, self.mesh)
+        loss = comm.data_total(loss.detach())
         if self.debug_nans:
             self._finite.logical_and_(_all_finite(
                 [loss] + [p.grad for p in self.optimizer.params
@@ -565,13 +636,27 @@ class Trainer(GraphSteps):
 
     def _eval_forward(self, x, mask, gating_value=None):
         """The eval-mode forward every eval path shares: no gradients, no
-        dropout."""
+        dropout; under a mesh every rank's rows, in global order."""
         self.model.eval()
         try:
-            with torch.no_grad():
-                return self.model(x, mask, gating_value=gating_value)
+            with torch.no_grad(), comm.using(self.mesh):
+                return self._gather(self.model(x, mask,
+                                               gating_value=gating_value))
         finally:
             self.model.train()
+
+    def _gather(self, out, dim: int = 0):
+        """Every rank's rows of a pass's outputs (tensors and ModelInfo
+        fields) along `dim`, in global row order."""
+        if self.mesh is None or out is None:
+            return out
+        if torch.is_tensor(out):
+            return comm.gather_data(out, self.mesh, dim)
+        if isinstance(out, ModelInfo):
+            return dataclasses.replace(out, **{
+                f.name: comm.gather_data(getattr(out, f.name), self.mesh, dim)
+                for f in dataclasses.fields(out)})
+        return type(out)(self._gather(o, dim) for o in out)
 
     def eval_step(self, batch, gating_value: Optional[float] = None):
         """(logits, ModelInfo) in eval mode, without gradients."""
@@ -593,9 +678,10 @@ class Trainer(GraphSteps):
     def train_step_indexed(self, dev_data, idx, w, beta: float):
         """A train step on rows `idx` of `device_data`, gathered on the
         device; only idx, w and beta cross from the host."""
-        idx = self._tensor(idx, torch.int64)
+        idx = self._tensor(self._rows(idx), torch.int64)
         x, y, mask = (leaf[idx] for leaf in dev_data)
-        return self._update((x, y, mask, self._tensor(w, torch.float32)),
+        return self._update((x, y, mask, self._tensor(self._rows(w),
+                                                      torch.float32)),
                             self._beta(beta))
 
     # ---- epoch-staged steps -----------------------------------------------
@@ -604,12 +690,13 @@ class Trainer(GraphSteps):
         buffers of its (steps, batch) shape. steps: list of (idx (B,), w
         (B,)) pairs from Batcher.epoch_indices. Returns the buffers, or None
         for an empty epoch. Staging another schedule of the same shape
-        reuses the buffers, and the graphs that read them."""
+        reuses the buffers, and the graphs that read them. Under a mesh a
+        rank stages its columns of the global schedule."""
         if not steps:
             return None
-        idx_all = torch.from_numpy(np.stack([i for i, _ in steps])
+        idx_all = torch.from_numpy(np.stack([self._rows(i) for i, _ in steps])
                                    .astype(np.int64))
-        w_all = torch.from_numpy(np.stack([w for _, w in steps])
+        w_all = torch.from_numpy(np.stack([self._rows(w) for _, w in steps])
                                  .astype(np.float32))
         shape = tuple(idx_all.shape)
         if shape not in self._staged:
@@ -683,7 +770,7 @@ class Trainer(GraphSteps):
                 x, y, mask = (leaf[staged.ia[i]] for leaf in dev_data)
                 logits, info = self._eval_forward(x, mask, gating_value)
                 logits_l.append(logits)
-                ce_l.append(per_sample_ce(logits, y))
+                ce_l.append(per_sample_ce(logits, self._gather(y)))
                 ml_l.append(info.loss.mean() if info.loss is not None else
                             torch.zeros((), device=logits.device))
                 infos.append(info)

@@ -1,8 +1,10 @@
 """The port's program files import nothing of JAX: no `jax`, `jaxlib`,
 `flax` or `optax`, and nothing of the JAX package `sie_tpu`, at any place
 in the file (imports inside functions included), read from the source so
-that lazily imported modules count too. chip_smoke.py and the port's
-profiling scripts run on a machine without JAX. Nor `msgpack`: the port
+that lazily imported modules count too. chip_smoke.py, the port's
+profiling scripts, the worker of the multi-process mesh tests
+(tests/torch_port_mesh_worker.py) and the card-only mesh test run on a
+machine without JAX. Nor `msgpack`: the port
 reads and writes flax's checkpoint format with the standard library. Nor
 `pandas`, which that machine lacks: the port reads and writes its CSVs
 with the `csv` module. Nor `scipy`: the port keeps its own copies of what
@@ -25,7 +27,8 @@ FILES = sorted(
      glob.glob(os.path.join(ROOT, "sie_tpu_torch", "**", "*.py"),
                recursive=True)
      + glob.glob(os.path.join(ROOT, "scripts", "port_*.py"))]
-    + ["chip_smoke.py"])
+    + ["chip_smoke.py", "tests/torch_port_mesh_worker.py",
+       "tests/test_torch_port_mesh_cuda.py"])
 
 
 def _imported(path: str):
@@ -89,6 +92,8 @@ def test_the_list_covers_the_port():
                 "models/extra/forecasters.py",
                 "models/extra/multiwavelet.py", "train/ensemble.py",
                 "train/ensemble_driver.py", "data/native.py",
-                "data/uea_alt.py", "utils/print_args.py"):
+                "data/uea_alt.py", "utils/print_args.py",
+                "parallel/comm.py", "parallel/mesh.py",
+                "parallel/multihost.py"):
         assert f"sie_tpu_torch/{new}" in FILES
     assert len(FILES) >= 45

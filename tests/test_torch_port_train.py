@@ -324,8 +324,13 @@ def test_default_device_needs_a_card(monkeypatch):
 
 
 def test_unported_training_paths_raise():
+    from sie_tpu_torch.parallel.mesh import Mesh
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(Config(**KW), 1, device="cpu", mesh=object())
+        Trainer(Config(**KW), 1, device="cpu",
+                mesh=Mesh((2,), ("seq",), devices=["cpu", "cpu"]))
+    with pytest.raises(ValueError, match="process mesh"):
+        Trainer(Config(**KW), 1, device="cpu",
+                mesh=Mesh((2,), ("data",), devices=["cpu", "cpu"]))
     # augmentation is ported (tests/test_torch_port_augment.py); an unknown
     # name is refused
     assert Trainer(Config(**dict(KW, augment=("noise",))), 1,
