@@ -295,7 +295,22 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      fold's accuracy phase 26's; (e) `Predictor` over `Mesh((1,),
      ("data",), devices=["cuda:0"])` at 1, 5 and 64 rows, every output
      bit-equal to the predictor without a mesh, K1 6 and K5 2 a request;
- 40. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
+ 40. the 'seq' and 'expert' mesh axes (each part a check of its own):
+     (a) 'seq' over two processes that share the card (gloo, the launch
+     variables): the flagship in f32 at T 844 (845 does not split over
+     2), dropout 0, B 64, 3 eager steps of `train_step` on global batches
+     against one process (phase 39's limits), K1 6, K2 6, K5 2, K6 2 a
+     step on rank 0, K5 at (512 rows, T 844); (b) 'expert' in the same
+     pair of processes: the MoE flagship (8 experts, 4 a rank) at T 845,
+     held the same way; (c) `python -m sie_tpu_torch.run --mesh 2
+     --mesh_axes seq` with InterpGN + FCN in f32 on synthetic UEA (T 200)
+     as two processes on the card: test accuracy equal to one process's
+     and test loss within 1e-4; (d) `--mesh 2` with long_term_forecast
+     trains in this one process and says the mesh is ignored; (e)
+     `Predictor` over single-process ('data', 'seq') and ('data',
+     'expert') meshes at 1, 5, 64 rows, bit-equal to the predictor
+     without a mesh, K1 6 and K5 2 a request;
+ 41. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
      timed training steps of each kernel's path, plus, split in
      `launches_by_path`, phases 16, 17 and 19's UEA run for K1 and K2, the
      serving paths for K1, K3 and K5: phase 5, phase 11's requests, phase
@@ -305,12 +320,13 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      `moe`, phases 34 and 35 for K1 and K2 as `variants` and
      `extra_experts`, phase 37 for K1, K2, K5 and K6 as `ensemble`, phase
      38 for K1 and K2 as `ensemble_uea`, phase 39's (a), (b) and (c)
-     steps (rank 0) and (e) for K1, K2, K5 and K6 as `mesh`), then the
-     device line.
+     steps (rank 0) and (e) for K1, K2, K5 and K6 as `mesh`, phase 40's
+     (a) and (e) as `seq` and (b) and (e) as `expert`), then the device
+     line.
 
 After each phase a `[time]` line gives its seconds and the seconds since
 the start. The K5 and K6 phases (4, 6, 8, 12), the serving phases (20-22)
-and phases 23-39 run under a time limit that ends the process (and the
+and phases 23-40 run under a time limit that ends the process (and the
 servers it started), so that a kernel that hangs fails the run instead of
 holding the card. Times
 are CUDA-event times after warm-up (kernels) or host-clock times of work
@@ -4592,13 +4608,15 @@ def phase_ensembles(tmp: str, smi: str) -> tuple:
 
 
 # ---- phase 39: training and serving over a device mesh ---------------------
-MESH_FLAG = "--mesh-rank"   # argv[1] of a (b)/(c) rank: kind, output file
+MESH_FLAG = "--mesh-rank"   # argv[1] of a two-process rank: kinds, directory
+CLI_PROBE_FLAG = "--cli-probe"   # argv[1] of a CLI process under time_probe
 MESH_A_STEPS = 5       # (a): warm-up, capture, 3 replays, held bit for bit
 MESH_A_TIMED = 10      # (a): replays timed, in turns with the lone trainer
 MESH_ROWS, MESH_STEPS = 256, 3   # (b)/(c): rows held, eager global steps
 MESH_SURE = 1e-4       # (b)/(c): |gradient| above which a parameter is held
 # at rtol 1e-5 / atol 1e-6 (tests/test_torch_port_mesh_dist.py)
 MESH_SIZES = (1, 5, 64)   # (e): request rows
+SEQ_T = 844            # phase 40 (a): the flagship's T 845 does not split
 
 
 def mesh_config():
@@ -4606,68 +4624,131 @@ def mesh_config():
     return train_config(amp=False)
 
 
+def kind_config(kind: str):
+    """The config a two-process run over axis `kind` trains: phase 39's
+    for 'data' and 'model', the flagship at T SEQ_T for 'seq' and the MoE
+    flagship (8 experts) for 'expert', each in f32 at dropout 0."""
+    if kind == "seq":
+        return mesh_config().replace(seq_len=SEQ_T)
+    if kind == "expert":
+        return mesh_config().replace(**MOE)
+    return mesh_config()
+
+
 def mesh_schedule(n_rows: int, b: int, steps: int) -> list:
     rng = np.random.default_rng(5)
     return [rng.permutation(n_rows)[:b] for _ in range(steps)]
 
 
-def mesh_rank(kind: str, out: str) -> None:
-    """One of the two processes of (b) ('data') or (c) ('model'), on the
-    card that both share, over gloo: MESH_STEPS eager `train_step`s of the
-    global batch; process 0 writes the losses, the ms of each step, each
-    step's launches, this rank's local shapes and the gathered variables
-    to `out`."""
+def local_shapes(model) -> dict:
+    """A rank's shapes of a bank, a query kernel and the FFN's first
+    kernel (a MoE layer's expert stack)."""
+    enc = model.deep_model.encoder.layers[0]
+    ffn = (enc.moe_ffn.expert_wi if hasattr(enc, "moe_ffn") else
+           enc.conv1.weight)
+    return {"bank": list(model.sbm.shapelets_0.shape),
+            "query": list(enc.attention.query.weight.shape),
+            "ffn": list(ffn.shape)}
+
+
+def time_probe() -> dict:
+    """Records in this process the time width of every backbone forward
+    (`registry.call_dnn`) and of every `comm.halo_seq` call:
+    {"forward": [...], "halo": [...]}. Under a 'seq' axis a time-sharded
+    backbone sees its rank's block and takes halos of it; a replicated
+    one sees the whole T and takes none."""
+    from sie_tpu_torch.models import registry
+    from sie_tpu_torch.parallel import comm
+    seen = {"forward": [], "halo": []}
+    fwd, halo = registry.call_dnn, comm.halo_seq
+
+    def call_dnn(dnn, x, padding_mask, generator):
+        seen["forward"].append(int(x.shape[1]))
+        return fwd(dnn, x, padding_mask, generator)
+
+    def halo_seq(t, before, after, circular, dim=1):
+        seen["halo"].append(int(t.shape[dim]))
+        return halo(t, before, after, circular, dim)
+    registry.call_dnn, comm.halo_seq = call_dnn, halo_seq
+    return seen
+
+
+def mesh_rank(kinds: str, out_dir: str) -> None:
+    """One of the two processes of a run over each mesh axis in `kinds`
+    (comma-separated), on the card that both share, over gloo: for each,
+    MESH_STEPS eager `train_step`s of the global batch of `kind_config`;
+    process 0 writes `<out_dir>/mesh_<kind>.npz`: the losses, the ms of
+    each step, each step's launches, the (rows, T) of every K5 launch,
+    the time widths of the steps' backbone forwards and halos
+    (`time_probe`), this rank's local shapes and the gathered
+    variables."""
     import torch.distributed as dist
     from sie_tpu_torch.compat.from_jax import _flatten, to_jax_variables
+    from sie_tpu_torch.models import layers
     from sie_tpu_torch.parallel.mesh import Mesh
     from sie_tpu_torch.parallel.multihost import init_distributed
     from sie_tpu_torch.train.trainer import Trainer
     init_distributed(device="cuda:0")
-    cfg = mesh_config()
-    ds = random_rows(cfg, MESH_ROWS)
-    t = Trainer(cfg, MESH_STEPS, device="cuda:0", mesh=Mesh((2,), (kind,)),
-                generator=torch.Generator().manual_seed(0))
-    counts = Counts()
-    w = np.ones(cfg.batch_size, np.float32)
-    losses, ms, launches = [], [], []
-    for idx in mesh_schedule(MESH_ROWS, cfg.batch_size, MESH_STEPS):
-        counts.zero()
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, _ = t.train_step((ds.x[idx], ds.y[idx], ds.padding_mask[idx],
-                                w), 1.0)
-        losses.append(float(loss))
-        ms.append(1e3 * (time.perf_counter() - t0))
-        launches.append(counts.read())
-    enc = t.model.deep_model.encoder.layers[0]
-    shapes = {"bank": list(t.model.sbm.shapelets_0.shape),
-              "query": list(enc.attention.query.weight.shape),
-              "conv1": list(enc.conv1.weight.shape)}
-    variables = to_jax_variables(t.model)    # gathered over 'model'
-    if dist.get_rank() == 0:
-        np.savez(out, losses=np.asarray(losses), ms=np.asarray(ms),
-                 meta=np.frombuffer(json.dumps(
-                     {"launches": launches, "shapes": shapes}).encode(),
-                     np.uint8),
-                 **{"/".join(k): v for k, v in _flatten(
-                     variables["params"]).items()})
+    k5_shapes = []
+    k5 = layers.fused_attention
+
+    def recorded(q, *a, **kw):
+        k5_shapes.append(list(q.shape[:2]))
+        return k5(q, *a, **kw)
+    layers.fused_attention = recorded
+    seen = time_probe()
+    for kind in kinds.split(","):
+        cfg = kind_config(kind)
+        ds = random_rows(cfg, MESH_ROWS)
+        t = Trainer(cfg, MESH_STEPS, device="cuda:0",
+                    mesh=Mesh((2,), (kind,)),
+                    generator=torch.Generator().manual_seed(0))
+        counts = Counts()
+        w = np.ones(cfg.batch_size, np.float32)
+        losses, ms, launches = [], [], []
+        k5_shapes.clear()
+        seen["forward"].clear()
+        seen["halo"].clear()
+        for idx in mesh_schedule(MESH_ROWS, cfg.batch_size, MESH_STEPS):
+            counts.zero()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = t.train_step((ds.x[idx], ds.y[idx],
+                                    ds.padding_mask[idx], w), 1.0)
+            losses.append(float(loss))
+            ms.append(1e3 * (time.perf_counter() - t0))
+            launches.append(counts.read())
+        variables = to_jax_variables(t.model)    # gathered over the mesh
+        if dist.get_rank() == 0:
+            np.savez(os.path.join(out_dir, f"mesh_{kind}.npz"),
+                     losses=np.asarray(losses), ms=np.asarray(ms),
+                     meta=np.frombuffer(json.dumps(
+                         {"launches": launches, "k5": k5_shapes,
+                          "time": seen, "shapes": local_shapes(t.model)}
+                     ).encode(),
+                         np.uint8),
+                     **{"/".join(k): v for k, v in _flatten(
+                         variables["params"]).items()})
+        del t, variables
+        torch.cuda.empty_cache()
     dist.destroy_process_group()
 
 
-def mesh_ranks(kind: str, tmp: str) -> dict:
-    """(b)/(c)'s two processes on this card -> what process 0 wrote; a
-    failing process fails the phase with both logs' tails."""
-    out = os.path.join(tmp, f"mesh_{kind}.npz")
+def mesh_ranks(kinds: str, tmp: str) -> dict:
+    """The two processes of `mesh_rank(kinds)` on this card -> {kind: what
+    process 0 wrote}; a failing process fails the phase with both logs'
+    tails."""
     env = {**os.environ, "SIE_TPU_COORDINATOR": f"localhost:{free_port()}",
            "SIE_TPU_NUM_PROCESSES": "2", "SIE_TPU_BACKEND": "gloo"}
-    logs = [os.path.join(tmp, f"mesh_{kind}_{i}.log") for i in range(2)]
+    tag = kinds.replace(",", "_")
+    logs = [os.path.join(tmp, f"mesh_{tag}_{i}.log") for i in range(2)]
     procs = []
     for i in range(2):
         with open(logs[i], "wb") as f:
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), MESH_FLAG, kind,
-                 out], env={**env, "SIE_TPU_PROCESS_ID": str(i)}, stdout=f,
+                [sys.executable, os.path.abspath(__file__), MESH_FLAG, kinds,
+                 tmp], env={**env, "SIE_TPU_PROCESS_ID": str(i)}, stdout=f,
                 stderr=subprocess.STDOUT, cwd=ROOT))
         CHILDREN.append(procs[-1])
     deadline = time.time() + 240
@@ -4681,21 +4762,25 @@ def mesh_ranks(kind: str, tmp: str) -> dict:
     if codes != [0, 0]:
         for i, log in enumerate(logs):
             with open(log, errors="replace") as f:
-                print(f"[mesh] ({kind}) process {i} exit {codes[i]}, log "
+                print(f"[mesh] ({kinds}) process {i} exit {codes[i]}, log "
                       f"tail:\n{f.read()[-3000:]}")
-        fail(f"mesh ({kind}): the processes exited {codes}")
-    got = dict(np.load(out))
-    got["meta"] = json.loads(bytes(got["meta"]).decode())
-    return got
+        fail(f"mesh ({kinds}): the processes exited {codes}")
+    out = {}
+    for kind in kinds.split(","):
+        got = dict(np.load(os.path.join(tmp, f"mesh_{kind}.npz")))
+        got["meta"] = json.loads(bytes(got["meta"]).decode())
+        out[kind] = got
+    return out
 
 
-def mesh_one_process():
-    """(b)/(c)'s reference: one process on the global batch -> (losses,
-    flax params by "/" path, each step's gradients by the same path)."""
+def mesh_one_process(cfg=None):
+    """The reference of a two-process run: one process on the global batch
+    of `cfg` (default `mesh_config`) -> (losses, flax params by "/" path,
+    each step's gradients by the same path)."""
     from sie_tpu_torch.compat.from_jax import (_flatten, to_jax_params,
                                                to_jax_tree)
     from sie_tpu_torch.train.trainer import Trainer
-    cfg = mesh_config()
+    cfg = cfg or mesh_config()
     ds = random_rows(cfg, MESH_ROWS)
     t = Trainer(cfg, MESH_STEPS, device="cuda",
                 generator=torch.Generator().manual_seed(0))
@@ -4709,12 +4794,16 @@ def mesh_one_process():
         grads.append(flat(to_jax_tree(t.model, {
             n: torch.zeros_like(p) if p.grad is None else p.grad
             for n, p in t.model.named_parameters()})))
-    return losses, flat(to_jax_params(t.model)), grads
+    out = losses, flat(to_jax_params(t.model)), grads
+    del t
+    torch.cuda.empty_cache()
+    return out
 
 
 def mesh_against_one(kind: str, got: dict, ref, lr: float) -> tuple:
-    """(b)/(c)'s losses and gathered parameters against one process: the
-    CPU tests' limits -> (worst loss gap, worst held parameter gap)."""
+    """A two-process run's losses and gathered parameters against one
+    process: the CPU tests' limits -> (worst loss gap, worst held
+    parameter gap)."""
     losses, params, grads = ref
     if not np.allclose(got["losses"], losses, rtol=1e-5, atol=1e-6):
         fail(f"mesh ({kind}): losses {got['losses'].tolist()} against one "
@@ -4820,6 +4909,49 @@ def mesh_world_one(smi: str) -> dict:
         dist.destroy_process_group()
 
 
+def cli_probe(argv) -> None:
+    """`sie_tpu_torch.run.main(argv)` under `time_probe`, then one line
+    `[probe] {"forward": {width: count}, "halo": {width: count}}`."""
+    import collections
+    from sie_tpu_torch.run import main as run_main
+    seen = time_probe()
+    run_main(argv)
+    print("[probe] " + json.dumps({k: collections.Counter(v)
+                                   for k, v in seen.items()}), flush=True)
+
+
+def cli_two_processes(argv, tmp: str, tag: str, timeout: float,
+                      probe: bool = False) -> tuple:
+    """`python -m sie_tpu_torch.run *argv` as two processes (the launch
+    variables, gloo, both on this card) -> (exit codes, both outputs).
+    With `probe` each process runs it through `cli_probe`."""
+    env = {**os.environ, "SIE_TPU_COORDINATOR": f"localhost:{free_port()}",
+           "SIE_TPU_NUM_PROCESSES": "2", "SIE_TPU_BACKEND": "gloo"}
+    logs = [os.path.join(tmp, f"{tag}_{i}.log") for i in range(2)]
+    procs = []
+    for i in range(2):
+        with open(logs[i], "wb") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, *([os.path.abspath(__file__), CLI_PROBE_FLAG]
+                                   if probe else ["-m", "sie_tpu_torch.run"]),
+                 *argv],
+                env={**env, "SIE_TPU_PROCESS_ID": str(i)}, stdout=f,
+                stderr=subprocess.STDOUT, cwd=ROOT))
+        CHILDREN.append(procs[-1])
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(timeout=timeout))
+        except subprocess.TimeoutExpired:
+            codes.append(None)
+        stop_server(p)
+    texts = []
+    for log in logs:
+        with open(log, errors="replace") as f:
+            texts.append(f.read())
+    return codes, texts
+
+
 def mesh_loso(tmp: str) -> None:
     """(d): phase 26's --loso command as two processes (the launch
     variables, gloo, both on this card) through `python -m
@@ -4837,30 +4969,11 @@ def mesh_loso(tmp: str) -> None:
                           + argv[argv.index("--checkpoint_dir") + 2:])
         LOSO_ACCURACY.update({int(k): float(v) for k, v in re.findall(
             r"\[LOSO\] subject (\d+): acc ([0-9.]+)%", text)})
-    env = {**os.environ, "SIE_TPU_COORDINATOR": f"localhost:{free_port()}",
-           "SIE_TPU_NUM_PROCESSES": "2", "SIE_TPU_BACKEND": "gloo"}
-    logs = [os.path.join(tmp, f"loso_mh_{i}.log") for i in range(2)]
     t0 = time.perf_counter()
-    procs = []
-    for i in range(2):
-        with open(logs[i], "wb") as f:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "sie_tpu_torch.run", *argv],
-                env={**env, "SIE_TPU_PROCESS_ID": str(i)}, stdout=f,
-                stderr=subprocess.STDOUT, cwd=ROOT))
-        CHILDREN.append(procs[-1])
-    codes = []
-    for p in procs:
-        try:
-            codes.append(p.wait(timeout=240))
-        except subprocess.TimeoutExpired:
-            codes.append(None)
-        stop_server(p)
+    codes, texts = cli_two_processes(argv, tmp, "loso_mh", 240)
     secs = time.perf_counter() - t0
     folds, accs, took = [], {}, []
-    for i, log in enumerate(logs):
-        with open(log, errors="replace") as f:
-            text = f.read()
+    for i, text in enumerate(texts):
         m = re.search(r"\[multihost\] process (\d)/2 took folds "
                       r"slice\((\d+), (\d+), None\)", text)
         got = [int(s) for s in re.findall(r"\[LOSO\] subject (\d+)", text)]
@@ -4924,10 +5037,9 @@ def phase_mesh(tmp: str, smi: str) -> dict:
     lap_a = time.perf_counter()
     cfg = mesh_config()
     ref = mesh_one_process()
-    parts = {}
-    for kind in ("data", "model"):
-        t1 = time.perf_counter()
-        got = mesh_ranks(kind, tmp)
+    t1 = time.perf_counter()
+    runs = mesh_ranks("data,model", tmp)
+    for kind, got in runs.items():
         loss_gap, param_gap = mesh_against_one(kind, got, ref, cfg.lr)
         meta = got["meta"]
         for step in meta["launches"]:
@@ -4935,12 +5047,11 @@ def phase_mesh(tmp: str, smi: str) -> dict:
                 fail(f"mesh ({kind}): a step launched {step} on rank 0")
             total = {n: total[n] + step[n] for n in total}
         want_shapes = ({"bank": [10, 122, 43], "query": [512, 512],
-                        "conv1": [2048, 512]} if kind == "data" else
+                        "ffn": [2048, 512]} if kind == "data" else
                        {"bank": [5, 122, 43], "query": [256, 512],
-                        "conv1": [1024, 512]})
+                        "ffn": [1024, 512]})
         if meta["shapes"] != want_shapes:
             fail(f"mesh ({kind}): local shapes {meta['shapes']}")
-        parts[kind] = time.perf_counter() - t1
         print(f"[mesh] ({'b' if kind == 'data' else 'c'}) '{kind}' over 2 "
               f"processes on this card (gloo), flagship f32 B=64 "
               f"({'32 rows a rank' if kind == 'data' else 'banks of 5 shapelets, 4 heads and 1024 FFN columns a rank'}): "
@@ -4955,10 +5066,232 @@ def phase_mesh(tmp: str, smi: str) -> dict:
     served = mesh_serving()
     total = {n: total[n] + served[n] for n in total}
     print(f"[mesh] phase 39: (a) {lap_a - t0:.1f} s, one-process reference "
-          f"+ (b) {parts['data']:.1f} s + (c) {parts['model']:.1f} s, (d) "
-          f"{t3 - t2:.1f} s, (e) {time.perf_counter() - t3:.1f} s; "
-          f"launches {total}")
+          f"{t1 - lap_a:.1f} s, (b) + (c) in one pair of processes "
+          f"{t2 - t1:.1f} s, (d) {t3 - t2:.1f} s, (e) "
+          f"{time.perf_counter() - t3:.1f} s; launches {total}")
     return total
+
+
+# ---- phase 40: the 'seq' and 'expert' mesh axes ---------------------------
+SX_UEA = dict(n_train=64, n_test=32, n_dims=8, length=200, n_classes=3)
+# (c), two processes against one: each epoch's train loss, validation
+# loss and the test loss, the limits of tests/test_torch_port_mesh_cli.py
+# (FCN's conv biases before a BatchNorm move with rounding noise, which
+# the eval losses read through the running means)
+SX_TRAIN_ATOL, SX_EVAL_ATOL = 1e-4, 2e-3
+SX_SHAPES = {   # (a)/(b): a rank's parameter shapes (none split by 'seq')
+    "seq": {"bank": [10, 122, 43], "query": [512, 512], "ffn": [2048, 512]},
+    "expert": {"bank": [10, 122, 43], "query": [512, 512],
+               "ffn": [4, 512, 2048]}}
+
+
+def sx_cli(tmp: str) -> None:
+    """(c): `python -m sie_tpu_torch.run --mesh 2 --mesh_axes seq` over
+    synthetic UEA (T 200) with the FCN expert in f32, two processes on
+    this card, against one process: the test accuracy equal, each
+    epoch's train loss within SX_TRAIN_ATOL, its validation loss and the
+    test loss within SX_EVAL_ATOL; process 0's FCN forwards each on a
+    block of T/2 steps with its three halos (`cli_probe`)."""
+    import glob
+    import pickle
+    from sie_tpu_torch.data.synthetic import write_synthetic_uea
+    root = os.path.join(tmp, "sx_uea")
+    write_synthetic_uea(root, "SxToy", seed=11, **SX_UEA)
+    argv = ["--data", "UEA", "--data_root", root, "--dataset", "SxToy",
+            "--model", "InterpGN", "--dnn_type", "FCN", "--no-amp",
+            "--num_shapelet", "10", "--batch_size", "16", "--train_epochs",
+            "2", "--patience", "5", "--log_interval", "1", "--seed", "0",
+            "--result_dir", os.path.join(tmp, "sx_result"), "--cache_dir",
+            os.path.join(tmp, "cache")]
+    t0 = time.perf_counter()
+    one_text, res = run_cli(argv + ["--device", "cuda", "--checkpoint_dir",
+                                     os.path.join(tmp, "sx_ck_one")])
+    one_loss, one_acc = res[0][1], res[0][2]["accuracy"]
+    t1 = time.perf_counter()
+    codes, texts = cli_two_processes(argv + [
+        "--device", "cuda:0", "--mesh", "2", "--mesh_axes", "seq",
+        "--checkpoint_dir", os.path.join(tmp, "sx_ck_seq")], tmp, "sx_cli",
+        180, probe=True)
+    if codes != [0, 0]:
+        for i, text in enumerate(texts):
+            print(f"[seq_expert] (c) process {i} exit {codes[i]}, log "
+                  f"tail:\n{text[-3000:]}")
+        fail(f"seq_expert (c): the processes exited {codes}")
+    text = texts[0]
+    accs = re.findall(r"Test accuracy ([0-9.]+)%", text)
+    pkl = glob.glob(os.path.join(tmp, "sx_ck_seq", "**",
+                                 "test_results.pkl"), recursive=True)
+    if len(accs) != 1 or len(pkl) != 1:
+        fail(f"seq_expert (c): accuracies printed {accs}, results {pkl}")
+    with open(pkl[0], "rb") as f:
+        saved = pickle.load(f)
+    loss, acc = saved["test_loss"], saved["test_metrics"]["accuracy"]
+    epochs = [np.array(re.findall(r"Train Loss ([0-9.]+) \| Val Loss "
+                                  r"([0-9.]+)", t), float).reshape(-1, 2)
+              for t in (text, one_text)]
+    same = epochs[0].shape == epochs[1].shape and len(epochs[0]) > 0
+    gaps = np.abs(epochs[0] - epochs[1]).max(0) if same else None
+    if round(acc, 2) != round(one_acc, 2) or not same or \
+            abs(loss - one_loss) > SX_EVAL_ATOL or \
+            gaps[0] > SX_TRAIN_ATOL or gaps[1] > SX_EVAL_ATOL:
+        fail(f"seq_expert (c): two processes test at {acc:.2f}% loss "
+             f"{loss!r}, epochs (train, val) {epochs[0].tolist()}; one "
+             f"process at {one_acc:.2f}% loss {one_loss!r}, epochs "
+             f"{epochs[1].tolist()}")
+    # every FCN forward on a rank's block, its three VALID convs' halos
+    block = str(SX_UEA["length"] // 2)
+    probe = re.findall(r"^\[probe\] (.*)$", text, re.M)
+    seen = json.loads(probe[0]) if len(probe) == 1 else {}
+    forwards = seen.get("forward", {}).get(block, 0)
+    if not forwards or seen != {"forward": {block: forwards},
+                                "halo": {block: 3 * forwards}}:
+        fail(f"seq_expert (c): process 0's backbone forwards and halos saw "
+             f"time widths {seen or probe}, want only blocks of {block}")
+    print(f"[seq_expert] (c) --mesh 2 --mesh_axes seq, InterpGN + FCN f32 "
+          f"on synthetic UEA (T {SX_UEA['length']}), two processes on this "
+          f"card: on process 0 {forwards} FCN forwards, each on a block of "
+          f"{block} steps, and {3 * forwards} halo exchanges; test accuracy "
+          f"{acc:.2f}% and loss "
+          f"{loss:.6f} against one process's {one_acc:.2f}% and "
+          f"{one_loss:.6f} (gap {abs(loss - one_loss):.3e}), epochs' train "
+          f"and validation losses within {gaps[0]:.1e} and {gaps[1]:.1e} "
+          f"(as printed, 4 decimals); one process "
+          f"{t1 - t0:.1f} s, two {time.perf_counter() - t1:.1f} s")
+
+
+def sx_task(tmp: str) -> None:
+    """(d): `--mesh 2` with a forecast task trains in this one process on
+    the card and says that the mesh is ignored, as the JAX CLI does."""
+    from sie_tpu_torch.data.synthetic import write_synthetic_ett
+    root = os.path.join(tmp, "sx_task")
+    write_synthetic_ett(os.path.join(root, "ett.csv"), n_rows=2000)
+    t0 = time.perf_counter()
+    text, res = run_cli([
+        "--task_name", "long_term_forecast", "--mesh", "2", "--device",
+        "cuda:0", "--data", "custom", "--dataset", "ett", "--data_root",
+        root, "--model", "DNN", "--train_epochs", "1", "--batch_size", "32",
+        "--d_model", "64", "--d_ff", "128", "--n_heads", "4", "--e_layers",
+        "1", "--d_layers", "1", "--seed", "0", "--result_dir",
+        os.path.join(tmp, "sx_task_result"), "--checkpoint_dir",
+        os.path.join(tmp, "sx_task_ck"), "--cache_dir",
+        os.path.join(tmp, "cache")])
+    metrics = res[0][2] if res else {}
+    if "[long_term_forecast] --mesh 2 is ignored" not in text or \
+            not metrics or not all(np.isfinite(v) for v in metrics.values()):
+        fail(f"seq_expert (d): the task with --mesh 2 gave {metrics}")
+    print(f"[seq_expert] (d) --mesh 2 with long_term_forecast: trained in "
+          f"this process on the card, mesh ignored; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+          + f"; {time.perf_counter() - t0:.1f} s")
+
+
+def sx_serving() -> dict:
+    """(e): `Predictor` over a single-process ('data', 'seq') mesh (the
+    flagship) and a ('data', 'expert') mesh (the MoE flagship) of two
+    'cuda:0' entries, against the predictor without a mesh at MESH_SIZES
+    rows: every output bit-equal, K1 6 and K5 2 a request -> the
+    launches by axis."""
+    from sie_tpu_torch.compat.from_jax import to_jax_variables
+    from sie_tpu_torch.models.registry import build_model
+    from sie_tpu_torch.parallel.mesh import Mesh
+    from sie_tpu_torch.serve import Predictor
+    out = {}
+    rng = np.random.default_rng(6)
+    counts = Counts()
+    for kind, cfg in (("seq", flagship_config()),
+                      ("expert", flagship_config().replace(**MOE))):
+        variables = to_jax_variables(build_model(
+            cfg, "cpu", torch.Generator().manual_seed(0)))
+        plain = Predictor(cfg, variables, device="cuda", max_batch=64)
+        meshed = Predictor(cfg, variables, max_batch=64, mesh=Mesh(
+            (1, 2), ("data", kind), devices=["cuda:0", "cuda:0"]))
+        launches = Counts.full({})
+        for b in MESH_SIZES:
+            x = rng.normal(size=(b, cfg.seq_len, cfg.enc_in)).astype(
+                np.float32)
+            want = plain.predict(x)
+            counts.zero()
+            got = meshed.predict(x)
+            c = counts.read()
+            if c != Counts.full({"K1": 6, "K5": 2}):
+                fail(f"seq_expert (e): a {b}-row request over '{kind}' "
+                     f"launched {c}")
+            launches = {n: launches[n] + c[n] for n in c}
+            for f in OUT_FIELDS:
+                if not np.array_equal(getattr(got, f), getattr(want, f)):
+                    fail(f"seq_expert (e): {f} of a {b}-row request over "
+                         f"'{kind}' differs")
+        out[kind] = launches
+        del plain, meshed
+    print(f"[seq_expert] (e) Predictor over ('data', 'seq') and ('data', "
+          f"'expert') meshes: every output bit-equal to the predictor "
+          f"without a mesh at {MESH_SIZES} rows; launches {out}")
+    return out
+
+
+def phase_seq_expert(tmp: str, smi: str) -> tuple:
+    """Phase 40, (a)-(e), each a check of its own -> the launches of the
+    'seq' path ((a)'s steps on rank 0 and (e)'s requests) and of the
+    'expert' path ((b) and (e))."""
+    t0 = time.perf_counter()
+    refs = {kind: mesh_one_process(kind_config(kind))
+            for kind in ("seq", "expert")}
+    t1 = time.perf_counter()
+    runs = mesh_ranks("seq,expert", tmp)
+    total = {}
+    for part, (kind, got) in zip("ab", runs.items()):
+        cfg = kind_config(kind)
+        loss_gap, param_gap = mesh_against_one(kind, got, refs[kind], cfg.lr)
+        meta = got["meta"]
+        launched = Counts.full({})
+        for step in meta["launches"]:
+            if step != Counts.full(TRAIN_WANT):
+                fail(f"seq_expert ({part}): a step launched {step} on "
+                     f"rank 0")
+            launched = {n: launched[n] + step[n] for n in launched}
+        rows = cfg.batch_size * cfg.n_heads
+        if meta["shapes"] != SX_SHAPES[kind] or any(
+                k5 != [rows, cfg.seq_len] for k5 in meta["k5"]):
+            fail(f"seq_expert ({part}): local shapes {meta['shapes']}, K5 "
+                 f"launched at (rows, T) {meta['k5']}")
+        # 'seq': the backbone on the rank's block, one halo (the token
+        # embedding's) a forward; 'expert': the whole T, no halo
+        block = cfg.seq_len // 2 if kind == "seq" else cfg.seq_len
+        want = {"forward": [block] * MESH_STEPS,
+                "halo": [block] * MESH_STEPS if kind == "seq" else []}
+        if meta["time"] != want:
+            fail(f"seq_expert ({part}): the backbone's forwards and halos "
+                 f"saw time widths {meta['time']}, want {want}")
+        total[kind] = launched
+        what = (f"the Transformer's forwards on time blocks of "
+                f"{meta['time']['forward'][0]} steps with "
+                f"{len(meta['time']['halo'])} halo exchanges, K5 at the "
+                f"whole T" if kind == "seq" else
+                f"{meta['shapes']['ffn'][0]} of the {cfg.moe_experts} "
+                f"experts a rank")
+        print(f"[seq_expert] ({part}) '{kind}' over 2 processes on this "
+              f"card (gloo), {'flagship' if kind == 'seq' else 'MoE flagship'}"
+              f" f32 B={cfg.batch_size} T={cfg.seq_len} ({what}): "
+              f"{MESH_STEPS} losses {got['losses'].tolist()} within "
+              f"{loss_gap:.3e} of one process, gathered parameters within "
+              f"{param_gap:.3e} where held; ms a global step "
+              + ", ".join(f"{v:.1f}" for v in got["ms"])
+              + f"; launches a step {TRAIN_WANT} on rank 0, K5 at (rows, T) "
+              f"{meta['k5'][0]}; {smi}")
+    t2 = time.perf_counter()
+    sx_cli(tmp)
+    t3 = time.perf_counter()
+    sx_task(tmp)
+    t4 = time.perf_counter()
+    served = sx_serving()
+    for kind in total:
+        total[kind] = {n: total[kind][n] + served[kind][n]
+                       for n in total[kind]}
+    print(f"[seq_expert] phase 40: one-process references {t1 - t0:.1f} s, "
+          f"(a) + (b) in one pair of processes {t2 - t1:.1f} s, (c) "
+          f"{t3 - t2:.1f} s, (d) {t4 - t3:.1f} s, (e) "
+          f"{time.perf_counter() - t4:.1f} s; launches {total}")
+    return total["seq"], total["expert"]
 
 
 def lap(what: str) -> None:
@@ -5053,6 +5386,9 @@ def main() -> None:
         with time_limit(300, "the mesh phase"):
             mesh = phase_mesh(work, smi)
             lap("mesh")
+        with time_limit(300, "the seq and expert phase"):
+            seq, expert = phase_seq_expert(work, smi)
+            lap("seq_expert")
     finally:
         for proc in list(CHILDREN):
             stop_server(proc)
@@ -5065,7 +5401,7 @@ def main() -> None:
                  "cli_timesnet": by_cli["TimesNet"], "moe": moe,
                  "variants": variants, "extra_experts": extra_experts,
                  "ensemble": ensemble, "ensemble_uea": ensemble_uea,
-                 "mesh": mesh}
+                 "mesh": mesh, "seq": seq, "expert": expert}
     others = {"K1": {"uea_fcn": uea_fcn, "uea_resnet": uea_resnet,
                      "cli_uea_fcn": cli_uea, "serve": serve_launches,
                      "serve_bundle": bundle, "serve_export": exported,
@@ -5076,9 +5412,11 @@ def main() -> None:
               "K5": {"serve": serve_launches, "serve_bundle": bundle,
                      "serve_export": exported, **options,
                      "forecast_long": forecast_long, "moe": moe,
-                     "ensemble": ensemble, "mesh": mesh},
+                     "ensemble": ensemble, "mesh": mesh, "seq": seq,
+                     "expert": expert},
               "K6": {**options, "forecast_long": forecast_long, "moe": moe,
-                     "ensemble": ensemble, "mesh": mesh}}
+                     "ensemble": ensemble, "mesh": mesh, "seq": seq,
+                     "expert": expert}}
     paths = ((k1, launches, "K1"), (k2, launches, "K2"),
              (k3, fused, "K3"), (k4, fused, "K4"), (k5, launches, "K5"),
              (k6, launches, "K6"), (k7, long_launches, "K5"),
@@ -5111,5 +5449,7 @@ if __name__ == "__main__":
         k2_library_child(int(sys.argv[2]), int(sys.argv[3]))
     elif sys.argv[1:2] == [MESH_FLAG]:
         mesh_rank(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == [CLI_PROBE_FLAG]:
+        cli_probe(sys.argv[2:])
     else:
         main()

@@ -4,12 +4,19 @@ over NCCL:
     python scripts/port_mesh_cards.py --mesh 4 [--mesh_axes data]
         [--timed 10]
     python scripts/port_mesh_cards.py --mesh 2x2 --mesh_axes data,model
+    python scripts/port_mesh_cards.py --mesh 2x2 --mesh_axes data,seq \
+        --seq_len 844
+    python scripts/port_mesh_cards.py --mesh 2x2 --mesh_axes data,expert \
+        --moe_experts 8
 
 Without the launch variables (parallel/multihost.py) it builds the
 kernels, starts one worker a card with the variables set, waits for all
 under a deadline, and exits with the first failing worker's code; the
-host must have the mesh's cards. Each
-worker, on card (process id):
+host must have the mesh's cards. `--seq_len` sets T (844 splits over
+'seq'; the flagship's 845 does not) and `--moe_experts` gives each
+encoder layer chip_smoke.py's Switch-MoE FFN (top 1, capacity factor
+1.25, aux weight 0.01) with that many experts. Each worker, on card
+(process id):
 1. the flagship (chip_smoke.py's `flagship_config`) in f32 at dropout 0,
    a global batch of 64 numpy-seeded rows: 3 staged steps (warm-up,
    capture with its all-reduces, replay) over the mesh; process 0 then
@@ -19,8 +26,9 @@ worker, on card (process id):
    warm-up, capture, then `--timed` replays, each timed with the host
    clock around a synchronisation; process 0 then times the lone
    trainer's replays of 64 rows on its card.
-Process 0 prints the card's name and power limit, the losses and their
-gap, the medians of the mesh's and the lone replays, and the rows a
+Process 0 prints the card's name and power limit, the time widths its
+backbone's forwards saw in step 1 (a 'seq' rank's block), the losses and
+their gap, the medians of the mesh's and the lone replays, and the rows a
 second of each. Exits non-zero without the cards. Imports no JAX.
 """
 
@@ -43,12 +51,17 @@ STEPS = 3       # staged steps of the f32 check
 DEADLINE = 900  # seconds the workers have in all
 
 
+SHAPE = {}      # --seq_len and --moe_experts, set by main
+
+
 def flagship(**kw):
     from sie_tpu_torch.config import Config
     return Config(model="InterpGN", dnn_type="Transformer", seq_len=845,
                   enc_in=122, num_class=3, num_shapelet=10, d_model=512,
                   d_ff=2048, n_heads=8, e_layers=2, dropout=0.0, amp=True,
-                  seed=0, batch_size=B, lr=5e-3).replace(**kw)
+                  seed=0, batch_size=B, lr=5e-3, moe_top_k=1,
+                  moe_capacity_factor=1.25, moe_aux_weight=0.01
+                  ).replace(**SHAPE).replace(**kw)
 
 
 def rows(cfg, n: int):
@@ -98,11 +111,19 @@ def worker(shape, axes, timed: int) -> None:
                               "--format=csv,noheader"], capture_output=True,
                              text=True).stdout.strip().splitlines()
         say(f"[cards] {len(out)} cards: {sorted(set(out))}; mesh "
-            f"{mesh.shape}, backend {mesh.backend}", flush=True)
+            f"{mesh.shape}, backend {mesh.backend}; T {SHAPE['seq_len']}, "
+            f"{SHAPE['moe_experts']} experts a MoE layer", flush=True)
+    from sie_tpu_torch.models import registry
+    widths, call_dnn = set(), registry.call_dnn   # the backbone's time axis
+    registry.call_dnn = lambda dnn, x, *a: (widths.add(x.shape[1]),
+                                            call_dnn(dnn, x, *a))[1]
     cfg = flagship(amp=False)
     ds = rows(cfg, 256)
     t, dev, st = staged(cfg, ds, B, STEPS, mesh)
     got = [float(t.train_step_staged(dev, st, k)[0]) for k in range(STEPS)]
+    registry.call_dnn = call_dnn
+    say(f"[cards] the backbone's forwards on rank 0 saw T {sorted(widths)}",
+        flush=True)
     del t, dev, st
     if rank == 0:
         t, dev, st = staged(cfg, ds, B, STEPS, None)
@@ -145,7 +166,10 @@ def main() -> None:
     p.add_argument("--mesh", default="4")
     p.add_argument("--mesh_axes", default="data,model")
     p.add_argument("--timed", type=int, default=10)
+    p.add_argument("--seq_len", type=int, default=845)
+    p.add_argument("--moe_experts", type=int, default=0)
     args = p.parse_args()
+    SHAPE.update(seq_len=args.seq_len, moe_experts=args.moe_experts)
     shape = tuple(int(s) for s in args.mesh.split("x"))
     axes = tuple(a.strip() for a in args.mesh_axes.split(","))
     if os.environ.get("SIE_TPU_COORDINATOR"):

@@ -51,12 +51,12 @@ the weight computes q.float() * scale, the JAX package's
 `dequantize_tensor`. Such a module has no f32 copy of the weight and is for
 inference only.
 
-A model split over a mesh's 'model' axis (parallel/mesh.py
+A model split over a mesh's 'model' or 'expert' axis (parallel/mesh.py
 `shard_params`) lists its split parameters in `tp_shards`: the flax tree
-stays the full one. Loading (`_fill`, `port_layout`) keeps this rank's
-block of each such leaf, and `to_jax_tree` gathers every rank's blocks (a
-collective on every 'model' rank), so checkpoints cross between the
-packages as before.
+stays the full one (every expert, the whole d_ff). Loading (`_fill`,
+`port_layout`) keeps this rank's block of each such leaf, and
+`to_jax_tree` gathers every rank's blocks (a collective on every rank
+of those axes), so checkpoints cross between the packages as before.
 """
 
 from __future__ import annotations
@@ -183,12 +183,13 @@ def is_quantized(module: nn.Module) -> bool:
 
 def _local(module: nn.Module, name: str, value: Any) -> Any:
     """This rank's block of a full leaf laid out for parameter `name`, when
-    `module` splits it over 'model'; else the value as it is."""
+    `module` splits it over 'model' or 'expert'; else the value as it
+    is."""
     shard = getattr(module, "tp_shards", {}).get(name)
     if shard is None:
         return value
     if isinstance(value, QTensor):
-        raise ParamLoadError(f"{name!r} is split over 'model'; an int8 "
+        raise ParamLoadError(f"{name!r} is split over a mesh; an int8 "
                              f"leaf cannot be loaded into it")
     return shard.local(value)
 

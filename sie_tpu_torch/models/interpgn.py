@@ -19,6 +19,10 @@ from sie_tpu_torch.models.sbm import ShapeBottleneckModel
 
 
 class InterpGN(nn.Module):
+    # under a step's 'seq' axis: the SBM gathers its input itself and
+    # `call_dnn` passes the time block on to the backbone
+    takes_time_blocks = True
+
     def __init__(self, cfg: Config, g: torch.Generator):
         super().__init__()
         from sie_tpu_torch.models.registry import build_dnn

@@ -215,12 +215,15 @@ def _draw_seed(generator: torch.Generator) -> torch.Tensor:
 Stream = Union[torch.Generator, ReplayDropout]
 
 
-def _global_draw(shape, batch_dim: int, model_dim: Optional[int], mesh):
+def _global_draw(shape, batch_dim: int, model_dim: Optional[int], mesh,
+                 seq_dim: Optional[int] = None,
+                 expert_dim: Optional[int] = None):
     """(the shape the mask is drawn at, the cut that keeps this rank's
     part): under a step's mesh (parallel/comm.py) the global batch along
-    `batch_dim`, and with a 'model'-sharded `model_dim` the full width
-    there, so every rank draws what one process would and keeps its
-    block."""
+    `batch_dim`, with a 'model'-sharded `model_dim` the full width there,
+    with a time-sharded `seq_dim` (outside `comm.full_time`) the whole
+    time axis, and with an 'expert'-sharded `expert_dim` every expert, so
+    every rank draws what one process would and keeps its block."""
     full, cuts = list(shape), []
     data = comm.current()
     if data is not None and data.size("data") > 1:
@@ -229,6 +232,12 @@ def _global_draw(shape, batch_dim: int, model_dim: Optional[int], mesh):
     if model_dim is not None and mesh is not None:
         full[model_dim] *= mesh.size("model")
         cuts.append((model_dim, mesh.index("model"), shape[model_dim]))
+    if seq_dim is not None and comm.seq_size() > 1:
+        full[seq_dim] *= comm.seq_size()
+        cuts.append((seq_dim, comm.seq_index(), shape[seq_dim]))
+    if expert_dim is not None and mesh is not None:
+        full[expert_dim] *= mesh.size("expert")
+        cuts.append((expert_dim, mesh.index("expert"), shape[expert_dim]))
 
     def cut(t: torch.Tensor) -> torch.Tensor:
         for dim, i, n in cuts:
@@ -239,14 +248,17 @@ def _global_draw(shape, batch_dim: int, model_dim: Optional[int], mesh):
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[Stream],
             training: bool, batch_dim: int = 0,
-            model_dim: Optional[int] = None, mesh=None) -> torch.Tensor:
+            model_dim: Optional[int] = None, mesh=None,
+            seq_dim: Optional[int] = None,
+            expert_dim: Optional[int] = None) -> torch.Tensor:
     """flax `nn.Dropout(rate)`: keep each element with probability
     1 - rate and scale the kept ones by 1/(1 - rate), the mask drawn from
     `generator` (on x's device; a `ReplayDropout` draws or replays it).
     The identity when not training or at rate 0. Under a mesh the mask is
     drawn at the global shape and cut (`_global_draw`): `batch_dim` is
     x's batch-major axis, `model_dim` an axis split over `mesh`'s
-    'model'."""
+    'model', `seq_dim` x's time axis where the step's mesh splits it over
+    'seq', `expert_dim` an axis split over `mesh`'s 'expert'."""
     if not training or rate == 0.0:
         return x
     if generator is None:
@@ -254,7 +266,9 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[Stream],
                          f"torch.Generator")
     full, cut = _global_draw(tuple(x.shape), batch_dim % x.ndim,
                              None if model_dim is None else model_dim % x.ndim,
-                             mesh)
+                             mesh,
+                             None if seq_dim is None else seq_dim % x.ndim,
+                             expert_dim)
     if isinstance(generator, ReplayDropout):
         keep = cut(generator.keep(full, rate))
     else:
@@ -336,7 +350,10 @@ def sinusoidal_embedding(length: int, d_model: int) -> np.ndarray:
 
 # ------------------------------------------------------------ embedding
 class TokenEmbedding(nn.Module):
-    """Circular pad of 1 on each side of time, then a k=3 conv, no bias."""
+    """Circular pad of 1 on each side of time, then a k=3 conv, no bias.
+    On a time block (a step's 'seq' axis) the pads are the neighbouring
+    blocks' edge steps, the wrap-around joining the last block to the
+    first (`comm.halo_seq`)."""
 
     def __init__(self, c_in: int, d_model: int, dtype: torch.dtype,
                  g: torch.Generator):
@@ -349,7 +366,11 @@ class TokenEmbedding(nn.Module):
                 math.sqrt(2.0 / (1 + 0.01 ** 2) / (3 * c_in)), g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:   # (B, T, C)
-        xp = torch.cat([x[:, -1:, :], x, x[:, :1, :]], dim=1).to(self.dtype)
+        if comm.seq_size() > 1:
+            xp = comm.halo_seq(x, 1, 1, circular=True).to(self.dtype)
+        else:
+            xp = torch.cat([x[:, -1:, :], x, x[:, :1, :]],
+                           dim=1).to(self.dtype)
         w = self.tokenConv.weight.to(self.dtype)
         return F.conv1d(xp.transpose(1, 2), w).transpose(1, 2)  # (B, T, d)
 
@@ -372,7 +393,8 @@ class DataEmbedding(nn.Module):
     (`temporal_embedding`, a bias-free dense layer on the marks' first
     `mark_width` columns), then dropout. The classification models and the
     anomaly heads pass no marks and have no temporal embedding, as their
-    flax trees have none."""
+    flax trees have none. On a time block (a step's 'seq' axis) the
+    positions are those of the block's global steps."""
 
     def __init__(self, c_in: int, d_model: int, dtype: torch.dtype,
                  g: torch.Generator, dropout: float = 0.0,
@@ -399,15 +421,17 @@ class DataEmbedding(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 x_mark: Optional[torch.Tensor] = None) -> torch.Tensor:
         v = self.token_embedding(x)
-        out = v + self._position(x.shape[1], v)[None] if self.positional \
-            else v
+        n, s = x.shape[1], comm.seq_size()
+        out = v + self._position(n * s, v)[comm.seq_index() * n:][:n][None] \
+            if self.positional else v
         if x_mark is not None:
             if self.temporal_embedding is None:
                 raise ValueError("time marks passed to a DataEmbedding built "
                                  "without a temporal embedding (mark_width 0)")
             lin = self.temporal_embedding
             out = out + dense(x_mark[..., :lin.in_features], lin, self.dtype)
-        return dropout(out, self.dropout, generator, self.training)
+        return dropout(out, self.dropout, generator, self.training,
+                       seq_dim=1)
 
 
 # ------------------------------------------------------------ attention
@@ -544,14 +568,23 @@ class EncoderLayer(nn.Module):
         self.norm2 = layer_norm_module(d_model)
         self.tp = None   # a mesh: conv1 column-, conv2 row-parallel
 
+    def _attend(self, x, generator):
+        """The attention of x. On a time block (a step's 'seq' axis) the
+        layer input is gathered over time, the attention runs at the whole
+        T (kernels K5/K6 on this rank's batch and head rows; every 'seq'
+        rank repeats it, where GSPMD runs the JAX package's kernels) and
+        this rank keeps its block of queries."""
+        if self.variant == "lsh":
+            attend = lambda z: self.attention(z, generator)
+        else:
+            attend = lambda z: self.attention(z, z, z, generator)
+        return comm.whole_time(attend, x, keep_block=True)
+
     def forward(self, x, generator: Optional[torch.Generator] = None,
                 aux: Optional[list] = None):
-        drop = lambda z: dropout(z, self.dropout, generator, self.training)
-        if self.variant == "lsh":
-            attn = self.attention(x, generator)
-        else:
-            attn = self.attention(x, x, x, generator)
-        x = x + drop(attn)
+        drop = lambda z: dropout(z, self.dropout, generator, self.training,
+                                 seq_dim=1)
+        x = x + drop(self._attend(x, generator))
         x = y = layer_norm(self.norm1, x)
         act = F.relu if self.activation == "relu" else gelu
         if hasattr(self, "moe_ffn"):
@@ -559,7 +592,8 @@ class EncoderLayer(nn.Module):
         elif self.tp is not None:
             (y,) = copy_inputs(self.tp, y)
             y = dropout(act(dense(y, self.conv1, self.dtype)), self.dropout,
-                        generator, self.training, model_dim=-1, mesh=self.tp)
+                        generator, self.training, model_dim=-1, mesh=self.tp,
+                        seq_dim=1)
             y = drop(row_parallel(y, self.conv2, self.dtype, self.tp))
         else:
             y = drop(act(dense(y, self.conv1, self.dtype)))
@@ -730,9 +764,13 @@ class BatchNorm(nn.Module):
     float32, (x - mean) * (rsqrt(var + eps) * weight) + bias, returned in
     `dtype`. Parameters `weight` and `bias` are flax's `scale` and `bias`
     (1 and 0); buffers `mean` and `var` its `batch_stats` (0 and 1).
-    Under a step's mesh with more than one 'data' rank the statistics are
-    the global batch's: the f32 sums of x and x^2 are summed over 'data'
-    (`comm.data_sum`, with their gradient) before the division."""
+    Under a step's mesh with more than one 'data' or 'seq' rank the
+    statistics are the global batch's: the f32 sums of x and x^2 are
+    summed over 'data' and 'seq' (`comm.data_sum`, `comm.seq_sum`, with
+    their gradient) before the division. `valid`, a (T,) mask along the
+    last axis, leaves the steps where it is 0 out of the statistics (a
+    time block's steps past the end of a VALID conv's output), and `n`
+    is then the global count of the steps it keeps."""
 
     def __init__(self, features: int, dtype: torch.dtype,
                  momentum: float = 0.9, eps: float = 1e-5):
@@ -745,16 +783,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid: Optional[torch.Tensor] = None,
+                n: Optional[int] = None) -> torch.Tensor:
         xf = x.float()
         shape = (1, -1) + (1,) * (x.ndim - 2)
         if self.training:
             axes = (0,) + tuple(range(2, x.ndim))
             dp = comm.data_size()
-            if dp > 1:
-                sums = comm.data_sum(torch.stack([xf.sum(axes),
-                                                  xf.square().sum(axes)]))
-                n = (xf.numel() // xf.shape[1]) * dp
+            if dp > 1 or comm.seq_size() > 1 or valid is not None:
+                xs = xf if valid is None else xf * valid
+                sums = torch.stack([xs.sum(axes), (xs * xf).sum(axes)])
+                sums = comm.seq_sum(comm.data_sum(sums) if dp > 1 else sums)
+                if n is None:
+                    n = (xf.numel() // xf.shape[1]) * dp * comm.seq_size()
                 mean = sums[0] / n
                 var = torch.clamp(sums[1] / n - mean.square(), min=0.0)
             else:

@@ -27,6 +27,21 @@
   mean(logsumexp(logits)^2)` when that weight is > 0, to the `aux` list
   the caller passes (flax's `sow` into "losses"); the model returns their
   sum on `ModelInfo.aux_loss` and the loss adds it. Eval appends nothing.
+
+Under a step's 'seq' axis (parallel/comm.py) the layer gathers its input
+over time and runs at the whole T, every 'seq' rank repeating it, then
+keeps this rank's time block: the capacity, the cumulative slot count and
+the load-balance means read the whole T, as one process reads them.
+Split over an 'expert' axis (`ep`, parallel/mesh.py `shard_params`), a
+rank holds E/X experts (and, with 'model', its d_ff block of them): the
+router and the dispatch and combine masks are computed whole on every
+rank, the rank moves tokens into and out of its own experts only, and
+the combine's output is summed over 'expert' (`comm.reduce_from`; over
+'model' first where d_ff is split). The seam sits after routing: the
+tokens the experts read and the combine weights pass `comm.copy_to`, so
+their gradients, each rank's from its own experts, are summed over
+'expert' and the router's backward runs once, on whole gradients, on
+every rank.
 """
 
 from __future__ import annotations
@@ -102,6 +117,7 @@ class MoEFFN(nn.Module):
         self.expert_bi = nn.Parameter(torch.zeros(e, d_ff))
         self.expert_wo = nn.Parameter(torch.empty(e, d_ff, d_model))
         self.expert_bo = nn.Parameter(torch.zeros(e, d_model))
+        self.ep = None   # a mesh: this rank's experts (parallel/mesh.py)
         # flax lecun_normal on (E, in, out) takes the expert axis as a
         # receptive field: fan_in = E * in
         lecun_normal_(self.expert_wi, e * d_model, g)
@@ -140,16 +156,36 @@ class MoEFFN(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        return comm.whole_time(lambda z: self._forward(z, generator, aux),
+                               x, keep_block=True)
+
+    def _forward(self, x: torch.Tensor, generator, aux) -> torch.Tensor:
         logits, probs, dispatch, combine = self.routing(x)
         if self.training and aux is not None:
             aux.append(self.aux_loss(logits, probs))
         dt = self.dtype
         act = F.relu if self.activation == "relu" else gelu
+        ep = self.ep
+        tp = ep if ep is not None and ep.size("model") > 1 else None
+        if ep is not None:
+            n = self.expert_wi.shape[0]             # this rank's experts
+            lo = ep.index("expert") * n
+            x = comm.copy_to(x, ep, "expert")
+            dispatch = dispatch[:, :, lo:lo + n]
+            combine = comm.copy_to(combine, ep, "expert")[:, :, lo:lo + n]
         xin = torch.einsum("btec,btd->ebcd", dispatch.to(dt), x.to(dt))
+        if tp is not None:
+            xin = comm.copy_to_model(xin, tp)
         h = torch.einsum("ebcd,edf->ebcf", xin, self.expert_wi.to(dt))
         h = act(h + self.expert_bi.to(dt)[:, None, None, :])
-        h = dropout(h, self.dropout, generator, self.training, batch_dim=1)
+        h = dropout(h, self.dropout, generator, self.training, batch_dim=1,
+                    model_dim=None if tp is None else -1, mesh=ep,
+                    expert_dim=None if ep is None else 0)
         y = torch.einsum("ebcf,efd->ebcd", h, self.expert_wo.to(dt))
+        if tp is not None:
+            y = comm.reduce_from_model(y, tp)
         y = y + self.expert_bo.to(dt)[:, None, None, :]
         out = torch.einsum("btec,ebcd->btd", combine.to(dt), y)
+        if ep is not None:
+            out = comm.reduce_from(out, ep, "expert")
         return out.to(dt)

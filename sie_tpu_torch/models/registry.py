@@ -13,6 +13,7 @@ from torch import nn
 from sie_tpu_torch.config import Config
 from sie_tpu_torch.device import DeviceLike, resolve_device
 from sie_tpu_torch.models.info import ModelInfo
+from sie_tpu_torch.parallel import comm
 
 MODELS = ("InterpGN", "SBM", "LTS", "DNN", "EEGCNN")
 EXTRA_DNNS = ("Autoformer", "FEDformer", "ETSformer", "Pyraformer",
@@ -43,22 +44,40 @@ def build_dnn(cfg: Config, g: torch.Generator) -> nn.Module:
     return Transformer(cfg, g)
 
 
+def forward_model(model: nn.Module, x, padding_mask, **kw):
+    """model(x, padding_mask, **kw). Under a step's 'seq' axis
+    (parallel/comm.py) x and the mask are this rank's time block: a model
+    with a time-sharded form (`takes_time_blocks`: the Transformer and
+    FCN backbones, the SBM, and InterpGN and DNN, which pass the block
+    on) takes it as it is; any other runs on the whole time axis
+    (`comm.whole_time`), every 'seq' rank repeating it."""
+    if getattr(model, "takes_time_blocks", False):
+        return model(x, padding_mask, **kw)
+    return comm.whole_time(lambda xs, ms: model(xs, ms, **kw), x,
+                           padding_mask)
+
+
 def call_dnn(dnn: nn.Module, x, padding_mask,
              generator: Optional[torch.Generator]
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(logits, the sum of the losses its layers add in training, or None)
-    of backbone `dnn`. A backbone whose `sows_losses` is true (the
-    Transformer with a MoE encoder) takes a list `aux` that its layers
-    append to, as flax layers sow into "losses"."""
+    of backbone `dnn` (through `forward_model`). A backbone whose
+    `sows_losses` is true (the Transformer with a MoE encoder) takes a
+    list `aux` that its layers append to, as flax layers sow into
+    "losses"."""
     if not (dnn.training and getattr(dnn, "sows_losses", False)):
-        return dnn(x, padding_mask, generator), None
+        return forward_model(dnn, x, padding_mask,
+                             generator=generator), None
     sown: list = []
-    logits = dnn(x, padding_mask, generator, aux=sown)
+    logits = forward_model(dnn, x, padding_mask, generator=generator,
+                           aux=sown)
     return logits, (torch.stack(sown).sum() if sown else None)
 
 
 class DNNWrapper(nn.Module):
     """Bare backbone presented with the (logits, ModelInfo) interface."""
+
+    takes_time_blocks = True     # `call_dnn` passes the block on
 
     def __init__(self, cfg: Config, g: torch.Generator):
         super().__init__()

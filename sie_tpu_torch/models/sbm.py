@@ -29,6 +29,12 @@ each bank holds this rank's n/M shapelets (and thresholds): the kernels
 run on them, and the predicates and distances of every rank are gathered
 back into the global order, bank-major, before the classifier, which is
 whole on every rank; the diversity loss reads each bank gathered whole.
+
+On a time block (a step's 'seq' axis, parallel/comm.py) the input is
+gathered over time once, before the instance norm, which reads the whole
+T: the banks, predicates and losses then run on this rank's rows at the
+whole T, every 'seq' rank repeating them, as GSPMD runs the JAX
+package's kernels under their partition rules.
 """
 
 from __future__ import annotations
@@ -94,6 +100,8 @@ class PredicateAttention(nn.Module):
 class ShapeBottleneckModel(nn.Module):
     """variant='sbm' -> RBF-probability predicates; variant='lts' ->
     distance-threshold predicates."""
+
+    takes_time_blocks = True    # gathers its input over 'seq' itself
 
     def __init__(self, cfg: Config, g: torch.Generator, variant: str = "sbm"):
         super().__init__()
@@ -162,6 +170,7 @@ class ShapeBottleneckModel(nn.Module):
 
     def predicates(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, T, C) -> (p, d): each (B, total) float32."""
+        x = comm.gather_seq(x)
         xn = instance_norm(x.transpose(1, 2).float()).contiguous()
         ps, ds = [], []
         for i, d_full in enumerate(self._bank_distances(xn)):

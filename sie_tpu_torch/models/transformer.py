@@ -17,6 +17,13 @@ takes kernels K5/K6 at `seq_len` >= the config's
 `fused_attention_min_len` (256), as in the JAX package; the decoder's
 attentions always take the plain branch. `mark_width` is the width of
 the temporal embedding (layers.mark_width; 0 = no time marks).
+
+The classifier takes a time block under a step's 'seq' axis
+(parallel/comm.py): the embedding, the LayerNorms and the FFN run on the
+block, attention at the whole T (models/layers.py `EncoderLayer`), and
+the flattened head is row-parallel over time: this rank's rows of the
+projection's kernel times its block, summed over 'seq' (in float32),
+then the bias once.
 """
 
 from __future__ import annotations
@@ -24,11 +31,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sie_tpu_torch.config import Config
 from sie_tpu_torch.models.layers import (DataEmbedding, Decoder, Encoder,
                                          dense, dropout, gelu, linear)
+from sie_tpu_torch.parallel import comm
 
 
 def _embedding(cfg: Config, c_in: int, g: torch.Generator,
@@ -48,6 +57,8 @@ def _encoder(cfg: Config, g: torch.Generator, **kw) -> Encoder:
 
 
 class Transformer(nn.Module):
+    takes_time_blocks = True
+
     def __init__(self, cfg: Config, g: torch.Generator):
         super().__init__()
         self.cfg = cfg
@@ -69,11 +80,26 @@ class Transformer(nn.Module):
         dt = self.cfg.compute_dtype
         h = self.encoder(self.enc_embedding(x.to(dt), generator), generator,
                          aux)
-        h = dropout(gelu(h), self.cfg.dropout, generator, self.training)
+        h = dropout(gelu(h), self.cfg.dropout, generator, self.training,
+                    seq_dim=1)
         if padding_mask is not None:
             h = h * padding_mask.to(h.dtype)[..., None]
+        if comm.seq_size() > 1:
+            return self._seq_head(h)
         h = h.reshape(h.shape[0], -1)
         return dense(h, self.projection, dt).float()
+
+    def _seq_head(self, h: torch.Tensor) -> torch.Tensor:
+        """The projection of a time block h (B, n, d): its rows of the
+        kernel, summed over 'seq' in f32, rounded to the compute dtype as
+        one f32-accumulated product is, then the bias."""
+        dt = self.cfg.compute_dtype
+        b, n, d = h.shape
+        lo = comm.seq_index() * n * d
+        w = self.projection.weight[:, lo:lo + n * d]
+        y = comm.seq_sum(F.linear(h.reshape(b, -1).to(dt).float(),
+                                  w.to(dt).float())).to(dt)
+        return (y + self.projection.bias.to(dt)).float()
 
 
 class TransformerForecaster(nn.Module):

@@ -2,8 +2,9 @@
 JAX package leaves to GSPMD.
 
 Under GSPMD the sharded step is the single-device step over the global
-batch. Here each process runs its rows (and its 'model' shard) and these
-helpers put the global arithmetic back:
+batch. Here each process runs its rows (its 'data' block), its time block
+(its 'seq' block), its 'model' shard and its experts (its 'expert'
+block), and these helpers put the global arithmetic back:
 
 - `data_total`: a sum over the 'data' axis without a gradient (the
   loss's weight sum, the reported loss);
@@ -12,20 +13,48 @@ helpers put the global arithmetic back:
   rank's backward of its share of a global term then adds up to the
   term's gradient;
 - `sum_grads`: each parameter's gradient summed (not averaged) over
-  'data', one flat buffer a step;
+  'data' and 'seq', one flat buffer an axis;
 - `gather_data`: eval outputs in global row order;
 - Megatron's pair over 'model': `copy_to_model` (identity forward,
   all-reduce backward) in front of a column-parallel product, and
   `reduce_from_model` (all-reduce forward, identity backward) behind a
   row-parallel one; `gather_model` concatenates shards along a dimension,
   its backward keeps this rank's slice (the work after it is repeated on
-  every 'model' rank, so its gradient is already whole there).
+  every 'model' rank, so its gradient is already whole there);
+- over 'seq': `gather_seq` (the time blocks concatenated), `seq_block`
+  (this rank's block of a whole-time tensor), `halo_seq` (the
+  neighbours' edge steps for a conv), `seq_sum` (the counterpart of
+  `data_sum`), `whole_time` (a layer or model that reads across time
+  run on the gathered input);
+- the same pair over 'expert' (`copy_to`, `reduce_from` with the axis):
+  in front of a rank's experts (their tokens and combine weights) and
+  behind them (the sum of every rank's experts' output).
+
+How each leaf's gradient is counted once. 'model' and 'expert' keep
+Megatron's rule: the work after a seam is repeated on every such rank,
+whose gradients there are whole, so a replicated leaf is not summed over
+the axis; the router, run whole on every 'expert' rank, gets its
+gradient once, whole, through the pair. 'seq' takes the other standard
+rule, the one of autodiff through an SPMD program: a rank's loss, which
+is the same on every 'seq' rank, enters the backward as 1/S of itself
+(the trainer divides it), every 'seq' collective's backward is its true
+adjoint (the gather's a reduce-scatter, a sum's a sum), and every leaf's
+gradient is summed over 'seq' (`sum_grads`). So work repeated on every
+'seq' rank (the SBM after its gather, attention at the whole T)
+contributes S shares of 1/S, time-sharded work (the embedding, the FFN,
+the LayerNorms, the head's rows) its blocks' partial sums, and the summed
+gradient equals the single-device gradient of the global batch
+(tests/test_torch_port_mesh_seq.py and test_torch_port_mesh_expert.py
+hold it to `jax.grad`).
 
 The trainer sets the mesh of a step (`using`); with no mesh every helper
-is the identity and launches nothing. Collectives go through
-torch.distributed on the mesh's per-axis groups: NCCL on the cards, where
-a captured step holds them, or gloo, through which a card's tensors are
-staged on the host (processes that share one card).
+is the identity and launches nothing, as is every 'seq' or 'expert'
+helper on an axis of one member. Inside `full_time` (a layer run on the
+whole T, which every 'seq' rank repeats) the 'seq' helpers are the
+identity too. Collectives go through torch.distributed on the mesh's
+per-axis groups: NCCL on the cards, where a captured step holds them, or
+gloo, through which a card's tensors are staged on the host (processes
+that share one card).
 """
 
 from __future__ import annotations
@@ -37,17 +66,30 @@ import torch
 import torch.distributed as dist
 
 _CURRENT: List = [None]
+_FULL_TIME: List[bool] = [False]
 
 
 @contextlib.contextmanager
 def using(mesh):
     """The mesh the helpers below read while a step runs (None: no mesh)."""
-    prev = _CURRENT[0]
-    _CURRENT[0] = mesh
+    prev, prev_full = _CURRENT[0], _FULL_TIME[0]
+    _CURRENT[0], _FULL_TIME[0] = mesh, False
     try:
         yield mesh
     finally:
-        _CURRENT[0] = prev
+        _CURRENT[0], _FULL_TIME[0] = prev, prev_full
+
+
+@contextlib.contextmanager
+def full_time():
+    """A block whose tensors hold the whole time axis (a layer after
+    `gather_seq`): the 'seq' helpers are the identity inside it."""
+    prev = _FULL_TIME[0]
+    _FULL_TIME[0] = True
+    try:
+        yield
+    finally:
+        _FULL_TIME[0] = prev
 
 
 def current():
@@ -112,15 +154,17 @@ def data_sum(t: torch.Tensor, mesh=None) -> torch.Tensor:
 
 
 def sum_grads(params: Sequence[torch.nn.Parameter], mesh) -> None:
-    """Each parameter's `.grad` (zeros where None) summed over 'data', in
-    one flat buffer; every rank passes the same parameters in the same
-    order."""
+    """Each parameter's `.grad` (zeros where None) summed over 'data' and,
+    on an axis of more than one member, over 'seq', in one flat buffer;
+    every rank passes the same parameters in the same order."""
     if mesh is None:
         return
     grads = [torch.zeros_like(p) if p.grad is None else p.grad
              for p in params]
     flat = torch.cat([g.reshape(-1).float() for g in grads])
     all_reduce_(flat, mesh.group("data"))
+    if mesh.size("seq") > 1:
+        all_reduce_(flat, mesh.group("seq"))
     for p, piece in zip(params, flat.split([g.numel() for g in grads])):
         p.grad = piece.view_as(p).to(p.dtype)
 
@@ -136,7 +180,7 @@ def gather_data(t: Optional[torch.Tensor], mesh, dim: int = 0):
 
 
 # --------------------------------------------------------------- 'model'
-class _CopyToModel(torch.autograd.Function):
+class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
@@ -147,7 +191,7 @@ class _CopyToModel(torch.autograd.Function):
         return all_reduce_(g.contiguous().clone(), ctx.group), None
 
 
-class _ReduceFromModel(torch.autograd.Function):
+class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         return all_reduce_(x.contiguous().clone(), group)
@@ -168,13 +212,28 @@ class _GatherModel(torch.autograd.Function):
         return g[ctx.index], None, None, None
 
 
+def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """x as it is; its gradient summed over `axis` (Megatron's f)."""
+    if mesh.size(axis) <= 1:
+        return x
+    return _CopyTo.apply(x, mesh.group(axis))
+
+
+def reduce_from(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum of every `axis` rank's partial x, f32 on the wire; its
+    gradient as it is (Megatron's g)."""
+    if mesh.size(axis) <= 1:
+        return x
+    return _ReduceFrom.apply(x.float(), mesh.group(axis)).to(x.dtype)
+
+
 def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
-    return _CopyToModel.apply(x, mesh.group("model"))
+    return copy_to(x, mesh, "model")
 
 
 def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
     """The sum of every 'model' rank's partial x; f32 on the wire."""
-    return _ReduceFromModel.apply(x.float(), mesh.group("model")).to(x.dtype)
+    return reduce_from(x, mesh, "model")
 
 
 def gather_model(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -187,3 +246,103 @@ def gather_model(x: torch.Tensor, mesh) -> torch.Tensor:
 def gather_model_dim(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
     """The shards of every 'model' rank concatenated along `dim`."""
     return torch.cat(gather_model(x, mesh).unbind(0), dim=dim)
+
+
+# ----------------------------------------------------------------- 'seq'
+def seq_size() -> int:
+    """The 'seq' size of the step's mesh: 1 without one, inside
+    `full_time`, or on an axis of one member."""
+    mesh = current()
+    return 1 if mesh is None or _FULL_TIME[0] else mesh.size("seq")
+
+
+def seq_index() -> int:
+    """This rank's 'seq' block (0 where `seq_size` is 1)."""
+    return 0 if seq_size() <= 1 else current().index("seq")
+
+
+class _GatherAxis(torch.autograd.Function):
+    """(size, *t.shape): every rank's t; the backward is the true adjoint,
+    a reduce-scatter (the gradients every rank holds for this rank's t,
+    summed)."""
+
+    @staticmethod
+    def forward(ctx, t, group, size, index):
+        ctx.group, ctx.index = group, index
+        return all_gather(t, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_reduce_(g.contiguous().clone(), ctx.group)[ctx.index],
+                None, None, None)
+
+
+def _gather_seq_parts(t: torch.Tensor) -> torch.Tensor:
+    mesh = current()
+    return _GatherAxis.apply(t, mesh.group("seq"), mesh.size("seq"),
+                             mesh.index("seq"))
+
+
+def gather_seq(t: Optional[torch.Tensor], dim: int = 1):
+    """The whole time axis (`dim`) of every 'seq' rank's block, in rank
+    order; None stays None."""
+    if t is None or seq_size() <= 1:
+        return t
+    return torch.cat(_gather_seq_parts(t).unbind(0), dim=dim)
+
+
+def seq_block(t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This rank's block of a tensor that holds the whole time axis."""
+    s = seq_size()
+    if s <= 1:
+        return t
+    n = t.shape[dim] // s
+    return t.narrow(dim, seq_index() * n, n)
+
+
+def halo_seq(t: torch.Tensor, before: int, after: int, circular: bool,
+             dim: int = 1) -> torch.Tensor:
+    """Under a step's 'seq' axis: t with the `before` last steps of the
+    previous rank's block in front and the `after` first steps of the
+    next one's behind (zeros past either end of time, or with `circular`
+    the other end's steps). Each block must hold at least `before` and
+    `after` steps."""
+    n = t.shape[dim]
+    zeros = lambda k: t.new_zeros(t.shape[:dim] + (k,) + t.shape[dim + 1:])
+    s = seq_size()
+    if n < max(before, after):
+        raise ValueError(f"a time block of {n} steps is narrower than the "
+                         f"halo of {max(before, after)} steps a layer "
+                         f"reads; use fewer 'seq' ranks")
+    edges = torch.cat([t.narrow(dim, n - before, before),
+                       t.narrow(dim, 0, after)], dim=dim)
+    parts = _gather_seq_parts(edges)            # (S, ..., before + after)
+    i = seq_index()
+    prev, nxt = (i - 1) % s, (i + 1) % s
+    head = parts[prev].narrow(dim, 0, before)
+    tail = parts[nxt].narrow(dim, before, after)
+    if not circular:
+        head = head if i > 0 else zeros(before)
+        tail = tail if i < s - 1 else zeros(after)
+    return torch.cat([head, t, tail], dim=dim)
+
+
+def seq_sum(t: torch.Tensor) -> torch.Tensor:
+    """t summed over the 'seq' axis, with a gradient (the sum's)."""
+    if seq_size() <= 1:
+        return t
+    return _Sum.apply(t, current().group("seq"))
+
+
+def whole_time(call, *ts, keep_block: bool = False):
+    """call(*ts) on the whole time axis: each of ts gathered over 'seq'
+    (None stays None) and the call run under `full_time`, every 'seq'
+    rank repeating it; with `keep_block`, this rank's time block of its
+    output (a layer inside a time-sharded model), else its output whole
+    (a model's per-row outputs)."""
+    if seq_size() <= 1:
+        return call(*ts)
+    full = [gather_seq(t) for t in ts]
+    with full_time():
+        out = call(*full)
+    return seq_block(out) if keep_block else out

@@ -1,14 +1,14 @@
 """Device meshes (counterpart of sie_tpu/parallel/mesh.py): data
-parallelism over the 'data' axis and tensor parallelism over 'model'.
+parallelism over the 'data' axis, tensor parallelism over 'model',
+sequence parallelism over 'seq' and expert parallelism over 'expert'.
 
 A process mesh has one process a card (parallel/multihost.py starts them)
 laid out in `cfg.mesh_axes` order: rank = the row-major index of its mesh
 coordinates, with one torch.distributed group per axis (the ranks that
 differ only along it). A mesh built from `devices=[...]` is a
 single-process mesh over this process's devices, for serving
-(serve.Predictor). The axes 'seq', 'expert' and 'pipe' are not ported yet:
-a mesh that gives one of them more than one member raises
-NotImplementedError naming ROADMAP.md.
+(serve.Predictor). The axis 'pipe' is not ported yet: a mesh that gives
+it more than one member raises NotImplementedError naming ROADMAP.md.
 
 The rules of the JAX package (`params_partition_specs`, unchanged) say
 which parameters GSPMD shards. The port's shards give the same numbers
@@ -20,15 +20,24 @@ without copying that layout: under 'model' it splits
   a rank, K5/K6 over B·H/M rows) and `out` row-parallel;
 - the dense encoder FFN's `conv1` column-parallel and `conv2`
   row-parallel;
-and replicates everything else. `shard_params` makes the split in place
-and records it in the model's `tp_shards` ({parameter name: Shard}), which
-compat/from_jax.py reads: a checkpoint is gathered to the full flax layout
-(`gather_params`) and read back by slicing, so it crosses between the
-packages as before. Adam's state takes the shards' shapes because the
-trainer builds its optimizer after sharding.
+under 'expert' it gives each rank E/X of the MoE experts (`expert_wi`,
+`expert_bi`, `expert_wo`, `expert_bo` on their expert axis; with 'model'
+too, d_ff split as `expert_wi` P('expert', None, 'model'), `expert_bi`
+P('expert', 'model'), `expert_wo` P('expert', 'model', None));
+and replicates everything else (under 'seq' nothing is split).
+`shard_params` makes the split in place and records it in the model's
+`tp_shards` ({parameter name: Shard}), which compat/from_jax.py reads: a
+checkpoint is gathered to the full flax layout (`gather_params`) and read
+back by slicing, so it crosses between the packages as before. Adam's
+state takes the shards' shapes because the trainer builds its optimizer
+after sharding.
 
 Batches: `cfg.batch_size` is the global batch, as in the JAX package; a
-rank takes its row block (`shard_batch`, B divisible by the 'data' size).
+rank takes its row block (B divisible by the 'data' size) and, under
+'seq', the block of axis 1 (time) of every array of rank 2 or more (T
+divisible by the 'seq' size, where the JAX package's `device_put`
+raises too): `shard_batch`, `data_block`, `seq_block`. 'model' and
+'expert' ranks take the same rows.
 """
 
 from __future__ import annotations
@@ -45,9 +54,7 @@ from sie_tpu_torch.models.layers import not_ported
 from sie_tpu_torch.parallel import comm
 
 AXES = ("data", "model", "seq", "expert", "pipe")
-_NOT_PORTED = {"seq": "the 'seq' mesh axis (sequence parallelism)",
-               "expert": "the 'expert' mesh axis (expert parallelism)",
-               "pipe": "the 'pipe' mesh axis (parallel/pipeline.py)"}
+_NOT_PORTED = {"pipe": "the 'pipe' mesh axis (parallel/pipeline.py)"}
 
 
 class PartitionSpec(tuple):
@@ -110,7 +117,7 @@ class Mesh:
         self._coords = dict(zip(axes, (int(c) for c in
                                        np.unravel_index(rank, shape))))
         # every rank creates every group, in the same order
-        for name in ("data", "model"):
+        for name in ("data", "model", "seq", "expert"):
             if name not in axes:
                 rows = grid.reshape(-1, 1)
             else:
@@ -213,40 +220,57 @@ def params_partition_specs(params: Any, mesh) -> Any:
 
 # ------------------------------------------------------------ the shards
 class Shard(NamedTuple):
-    """A parameter split in `mesh.size('model')` equal blocks along
-    `dim`; this rank holds block `mesh.index('model')`."""
-    dim: int
+    """A parameter split over mesh axes: `cuts` lists (axis, dim) pairs,
+    each splitting `dim` in `mesh.size(axis)` equal blocks of which this
+    rank holds block `mesh.index(axis)`, applied in order."""
+    cuts: Tuple[Tuple[str, int], ...]
     mesh: Mesh
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return tuple(a for a, _ in self.cuts)
 
     def local(self, a: np.ndarray) -> np.ndarray:
         """This rank's block of the full array `a` (port layout)."""
-        m, i = self.mesh.size("model"), self.mesh.index("model")
-        n = a.shape[self.dim]
-        if n % m:
-            raise ValueError(f"dimension {self.dim} of size {n} does not "
-                             f"split over {m} 'model' ranks")
-        return np.take(a, np.arange(i * (n // m), (i + 1) * (n // m)),
-                       axis=self.dim)
+        for axis, dim in self.cuts:
+            m, i = self.mesh.size(axis), self.mesh.index(axis)
+            n = a.shape[dim]
+            if n % m:
+                raise ValueError(f"dimension {dim} of size {n} does not "
+                                 f"split over {m} {axis!r} ranks")
+            a = np.take(a, np.arange(i * (n // m), (i + 1) * (n // m)),
+                        axis=dim)
+        return a
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """The full tensor of every rank's block (a collective)."""
         with torch.no_grad():
-            parts = comm.all_gather(t.detach(), self.mesh.group("model"),
-                                    self.mesh.size("model"))
-        return torch.cat(parts.unbind(0), dim=self.dim)
+            for axis, dim in reversed(self.cuts):
+                parts = comm.all_gather(t.detach(), self.mesh.group(axis),
+                                        self.mesh.size(axis))
+                t = torch.cat(parts.unbind(0), dim=dim)
+        return t
 
 
 def _split(module: nn.Module, attr: str, dim: int, mesh: Mesh,
-           prefix: str, shards: Dict[str, Shard]) -> None:
+           prefix: str, shards: Dict[str, Shard],
+           axes: Tuple[str, ...] = ("model",)) -> None:
+    """Parameter `attr` of `module` cut to this rank's block over each of
+    `axes` (all along `dim`, or with dims given as (axis, dim) pairs)."""
     p = getattr(module, attr)
-    m, i = mesh.size("model"), mesh.index("model")
-    n = p.shape[dim]
-    if n % m:
-        raise ValueError(f"{prefix}{attr} has {n} rows along dimension "
-                         f"{dim}, which do not split over {m} 'model' ranks")
-    block = p.detach().narrow(dim, i * (n // m), n // m).clone()
-    setattr(module, attr, nn.Parameter(block, requires_grad=p.requires_grad))
-    shards[f"{prefix}{attr}"] = Shard(dim, mesh)
+    cuts = tuple(a if isinstance(a, tuple) else (a, dim) for a in axes)
+    block = p.detach()
+    for axis, d in cuts:
+        m, i = mesh.size(axis), mesh.index(axis)
+        n = block.shape[d]
+        if n % m:
+            raise ValueError(f"{prefix}{attr} has {n} rows along dimension "
+                             f"{d}, which do not split over {m} {axis!r} "
+                             f"ranks")
+        block = block.narrow(d, i * (n // m), n // m)
+    setattr(module, attr, nn.Parameter(block.clone(),
+                                       requires_grad=p.requires_grad))
+    shards[f"{prefix}{attr}"] = Shard(cuts, mesh)
 
 
 def _split_linear(lin: nn.Linear, dim: int, mesh: Mesh, prefix: str,
@@ -259,17 +283,26 @@ def _split_linear(lin: nn.Linear, dim: int, mesh: Mesh, prefix: str,
 
 def shard_params(model: nn.Module, mesh: Optional[Mesh]) -> nn.Module:
     """Splits, in place, the parameters of the layers the port runs over
-    'model' (module docstring) into this rank's blocks; sets each such
-    layer's `tp` to the mesh and the model's `tp_shards`. The identity
-    when the mesh has no 'model' axis of more than one member."""
+    'model' or 'expert' (module docstring) into this rank's blocks; sets
+    each such layer's `tp` (or a MoE layer's `ep`) to the mesh and the
+    model's `tp_shards`. The identity when the mesh has no 'model' or
+    'expert' axis of more than one member."""
     from sie_tpu_torch.models.layers import EncoderLayer, FullAttentionLayer
+    from sie_tpu_torch.models.moe import MoEFFN
     from sie_tpu_torch.models.sbm import ShapeBottleneckModel
-    if mesh is None or mesh.size("model") <= 1:
+    if mesh is None or (mesh.size("model") <= 1
+                        and mesh.size("expert") <= 1):
         return model
     m = mesh.size("model")
     shards: Dict[str, Shard] = {}
     for name, mod in list(model.named_modules()):
         pre = f"{name}." if name else ""
+        if isinstance(mod, MoEFFN):
+            if "expert" in mesh.axis_names:
+                _split_experts(mod, mesh, pre, shards)
+            continue
+        if m <= 1:
+            continue
         if isinstance(mod, ShapeBottleneckModel):
             for i in range(len(mod.lengths)):
                 _split(mod, f"shapelets_{i}", 0, mesh, pre, shards)
@@ -295,35 +328,68 @@ def shard_params(model: nn.Module, mesh: Optional[Mesh]) -> nn.Module:
     return model
 
 
-def replicate(model: nn.Module, mesh: Optional[Mesh]) -> nn.Module:
-    """Every parameter and buffer broadcast from the 'data' index 0 of its
-    'data' group, so that every replica starts from the same state."""
-    if mesh is None or mesh.devices is not None:
-        return model
-    group = mesh.group("data")
+def _split_experts(mod, mesh: Mesh, pre: str,
+                   shards: Dict[str, Shard]) -> None:
+    """A MoE layer's expert stacks cut to this rank's E/X experts and,
+    with 'model' too, its d_ff block (the JAX package's rules)."""
+    x, m = mesh.size("expert"), mesh.size("model")
+    if mod.n_experts % x:
+        raise ValueError(f"{mod.n_experts} experts do not split over {x} "
+                         f"'expert' ranks")
+    ff = m > 1
+    for attr, cuts in (
+            ("expert_wi", (("expert", 0),) + ((("model", 2),) if ff else ())),
+            ("expert_bi", (("expert", 0),) + ((("model", 1),) if ff else ())),
+            ("expert_wo", (("expert", 0),) + ((("model", 1),) if ff else ())),
+            ("expert_bo", (("expert", 0),))):
+        _split(mod, attr, 0, mesh, pre, shards, axes=cuts)
+    mod.ep = mesh
+
+
+def _broadcast(tensors, mesh: Mesh, axis: str) -> None:
+    group = mesh.group(axis)
     src = dist.get_global_rank(group, 0) if group is not dist.group.WORLD \
         else 0
     with torch.no_grad():
-        for t in list(model.parameters()) + list(model.buffers()):
+        for t in tensors:
             if t.is_cuda and mesh.backend == "gloo":
                 host = t.detach().cpu()
                 dist.broadcast(host, src=src, group=group)
                 t.copy_(host)
             else:
                 dist.broadcast(t.data, src=src, group=group)
+
+
+def replicate(model: nn.Module, mesh: Optional[Mesh]) -> nn.Module:
+    """Every parameter and buffer broadcast from index 0 of its 'data'
+    group (and of its 'seq' group; over 'expert', every one but the
+    experts), so that every replica starts from the same state."""
+    if mesh is None or mesh.devices is not None:
+        return model
+    tensors = list(model.parameters()) + list(model.buffers())
+    _broadcast(tensors, mesh, "data")
+    if mesh.size("seq") > 1:
+        _broadcast(tensors, mesh, "seq")
+    if mesh.size("expert") > 1:
+        shards = getattr(model, "tp_shards", {})
+        local = {id(p) for n, p in model.named_parameters()
+                 if n in shards and "expert" in shards[n].axes}
+        _broadcast([t for t in tensors if id(t) not in local], mesh,
+                   "expert")
     return model
 
 
 def shard_state(model: nn.Module, mesh: Optional[Mesh]) -> nn.Module:
     """A freshly built model made ready for `mesh`: parameters split over
-    'model' (`shard_params`), then replicated over 'data'. Build the
-    optimizer afterwards, so its state takes the shards' shapes."""
+    'model' and 'expert' (`shard_params`), then replicated over the other
+    axes. Build the optimizer afterwards, so its state takes the shards'
+    shapes."""
     return replicate(shard_params(model, mesh), mesh)
 
 
 def gather_params(model: nn.Module) -> Dict[str, Any]:
-    """The full flax params tree of a (possibly 'model'-sharded) model: a
-    collective on every 'model' rank."""
+    """The full flax params tree of a (possibly 'model'- or
+    'expert'-sharded) model: a collective on every such rank."""
     from sie_tpu_torch.compat.from_jax import to_jax_params
     return to_jax_params(model)
 
@@ -345,12 +411,33 @@ def data_block(b: int, mesh: Optional[Mesh]) -> slice:
     return slice(i * (b // dp), (i + 1) * (b // dp))
 
 
+def seq_block(t: int, mesh: Optional[Mesh]) -> slice:
+    """This rank's steps of a time axis of t (all of them without 'seq')."""
+    s = 1 if mesh is None else mesh.size("seq")
+    if s <= 1:
+        return slice(0, t)
+    if t % s:
+        raise ValueError(f"a time axis of {t} steps should be divisible by "
+                         f"{s}, the 'seq' size of the mesh")
+    i = mesh.index("seq")
+    return slice(i * (t // s), (i + 1) * (t // s))
+
+
+def cut_time(a, mesh: Optional[Mesh]):
+    """This rank's time block (axis 1) of an array of rank 2 or more; a
+    rank-1 array as it is (the JAX package's `_batch_specs`)."""
+    if mesh is None or mesh.size("seq") <= 1 or np.ndim(a) < 2:
+        return a
+    return a[:, seq_block(a.shape[1], mesh)]
+
+
 def shard_batch(batch: Tuple, mesh: Optional[Mesh]) -> Tuple:
-    """This rank's row block of every array of a global batch."""
+    """This rank's row block, and under 'seq' its time block, of every
+    array of a global batch."""
     if mesh is None or isinstance(batch, LocalBatch):
         return tuple(batch)
     sl = data_block(len(batch[0]), mesh)
-    return LocalBatch(b[sl] for b in batch)
+    return LocalBatch(cut_time(b[sl], mesh) for b in batch)
 
 
 def mesh_spans_processes(mesh: Optional[Mesh]) -> bool:

@@ -142,6 +142,18 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def check_mesh_devices(n: int, device: str) -> torch.device:
+    """`device`, after the check `make_mesh` makes: a bare 'cuda' lays a
+    mesh of n out over n local cards, and fewer raise ValueError; 'cpu',
+    or an explicit 'cuda:K' that n processes share, takes any n."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n > have:
+            raise ValueError(f"mesh needs {n} devices, have {have}")
+    return dev
+
+
 def spawn_workers(argv: Sequence[str], n: int, device: str,
                   module: str = "sie_tpu_torch.run") -> int:
     """Runs `python -m module *argv` as n worker processes with the launch
@@ -151,13 +163,10 @@ def spawn_workers(argv: Sequence[str], n: int, device: str,
     an explicit 'cuda:K' that every worker shares, runs over gloo. Worker
     0's output passes through; the others' standard output is dropped
     (their errors stay)."""
-    dev = torch.device(device)
+    dev = check_mesh_devices(n, device)
     env = {**os.environ, "SIE_TPU_COORDINATOR": f"localhost:{free_port()}",
            "SIE_TPU_NUM_PROCESSES": str(n)}
     if dev.type == "cuda" and dev.index is None:
-        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if n > have:
-            raise ValueError(f"mesh needs {n} devices, have {have}")
         env["SIE_TPU_BACKEND"] = "nccl"
     else:
         env["SIE_TPU_BACKEND"] = "gloo"

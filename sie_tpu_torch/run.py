@@ -193,11 +193,14 @@ def get_args(argv=None):
                         "(the kernels' plain PyTorch versions)")
     p.add_argument("--mesh", type=str, default="",
                    help="device mesh, e.g. '8' (dp) or '4x2' (dp x mp): "
-                        "one process a card (parallel/mesh.py)")
+                        "one process a card (parallel/mesh.py); the "
+                        "forecast, imputation and anomaly tasks train on "
+                        "one device and ignore it, as in the JAX package")
     p.add_argument("--mesh_axes", type=str, default="data,model",
-                   help="comma-separated mesh axis names matching --mesh "
-                        "('data', 'model'; 'seq', 'expert' and 'pipe' are "
-                        "not ported yet)")
+                   help="comma-separated mesh axis names matching --mesh, "
+                        "from {data, seq, model, expert}: e.g. "
+                        "'data,seq,model' with --mesh 2x2x2, 'data,expert' "
+                        "with --mesh 2x4 ('pipe' is not ported yet)")
     p.add_argument("--moe_experts", type=int, default=0,
                    help="replace the Transformer encoder's FFN with a "
                         "Switch mixture of this many expert FFNs "
@@ -297,8 +300,7 @@ def mesh_axes(args) -> tuple:
 
 def refuse_unported(args) -> None:
     """Raises NotImplementedError, naming ROADMAP.md, for a flag whose path
-    the port does not have yet (a mesh axis of 'seq', 'expert' or 'pipe'),
-    and ValueError for a task that takes no mesh."""
+    the port does not have yet (a mesh axis of 'pipe')."""
     from sie_tpu_torch.parallel.mesh import _NOT_PORTED
     for flag, what in _UNPORTED.items():
         if getattr(args, flag):
@@ -307,11 +309,6 @@ def refuse_unported(args) -> None:
     for axis, size in zip(mesh_axes(args), shape):
         if axis in _NOT_PORTED and size > 1:
             raise not_ported(_NOT_PORTED[axis])
-    meshed = int(np.prod(shape)) > 1 if shape else False
-    if meshed and args.task_name in TASKS:
-        raise ValueError(f"--mesh applies to classification and "
-                         f"regression; {args.task_name} runs without it, "
-                         f"as in the JAX package")
 
 
 def args_to_config(args, seed: int) -> Config:
@@ -428,6 +425,13 @@ def main(argv=None):
     args = get_args(argv)
     refuse_unported(args)
     n = int(np.prod(mesh_shape(args))) if args.mesh else 1
+    if n > 1 and args.task_name in TASKS:
+        # the JAX CLI builds the mesh (make_mesh raises on too few
+        # devices), then trains the task on one device without it
+        multihost.check_mesh_devices(n, args.device)
+        print(f"[{args.task_name}] --mesh {args.mesh} is ignored: the task "
+              f"trains in one process on one device, as in the JAX package")
+        n = 1
     if n > 1 and not multihost.multihost_requested():
         code = multihost.spawn_workers(argv, n, args.device)
         if code:
@@ -451,7 +455,8 @@ def run_seeds(args, device):
 
     seeds = list(DEFAULT_SEEDS) if args.seed == -1 else [args.seed]
     all_results = []
-    mesh = make_mesh(args_to_config(args, 0))
+    mesh = (None if args.task_name in TASKS
+            else make_mesh(args_to_config(args, 0)))
     writer = is_writer(mesh)
 
     for i, seed in enumerate(seeds):

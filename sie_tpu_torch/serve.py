@@ -31,11 +31,11 @@ code at import time.
 Data-parallel serving: `mesh`, a single-process mesh over this process's
 devices (`parallel.mesh.make_mesh(cfg, devices=[...])`), holds a replica
 of the variables on each device of its 'data' axis (one model object for
-replicas on the same device; a 'model' axis is served replicated, on the
-first device of each 'data' row). Buckets start at the 'data' size and
-double, `max_batch` is rounded to a multiple of it, and each device runs
-its row block of a chunk on a stream of its own; the outputs are gathered
-in row order. The logits equal the predictor's without a mesh.
+replicas on the same device; a 'model', 'seq' or 'expert' axis is served
+replicated, on the first device of each 'data' row). Buckets start at
+the 'data' size and double, `max_batch` is rounded to a multiple of it,
+and each device runs its row block of a chunk on a stream of its own;
+the outputs are gathered in row order. The logits equal the predictor's without a mesh.
 """
 
 from __future__ import annotations

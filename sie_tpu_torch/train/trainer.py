@@ -83,11 +83,11 @@ from sie_tpu_torch.data.augment import draw as draw_augment
 from sie_tpu_torch.data.augment import validate as validate_augment
 from sie_tpu_torch.device import DeviceLike, resolve_device
 from sie_tpu_torch.models.info import ModelInfo
-from sie_tpu_torch.models.registry import build_model
+from sie_tpu_torch.models.registry import build_model, forward_model
 from sie_tpu_torch.models.sbm import clamp_sbm_weights
 from sie_tpu_torch.parallel import comm
-from sie_tpu_torch.parallel.mesh import (LocalBatch, data_block, shard_batch,
-                                         shard_state)
+from sie_tpu_torch.parallel.mesh import (LocalBatch, cut_time, data_block,
+                                         shard_batch, shard_state)
 from sie_tpu_torch.utils.profiling import (debug_nans_enabled,
                                            first_nonfinite_op)
 
@@ -133,7 +133,7 @@ def make_loss_fn(cfg: Config, loss_head: Optional[Callable] = None):
     def loss_fn(model: nn.Module, batch, beta,
                 generator: Optional[torch.Generator]):
         x, y, mask, w = batch
-        logits, info = model(x, mask, generator=generator)
+        logits, info = forward_model(model, x, mask, generator=generator)
         dp = comm.data_size()
         share = (lambda t: t / dp) if dp > 1 else (lambda t: t)
         loss = head(logits, y, w)
@@ -186,13 +186,14 @@ class Optimizer:
 
     def __init__(self, cfg: Config, steps_per_epoch: int,
                  params: Iterable[nn.Parameter], mesh=None,
-                 sharded: Iterable[nn.Parameter] = ()):
+                 sharded: Optional[Dict[int, Tuple[str, ...]]] = None):
         self.params: List[nn.Parameter] = [p for p in params
                                            if p.requires_grad]
-        # the clip's norm sums the 'model'-sharded gradients over 'model'
+        # the clip's norm sums each sharded gradient's squares over the
+        # axes it is split over ({id(param): axes})
         self.mesh = mesh
-        ids = {id(p) for p in sharded}
-        self.sharded = [id(p) in ids for p in self.params]
+        sharded = sharded or {}
+        self.sharded = [sharded.get(id(p), ()) for p in self.params]
         self.accum = max(cfg.gradient_accumulation_steps, 1)
         self.clip = float(cfg.gradient_clip)
         self.schedule = make_schedule(cfg, steps_per_epoch)
@@ -270,18 +271,23 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
                         sharded=None, mesh=None) -> List[torch.Tensor]:
     """optax.clip_by_global_norm: unchanged below max_norm, else each g
     becomes (g / norm) * max_norm; decided on the device, no host sync.
-    `sharded` flags the gradients of 'model'-sharded parameters, whose
-    squares are summed over 'model' (the others are whole on every
-    rank)."""
+    `sharded` gives, per gradient, the mesh axes its parameter is split
+    over ('model', 'expert' or both; () when whole on every rank): the
+    squares of each group are summed over its axes."""
     if sharded is None or not any(sharded):
         norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
     else:
         sq = [(g.float() ** 2).sum() for g in grads]
-        split = sum(s for s, sh in zip(sq, sharded) if sh)
-        with torch.no_grad():
-            split = comm.all_reduce_(split.clone(), mesh.group("model"))
-        norm = torch.sqrt(sum(s for s, sh in zip(sq, sharded) if not sh)
-                          + split)
+        total = 0.0
+        for axes in sorted(set(sharded)):
+            part = sum(s for s, a in zip(sq, sharded) if a == axes)
+            if axes:
+                with torch.no_grad():
+                    part = part.clone()
+                    for axis in axes:
+                        part = comm.all_reduce_(part, mesh.group(axis))
+            total = total + part
+        norm = torch.sqrt(total)
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm)
             for g in grads]
@@ -289,7 +295,8 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
 
 def make_optimizer(cfg: Config, steps_per_epoch: int,
                    params: Iterable[nn.Parameter], mesh=None,
-                   sharded: Iterable[nn.Parameter] = ()) -> Optimizer:
+                   sharded: Optional[Dict[int, Tuple[str, ...]]] = None
+                   ) -> Optimizer:
     return Optimizer(cfg, steps_per_epoch, params, mesh, sharded)
 
 
@@ -427,18 +434,23 @@ class Trainer(GraphSteps):
 
     `mesh`, a process mesh (parallel/mesh.py; this process is one of its
     ranks, `device` its card): the model is split over 'model' and
-    replicated over 'data' (`shard_state`) before the optimizer is built;
-    the batches given are global (`cfg.batch_size` rows), and a step takes
-    this rank's rows (`shard_batch`, `data_block`), or a batch from
-    `device_batch_from_local` as it is. A step runs the global batch's
-    arithmetic (parallel/comm.py): the loss's weight sum and the batch-wide
-    terms over the global batch, the gradients summed over 'data', the
-    clip's norm global, BatchNorm's statistics over 'data', the dropout
-    masks drawn at the global shape and cut to this rank's rows (K5/K6's
-    hash stays keyed on the local rows). A train step returns the global
-    loss and this rank's logits; the eval paths return every rank's rows,
-    in global order. Over NCCL the staged steps and their collectives are
-    captured as CUDA graphs; over gloo every step runs eagerly."""
+    'expert' and replicated over the other axes (`shard_state`) before the
+    optimizer is built; the batches given are global (`cfg.batch_size`
+    rows), and a step takes this rank's rows and, under 'seq', its time
+    block (`shard_batch`, `data_block`; `device_data` holds the time block
+    of every row), or a batch from `device_batch_from_local` as it is. A
+    step runs the global batch's arithmetic (parallel/comm.py): the loss's
+    weight sum and the batch-wide terms over the global batch, the loss
+    divided by the 'seq' size in the backward and the gradients summed
+    over 'data' and 'seq' (the rules of comm.py), the
+    clip's norm global, BatchNorm's statistics over 'data' and 'seq', the
+    dropout masks drawn at the global shape and cut to this rank's rows
+    and time block (K5/K6's hash stays keyed on the local rows). A train
+    step returns the global loss and this rank's logits; the eval paths
+    return every rank's rows, in global order (per-row outputs are whole
+    on every 'seq' and 'expert' rank). Over NCCL the staged steps and
+    their collectives are captured as CUDA graphs; over gloo every step
+    runs eagerly."""
 
     AUGMENT_OFFSET = 9173
 
@@ -459,7 +471,10 @@ class Trainer(GraphSteps):
         named = dict(self.model.named_parameters())
         self.optimizer = make_optimizer(
             cfg, steps_per_epoch, self.model.parameters(), mesh,
-            [named[n] for n in shards])
+            {id(named[n]): sh.axes for n, sh in shards.items()})
+        # a rank's loss, the same on every 'seq' rank, enters the backward
+        # as 1/S of itself (parallel/comm.py)
+        self._replicas = 1 if mesh is None else mesh.size("seq")
         self._eager = mesh is not None and mesh.backend == "gloo"
         self.loss_fn = make_loss_fn(cfg, loss_head)
         self.generator = torch.Generator(device=self.device).manual_seed(
@@ -502,9 +517,10 @@ class Trainer(GraphSteps):
 
     def device_batch_from_local(self, batch) -> LocalBatch:
         """`batch` holds this process's rows of the global batch (its row
-        block); the result passes through `train_step` and `eval_step`
-        uncut."""
-        return LocalBatch(self._device_batch(LocalBatch(batch)))
+        block, every time step); under 'seq' its time block is kept. The
+        result passes through `train_step` and `eval_step` uncut."""
+        return LocalBatch(self._device_batch(LocalBatch(
+            cut_time(b, self.mesh) for b in batch)))
 
     def _rows(self, a):
         """This rank's block of the rows of `a`."""
@@ -527,15 +543,17 @@ class Trainer(GraphSteps):
         for p in self.model.parameters():
             p.grad = None
         if self.augment_generator is not None:
+            # on the whole time axis (gathered over 'seq', then cut back)
             x, y, mask, w = batch
+            x, mask = comm.gather_seq(x), comm.gather_seq(mask)
             shape = (x.shape[0] * comm.data_size(),) + tuple(x.shape[1:])
             draws = [self._rows(d) for d in draw_augment(
                 self.cfg, shape, self.augment_generator)]
             x, mask = apply_augmentations(self.cfg, x, mask, draws)
-            batch = (x, y, mask, w)
+            batch = (comm.seq_block(x), y, comm.seq_block(mask), w)
         loss, (logits, _info) = self.loss_fn(self.model, batch, beta,
                                              self.generator)
-        loss.backward()
+        (loss if self._replicas == 1 else loss / self._replicas).backward()
         comm.sum_grads(self.optimizer.params, self.mesh)
         loss = comm.data_total(loss.detach())
         if self.debug_nans:
@@ -640,8 +658,8 @@ class Trainer(GraphSteps):
         self.model.eval()
         try:
             with torch.no_grad(), comm.using(self.mesh):
-                return self._gather(self.model(x, mask,
-                                               gating_value=gating_value))
+                return self._gather(forward_model(self.model, x, mask,
+                                                  gating_value=gating_value))
         finally:
             self.model.train()
 
@@ -669,10 +687,11 @@ class Trainer(GraphSteps):
         """(x, y, padding mask) of a dataset with those numpy fields, held
         on the device once per tag; batches are then gathered there."""
         if tag not in self._dev_data:
-            self._dev_data[tag] = (self._tensor(ds.x, torch.float32),
-                                   self._tensor(ds.y, target_dtype(ds.y)),
-                                   self._tensor(ds.padding_mask,
-                                                torch.float32))
+            self._dev_data[tag] = (
+                self._tensor(cut_time(ds.x, self.mesh), torch.float32),
+                self._tensor(ds.y, target_dtype(ds.y)),
+                self._tensor(cut_time(ds.padding_mask, self.mesh),
+                             torch.float32))
         return self._dev_data[tag]
 
     def train_step_indexed(self, dev_data, idx, w, beta: float):

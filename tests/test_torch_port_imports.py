@@ -3,7 +3,7 @@
 in the file (imports inside functions included), read from the source so
 that lazily imported modules count too. chip_smoke.py, the port's
 profiling scripts, the worker of the multi-process mesh tests
-(tests/torch_port_mesh_worker.py) and the card-only mesh test run on a
+(tests/torch_port_mesh_worker.py) and the card-only mesh tests run on a
 machine without JAX. Nor `msgpack`: the port
 reads and writes flax's checkpoint format with the standard library. Nor
 `pandas`, which that machine lacks: the port reads and writes its CSVs
@@ -28,7 +28,8 @@ FILES = sorted(
                recursive=True)
      + glob.glob(os.path.join(ROOT, "scripts", "port_*.py"))]
     + ["chip_smoke.py", "tests/torch_port_mesh_worker.py",
-       "tests/test_torch_port_mesh_cuda.py"])
+       "tests/test_torch_port_mesh_cuda.py",
+       "tests/test_torch_port_mesh_seq_cuda.py"])
 
 
 def _imported(path: str):

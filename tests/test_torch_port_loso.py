@@ -101,4 +101,4 @@ def test_cli_loso_prints_the_fold_mean(tmp_path, capsys, monkeypatch):
     monkeypatch.setenv("SIE_TPU_COORDINATOR", "localhost:1234")
     monkeypatch.setenv("SIE_TPU_NUM_PROCESSES", "2")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_run.main(argv + ["--mesh", "2", "--mesh_axes", "expert"])
+        port_run.main(argv + ["--mesh", "2", "--mesh_axes", "pipe"])

@@ -6,13 +6,14 @@ package's, in one process on the CPU:
   tests/conftest.py, over eight "cpu" devices;
 - `params_partition_specs` over the port's flax-layout parameters equals
   the JAX package's rules on the same tree, for InterpGN + Transformer,
-  LTS, EEGCNN and a MoE encoder, under ('data', 'model') and ('data',
-  'expert', 'model');
+  LTS, EEGCNN and a MoE encoder, under ('data', 'model'), ('data',
+  'expert', 'model'), ('data', 'expert') and ('expert', 'model');
 - `host_fold_slice` over the JAX package's cases;
-- `init_distributed` without the launch variables is a no-op; the 'seq',
-  'expert' and 'pipe' axes raise NotImplementedError naming ROADMAP.md,
-  in `Mesh` and on the command line; a batch that does not split over
-  'data' raises;
+- `init_distributed` without the launch variables is a no-op; the 'pipe'
+  axis raises NotImplementedError naming ROADMAP.md, in `Mesh` and on the
+  command line; 'seq' and 'expert' meshes build, pass the command line
+  and serve one step equal to the predictor without a mesh; a batch that
+  does not split over 'data', or a time axis over 'seq', raises;
 - `Predictor(mesh=...)` over two "cpu" devices gives the predictor's
   outputs without a mesh bit for bit at 1, 5, 64 and 70 rows (a chunk of
   64 and a remainder).
@@ -87,7 +88,9 @@ SPEC_MODELS = {
 
 
 @pytest.mark.parametrize("axes", [("data", "model"),
-                                  ("data", "expert", "model")], ids=str)
+                                  ("data", "expert", "model"),
+                                  ("data", "expert"), ("expert", "model")],
+                         ids=str)
 @pytest.mark.parametrize("name", sorted(SPEC_MODELS))
 def test_partition_specs_equal_the_jax_rules(name, axes):
     params = to_jax_params(build_model(Config(**SPEC_MODELS[name]), "cpu"))
@@ -119,7 +122,7 @@ def test_init_distributed_is_a_noop_without_the_launch(monkeypatch):
     assert host_fold_slice(5) == slice(0, 5)
 
 
-@pytest.mark.parametrize("axis", ["seq", "expert", "pipe"])
+@pytest.mark.parametrize("axis", ["pipe"])
 def test_unported_axes_raise(axis, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_mesh.Mesh((2, 2), ("data", axis), devices=["cpu"] * 4)
@@ -129,6 +132,34 @@ def test_unported_axes_raise(axis, tmp_path):
         port_run.refuse_unported(args)
     # an axis of one member is no parallelism: accepted
     port_mesh.Mesh((2, 1), ("data", axis), devices=["cpu"] * 2)
+
+
+@pytest.mark.parametrize("axis", ["seq", "expert"])
+def test_seq_and_expert_meshes_build_and_serve_a_step(axis):
+    mesh = port_mesh.Mesh((2, 2), ("data", axis), devices=["cpu"] * 4)
+    assert mesh.size(axis) == 2
+    args = port_run.get_args(["--mesh", "2x2", "--mesh_axes",
+                              f"data,{axis}"])
+    port_run.refuse_unported(args)
+    cfg = Config(**TINY, model="InterpGN", dnn_type="Transformer",
+                 moe_experts=4 if axis == "expert" else 0)
+    model = build_model(cfg, "cpu", torch.Generator().manual_seed(5))
+    variables = {"params": to_jax_params(model)}
+    x = np.random.default_rng(2).normal(
+        size=(6, TINY["seq_len"], TINY["enc_in"])).astype(np.float32)
+    want = Predictor(cfg, variables, device="cpu").predict(x)
+    got = Predictor(cfg, variables, mesh=mesh).predict(x)
+    np.testing.assert_array_equal(got.logits, want.logits)
+
+
+def test_a_time_axis_splits_over_seq_or_raises():
+    mesh = port_mesh.Mesh((2,), ("seq",), devices=["cpu", "cpu"])
+    assert port_mesh.seq_block(24, mesh) == slice(0, 12)
+    with pytest.raises(ValueError, match="divisible by 2"):
+        port_mesh.seq_block(845, mesh)
+    x, y = np.zeros((4, 24, 3)), np.zeros(4)
+    got = port_mesh.shard_batch((x, y), mesh)
+    assert got[0].shape == (4, 12, 3) and got[1].shape == (4,)
 
 
 def test_a_batch_splits_over_data_or_raises():

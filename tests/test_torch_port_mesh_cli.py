@@ -7,7 +7,13 @@
   equals a one-process `run_loso` of the same config;
 - `--mesh 2 --device cpu` without the variables starts its two workers
   itself: it trains over 'data' and tests once (process 0 writes one CSV
-  and the checkpoint), at the test accuracy of the run without a mesh.
+  and the checkpoint), at the test accuracy of the run without a mesh;
+  `--mesh 2 --mesh_axes seq` with the FCN expert does the same over
+  time blocks;
+- `--mesh 2` with a forecast task trains in this one process, says that
+  the mesh is ignored and gives the metrics of the run without it, as
+  the JAX CLI does; a bare `--device cuda` with more cards than the host
+  has raises make_mesh's ValueError first.
 """
 
 import glob
@@ -16,9 +22,14 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
-from sie_tpu_torch.data.synthetic import write_synthetic_uea
+import torch
+
+from sie_tpu_torch import run as port_run
+from sie_tpu_torch.data.synthetic import (write_synthetic_ett,
+                                          write_synthetic_uea)
 from sie_tpu_torch.parallel.loso import run_loso
 from sie_tpu_torch.parallel.multihost import free_port
 from sie_tpu_torch.run import args_to_config, get_args
@@ -108,3 +119,71 @@ def test_mesh_flag_spawns_its_workers_and_trains_as_one_process(uea):
                              "*.csv"))) == 1
     assert glob.glob(str(uea / "mesh" / "ck" / "**" / "checkpoint.msgpack"),
                      recursive=True)
+
+
+def test_mesh_seq_flag_trains_fcn_as_one_process(uea):
+    """`--mesh 2 --mesh_axes seq` (two workers, time blocks of 15 steps)
+    with the FCN expert in f32 against the run without a mesh: the same
+    test accuracy, each epoch's train loss within 1e-4 and validation
+    loss within 2e-3, the test loss within 2e-3. These are the limits
+    tests/test_torch_port_bn_experiment.py sets between the JAX and the
+    port's FCN runs on this data, for the same reason: FCN's conv biases
+    stand in front of a BatchNorm, their gradient is rounding noise that
+    Adam turns into moves of ~lr a step, and the eval losses read them
+    through the running means (the two runs round differently: time
+    blocks and sums over 'seq')."""
+    import pickle
+    out = {}
+    for tag, extra in (("seq", ["--mesh", "2", "--mesh_axes", "seq"]),
+                       ("seq_one", [])):
+        p = _run(_uea_argv(uea, tag, "--dnn_type", "FCN", *extra), _env(),
+                 uea / f"{tag}.log")
+        p.wait(timeout=300)
+        log = (uea / f"{tag}.log").read_text()
+        assert p.returncode == 0, log[-3000:]
+        [pkl] = glob.glob(str(uea / tag / "ck" / "**" / "test_results.pkl"),
+                          recursive=True)
+        with open(pkl, "rb") as f:
+            saved = pickle.load(f)
+        out[tag] = (re.findall(r"Test accuracy ([0-9.]+)%", log),
+                    saved["test_loss"],
+                    np.array(re.findall(r"Train Loss ([0-9.]+) \| Val Loss "
+                                        r"([0-9.]+)", log), float))
+    assert len(out["seq"][0]) == 1 and out["seq"][0] == out["seq_one"][0]
+    (_, loss, epochs), (_, one_loss, one_epochs) = out["seq"], out["seq_one"]
+    assert epochs.shape == one_epochs.shape == (2, 2)
+    np.testing.assert_allclose(epochs[:, 0], one_epochs[:, 0], rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(epochs[:, 1], one_epochs[:, 1], rtol=0,
+                               atol=2e-3)
+    assert loss == pytest.approx(one_loss, abs=2e-3)
+
+
+def _task_argv(root, *extra):
+    return ["--device", "cpu", "--task_name", "long_term_forecast",
+            "--model", "DNN", "--data", "custom", "--data_root", str(root),
+            "--dataset", "ett", "--seq_len", "24", "--label_len", "8",
+            "--pred_len", "8", "--d_model", "16", "--d_ff", "32",
+            "--n_heads", "2", "--e_layers", "1", "--d_layers", "1",
+            "--batch_size", "16", "--train_epochs", "1", "--seed", "0",
+            "--result_dir", str(root / "result"), *extra]
+
+
+def test_mesh_with_a_task_trains_in_one_process(tmp_path, monkeypatch,
+                                                capsys):
+    for k in [k for k in os.environ if k.startswith("SIE_TPU_")]:
+        monkeypatch.delenv(k)
+    write_synthetic_ett(str(tmp_path / "ett.csv"), n_rows=300, seed=2)
+    alone = port_run.main(_task_argv(tmp_path))
+    capsys.readouterr()
+    meshed = port_run.main(_task_argv(tmp_path, "--mesh", "2",
+                                      "--mesh_axes", "data"))
+    out = capsys.readouterr().out
+    assert "[long_term_forecast] --mesh 2 is ignored" in out
+    assert meshed[0][2] == alone[0][2]
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    n = max(have + 1, 2)
+    argv = _task_argv(tmp_path, "--mesh", str(n))
+    argv[argv.index("cpu")] = "cuda"
+    with pytest.raises(ValueError, match=f"needs {n} devices"):
+        port_run.main(argv)

@@ -30,40 +30,21 @@ Limits (f32 summation order; ROADMAP.md §3 lists the gaps seen):
   package).
 The gathered checkpoint, applied by the JAX model, gives the worker's eval
 logits (1e-5), and loaded back into the sharded model gives them bit for
-bit.
+bit. The first step's gradients, summed over the mesh (before the clip)
+and gathered to the flax layout, equal `jax.grad` of the JAX loss on the
+global batch leaf by leaf within 1e-5 x the leaf's max |g|
+(tests/torch_port_mesh_refs.py `assert_grads_equal_jax`): Adam's update
+hides a gradient counted a constant number of times, this does not.
 """
 
-import json
-import os
-import subprocess
-import sys
-from types import SimpleNamespace
-
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from sie_tpu.config import Config as JConfig
-from sie_tpu.models import build_model as jax_build_model
-from sie_tpu.train.trainer import Trainer as JTrainer
-from sie_tpu_torch.compat.from_jax import (_flatten, load_jax_variables,
-                                           to_jax_variables)
-from sie_tpu_torch.config import Config
-from sie_tpu_torch.models.registry import build_model
-from sie_tpu_torch.parallel.multihost import free_port
-from sie_tpu_torch.train.trainer import Trainer
+import torch_port_mesh_refs as R
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORKER = os.path.join(REPO, "tests", "torch_port_mesh_worker.py")
-BASE = dict(model="InterpGN", seq_len=24, enc_in=3, num_class=3,
-            num_shapelet=2, d_model=16, d_ff=32, n_heads=2, e_layers=1,
-            dropout=0.0, amp=False, use_pallas=False,
-            fused_attention_min_len=0, lr=5e-3, seed=0, gradient_clip=0.05,
-            batch_size=8)
+BASE, STEPS, BETA = R.BASE, R.STEPS, R.BETA
 MODELS = {"transformer": dict(BASE, dnn_type="Transformer"),
           "fcn": dict(BASE, dnn_type="FCN")}
-N_ROWS, B, STEPS, BETA = 20, 8, 3, 1.0
 ATOL = {"Transformer": 1e-6, "FCN": 1e-5}   # parameters after three steps
 # name: (model, processes, mesh shape, mesh axes, path)
 SCENARIOS = {
@@ -76,109 +57,13 @@ SCENARIOS = {
 }
 
 
-def _rows(kw):
-    rng = np.random.default_rng(7)
-    t = kw["seq_len"]
-    y = rng.integers(0, kw["num_class"], N_ROWS).astype(np.int32)
-    x = (rng.normal(size=(N_ROWS, t, kw["enc_in"]))
-         + 0.7 * y[:, None, None]).astype(np.float32)
-    mask = np.ones((N_ROWS, t), np.float32)
-    mask[::3, (2 * t) // 3:] = 0.0
-    order = rng.permutation(N_ROWS)
-    idx, w = [], []
-    for k in range(STEPS):
-        i = order[k * B:(k + 1) * B]
-        wk = np.ones(B, np.float32)
-        if len(i) < B:        # the padded final batch: rows 4..7 weigh 0
-            wk[len(i):] = 0.0
-            i = np.concatenate([i, np.zeros(B - len(i), i.dtype)])
-        idx.append(i)
-        w.append(wk)
-    return SimpleNamespace(x=x, y=y, padding_mask=mask,
-                           idx=np.stack(idx).astype(np.int64),
-                           w=np.stack(w))
-
-
-def _batch(rows, k):
-    i = rows.idx[k]
-    return (rows.x[i], rows.y[i], rows.padding_mask[i], rows.w[k])
-
-
-def _flat(tree, prefix=""):
-    return {prefix + "/".join(k): np.asarray(v)
-            for k, v in _flatten(tree).items()}
-
-
 @pytest.fixture(scope="module")
 def references(tmp_path_factory):
     """Per model: the rows, the JAX initial variables (as a file), and the
     JAX trainer's and the port's one-process losses, final variables and
-    each step's JAX gradients."""
+    each step's JAX gradients (tests/torch_port_mesh_refs.py)."""
     root = tmp_path_factory.mktemp("mesh_refs")
-    out = {}
-    for name, kw in MODELS.items():
-        rows = _rows(kw)
-        jt = JTrainer(JConfig(**kw), steps_per_epoch=STEPS)
-        state = jt.init_state(_batch(rows, 0), seed=0)
-        init = {"params": jax.tree.map(np.asarray, state.params),
-                "batch_stats": jax.tree.map(np.asarray, state.batch_stats)}
-        np.savez(root / f"{name}_vars.npz", **_flat(init["params"], "params/"),
-                 **_flat(init["batch_stats"], "batch_stats/"))
-        np.savez(root / f"{name}_data.npz", x=rows.x, y=rows.y,
-                 mask=rows.padding_mask, idx=rows.idx, w=rows.w)
-        grad_fn = jax.jit(jax.grad(lambda p, s, b: jt.loss_fn(
-            p, s, b, jnp.float32(BETA), True, jax.random.key(0))[0]))
-        jlosses, grads = [], []
-        for k in range(STEPS):
-            batch = tuple(jnp.asarray(a) for a in _batch(rows, k))
-            grads.append(_flat(jax.tree.map(np.asarray, grad_fn(
-                state.params, state.batch_stats, batch))))
-            state, loss, _ = jt.train_step(state, _batch(rows, k), BETA)
-            jlosses.append(float(loss))
-            if k == 0:
-                first = _flat({"params": state.params,
-                               "batch_stats": state.batch_stats})
-        final = _flat({"params": state.params,
-                       "batch_stats": state.batch_stats})
-        cfg = Config(**kw)
-        tr = Trainer(cfg, STEPS, model=load_jax_variables(
-            build_model(cfg, "cpu"), init), device="cpu")
-        plosses = [float(tr.train_step(_batch(rows, k), BETA)[0])
-                   for k in range(STEPS)]
-        out[name] = SimpleNamespace(
-            rows=rows, vars=str(root / f"{name}_vars.npz"),
-            data=str(root / f"{name}_data.npz"), init=init, kw=kw,
-            jax_losses=jlosses, jax_first=first, jax_final=final,
-            grads=grads, port_losses=plosses,
-            port_final=_flat(to_jax_variables(tr.model)))
-    return out
-
-
-def _launch(spec, n, tmp_path, tag):
-    """Runs n worker processes on `spec` -> nothing; fails with the logs of
-    a worker that failed."""
-    path = tmp_path / f"{tag}.json"
-    path.write_text(json.dumps(spec))
-    env = {**os.environ, "SIE_TPU_COORDINATOR": f"localhost:{free_port()}",
-           "SIE_TPU_NUM_PROCESSES": str(n), "SIE_TPU_BACKEND": "gloo",
-           "OMP_NUM_THREADS": "1"}
-    logs = [open(tmp_path / f"{tag}_{i}.log", "wb") for i in range(n)]
-    procs = [subprocess.Popen([sys.executable, WORKER, str(path)],
-                              env={**env, "SIE_TPU_PROCESS_ID": str(i)},
-                              stdout=logs[i], stderr=subprocess.STDOUT)
-             for i in range(n)]
-    try:
-        for p in procs:
-            p.wait(timeout=300)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-        for lg in logs:
-            lg.close()
-    for i, p in enumerate(procs):
-        log = (tmp_path / f"{tag}_{i}.log").read_text()
-        assert p.returncode == 0, log[-4000:]
+    return {name: R.reference(name, kw, root) for name, kw in MODELS.items()}
 
 
 @pytest.fixture(scope="module")
@@ -188,28 +73,20 @@ def runs(references, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh_runs")
     by_n = {}
     for name, (model, n, shape, axes, path) in SCENARIOS.items():
-        ref = references[model]
-        by_n.setdefault(n, []).append(dict(
-            name=name, cfg=ref.kw, mesh_shape=list(shape),
-            mesh_axes=list(axes), variables=ref.vars, data=ref.data,
-            path=path, beta=BETA, out=str(tmp)))
+        by_n.setdefault(n, []).append(R.scenario(
+            name, references[model], shape, axes, path, tmp))
     for model, ref in references.items():
         data = np.load(ref.data)
         one = tmp / f"{model}_one.npz"
         np.savez(one, **{k: data[k] for k in ("x", "y", "mask")},
                  idx=data["idx"][:1], w=data["w"][:1])
-        by_n[2].append(dict(name=f"first_{model}", cfg=ref.kw,
-                            mesh_shape=[2], mesh_axes=["data"],
-                            variables=ref.vars, data=str(one),
-                            path="staged", beta=BETA, out=str(tmp)))
+        by_n[2].append(dict(R.scenario(f"first_{model}", ref, (2,),
+                                       ("data",), "staged", tmp),
+                            data=str(one)))
     for n, spec in by_n.items():
-        _launch(spec, n, tmp, f"procs{n}")
+        R.launch(spec, n, tmp, f"procs{n}")
     return {sc["name"]: dict(np.load(tmp / f"{sc['name']}.npz"))
             for spec in by_n.values() for sc in spec}
-
-
-def _params(d, prefix):
-    return {k[len(prefix):]: v for k, v in d.items() if k.startswith(prefix)}
 
 
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
@@ -226,10 +103,10 @@ def test_parameters_and_batch_stats_equal_the_one_device_runs(name, runs,
     ref = references[SCENARIOS[name][0]]
     lr = ref.kw["lr"]
     got = runs[name]
-    params = _params(got, "params/")
-    assert set(params) == set(_params(ref.jax_final, "params/"))
+    params = R.params_of(got, "params/")
+    assert set(params) == set(R.params_of(ref.jax_final, "params/"))
     for want_all in (ref.jax_final, ref.port_final):
-        want = _params(want_all, "params/")
+        want = R.params_of(want_all, "params/")
         for key, a in params.items():
             sure = np.all([np.abs(g[key]) >= 1e-4 for g in ref.grads],
                           axis=0)
@@ -237,8 +114,8 @@ def test_parameters_and_batch_stats_equal_the_one_device_runs(name, runs,
                                        atol=ATOL[ref.kw["dnn_type"]],
                                        err_msg=key)
             assert np.abs(a - want[key]).max() <= STEPS * 2.1 * lr, key
-        stats = _params(got, "batch_stats/")
-        assert set(stats) == set(_params(want_all, "batch_stats/"))
+        stats = R.params_of(got, "batch_stats/")
+        assert set(stats) == set(R.params_of(want_all, "batch_stats/"))
         for key, a in stats.items():
             b = want_all["batch_stats/" + key]
             assert np.abs(a - b).max() <= STEPS * 2.1 * lr, key
@@ -250,7 +127,8 @@ def test_the_first_step_equals_the_jax_step(runs, references):
     for model in MODELS:
         got = runs[f"first_{model}"]
         want = references[model].jax_first
-        assert set(got) - {"losses", "logits", "again"} == set(want)
+        assert set(k for k in got if not k.startswith("grads/")) - \
+            R.RUN_OUTPUTS == set(want)
         grads = references[model].grads[0]
         for key, b in want.items():
             param = key.startswith("params/")
@@ -267,19 +145,11 @@ def test_gathered_checkpoint_gives_the_logits_in_jax(name, runs, references):
     ref = references[SCENARIOS[name][0]]
     got = runs[name]
     np.testing.assert_array_equal(got["again"], got["logits"])
-    variables = {}
-    for key, v in got.items():
-        if key.startswith(("params/", "batch_stats/")):
-            node = variables
-            parts = key.split("/")
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = jnp.asarray(v)
-    if not variables.get("batch_stats"):
-        variables.pop("batch_stats", None)
-    model = jax_build_model(JConfig(**ref.kw))
-    x, mask = ref.rows.x[:8], ref.rows.padding_mask[:8]
-    logits, _ = model.apply(variables, jnp.asarray(x), jnp.asarray(mask),
-                            train=False)
-    np.testing.assert_allclose(np.asarray(logits), got["logits"], rtol=1e-5,
-                               atol=1e-5)
+    np.testing.assert_allclose(R.jax_logits(got, ref.kw, ref.rows),
+                               got["logits"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_first_step_gradients_equal_jax_grad(name, runs, references):
+    R.assert_grads_equal_jax(runs[name],
+                             references[SCENARIOS[name][0]].grads[0])

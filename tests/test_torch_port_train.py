@@ -327,7 +327,7 @@ def test_unported_training_paths_raise():
     from sie_tpu_torch.parallel.mesh import Mesh
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(Config(**KW), 1, device="cpu",
-                mesh=Mesh((2,), ("seq",), devices=["cpu", "cpu"]))
+                mesh=Mesh((2,), ("pipe",), devices=["cpu", "cpu"]))
     with pytest.raises(ValueError, match="process mesh"):
         Trainer(Config(**KW), 1, device="cpu",
                 mesh=Mesh((2,), ("data",), devices=["cpu", "cpu"]))

@@ -11,8 +11,22 @@ every process builds the model from the variables, trains it under
 (`to_jax_variables`), evaluates a batch (`eval_step`, every rank's rows),
 loads the gathered variables back (sliced again) and evaluates once more.
 Process 0 writes `<out>/<name>.npz`: the losses, the gathered variables
-("params/..." and "batch_stats/..." keys), the eval logits before and
-after the reload. Imports nothing of JAX.
+("params/..." and "batch_stats/..." keys), the first step's gradients
+summed over the mesh, before the clip, gathered to the flax layout
+("grads/..."), the eval logits before and after the reload and, for a
+MoE model, the load-balance loss of a train-mode forward of the eval
+batch ("aux"), and the time widths its training saw ("time_forward",
+the widths of the backbone's forwards, `registry.call_dnn`;
+"time_halo", those of each `comm.halo_seq` call): under 'seq' a
+time-sharded backbone sees its block and takes halos.
+
+A scenario's "device" (default "cpu") is where it trains; the variable
+MESH_WORKER_DEVICE names the device the process group starts on (a card
+that every process shares, over gloo). A scenario of kind "moe" applies
+one MoE layer (`moe` holds its constructor's arguments) in eval mode to
+this rank's rows and time block of `x` under the mesh; every process
+writes `<out>/<name>_<rank>.npz`: its output block and its 'data' and
+'seq' indices. Imports nothing of JAX.
 """
 
 import json
@@ -26,11 +40,16 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from sie_tpu_torch.compat.from_jax import (_flatten, load_jax_variables,  # noqa: E402
+from sie_tpu_torch.compat.from_jax import (_flatten, load_jax_params,  # noqa: E402
+                                           load_jax_variables, to_jax_tree,
                                            to_jax_variables)
 from sie_tpu_torch.config import Config  # noqa: E402
 from sie_tpu_torch.models.registry import build_model  # noqa: E402
-from sie_tpu_torch.parallel.mesh import Mesh  # noqa: E402
+from sie_tpu_torch.models.moe import MoEFFN  # noqa: E402
+from sie_tpu_torch.models import registry  # noqa: E402
+from sie_tpu_torch.models.registry import forward_model  # noqa: E402
+from sie_tpu_torch.parallel import comm  # noqa: E402
+from sie_tpu_torch.parallel.mesh import Mesh, shard_batch, shard_params  # noqa: E402
 from sie_tpu_torch.parallel.multihost import init_distributed  # noqa: E402
 from sie_tpu_torch.train.trainer import Trainer  # noqa: E402
 
@@ -51,17 +70,64 @@ def flat(tree, prefix: str) -> dict:
     return {prefix + "/".join(k): v for k, v in _flatten(tree).items()}
 
 
+def time_probe() -> dict:
+    """Records, until `stop()`, the time width of every backbone forward
+    (`registry.call_dnn`) and of every `comm.halo_seq` call."""
+    seen = {"forward": [], "halo": []}
+    fwd, halo = registry.call_dnn, comm.halo_seq
+
+    def call_dnn(dnn, x, padding_mask, generator):
+        seen["forward"].append(x.shape[1])
+        return fwd(dnn, x, padding_mask, generator)
+
+    def halo_seq(t, before, after, circular, dim=1):
+        seen["halo"].append(t.shape[dim])
+        return halo(t, before, after, circular, dim)
+
+    def stop():
+        registry.call_dnn, comm.halo_seq = fwd, halo
+    registry.call_dnn, comm.halo_seq = call_dnn, halo_seq
+    seen["stop"] = stop
+    return seen
+
+
+def run_moe(sc: dict, rank: int) -> None:
+    mesh = Mesh(sc["mesh_shape"], sc["mesh_axes"])
+    layer = MoEFFN(**sc["moe"], dtype=torch.float32,
+                   g=torch.Generator().manual_seed(0))
+    load_jax_params(layer, nested(np.load(sc["variables"])))
+    shard_params(layer, mesh).eval()
+    (x,) = shard_batch((np.load(sc["data"])["x"],), mesh)
+    with torch.no_grad(), comm.using(mesh):
+        y = layer(torch.from_numpy(x))
+    np.savez(os.path.join(sc["out"], f"{sc['name']}_{rank}.npz"),
+             y=y.numpy(), data=mesh.index("data"), seq=mesh.index("seq"))
+
+
 def run(sc: dict, rank: int) -> None:
+    if sc.get("kind") == "moe":
+        return run_moe(sc, rank)
     cfg = Config(**sc["cfg"])
     data = np.load(sc["data"])
     variables = nested(np.load(sc["variables"]))
+    device = sc.get("device", "cpu")
     model = load_jax_variables(build_model(cfg, "cpu"), variables)
     mesh = Mesh(sc["mesh_shape"], sc["mesh_axes"])
     idx, w, beta = data["idx"], data["w"], float(sc["beta"])
-    tr = Trainer(cfg, len(idx), model=model, device="cpu", mesh=mesh)
+    tr = Trainer(cfg, len(idx), model=model, device=device, mesh=mesh)
+    grads = {}
+    step = tr.optimizer.device_step
+
+    def spy(position):      # the summed gradients, before the clip
+        if not grads:
+            grads.update(to_jax_tree(tr.model, dict(zip(
+                tr._named(), [p.grad for p in tr.optimizer.params]))))
+        return step(position)
+    tr.optimizer.device_step = spy
     rows = SimpleNamespace(x=data["x"], y=data["y"],
                            padding_mask=data["mask"])
     losses = []
+    seen = time_probe()
     if sc["path"] == "staged":
         dev = tr.device_data("train", rows)
         staged = tr.stage_steps(list(zip(idx, w)), beta)
@@ -72,21 +138,32 @@ def run(sc: dict, rank: int) -> None:
             i = idx[k]
             batch = (rows.x[i], rows.y[i], rows.padding_mask[i], w[k])
             losses.append(float(tr.train_step(batch, beta)[0]))
+    seen["stop"]()
     out = to_jax_variables(tr.model)
     ev = (rows.x[:8], rows.y[:8], rows.padding_mask[:8], np.ones(8, np.float32))
-    logits = tr.eval_step(ev)[0].numpy()
+    extra = {}
+    if cfg.moe_experts > 0:
+        x, _y, mask, _w = tr._device_batch(ev)
+        with torch.no_grad(), comm.using(mesh):
+            info = forward_model(tr.model, x, mask)[1]
+        extra["aux"] = info.aux_loss.cpu().numpy()
+    logits = tr.eval_step(ev)[0].cpu().numpy()
     load_jax_variables(tr.model, out)
-    again = tr.eval_step(ev)[0].numpy()
+    again = tr.eval_step(ev)[0].cpu().numpy()
     if rank == 0:
         np.savez(os.path.join(sc["out"], sc["name"] + ".npz"),
                  losses=np.asarray(losses), logits=logits, again=again,
+                 time_forward=np.asarray(seen["forward"], np.int64),
+                 time_halo=np.asarray(seen["halo"], np.int64),
+                 **flat(grads, "grads/"), **extra,
                  **flat(out["params"], "params/"),
                  **flat(out["batch_stats"], "batch_stats/"))
 
 
 def main(spec_path: str) -> None:
-    assert init_distributed(device="cpu") is True
-    assert init_distributed(device="cpu") is True      # idempotent
+    device = os.environ.get("MESH_WORKER_DEVICE", "cpu")
+    assert init_distributed(device=device) is True
+    assert init_distributed(device=device) is True      # idempotent
     import torch.distributed as dist
     torch.manual_seed(0)
     with open(spec_path) as f:
