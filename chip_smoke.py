@@ -310,7 +310,27 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      `Predictor` over single-process ('data', 'seq') and ('data',
      'expert') meshes at 1, 5, 64 rows, bit-equal to the predictor
      without a mesh, K1 6 and K5 2 a request;
- 41. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
+ 41. the 'pipe' axis (each part a check of its own): (a) the flagship's
+     encoder (d_model 512, 8 heads, d_ff 2048, 2 layers, one a stage)
+     through parallel/pipeline.py over ('pipe',) 2, two processes that
+     share the card (gloo), B 64, T 845, 4 microbatches, in f32 and bf16
+     amp: the forward and the gradients of sum(sin(out)) (each stage's
+     leaves, the input's on stage 0, zeros on stage 1) against the
+     sequential encoder at the same weights (1e-4 f32, 5e-2 bf16, x max
+     |want|, per leaf), K5 5 a forward at (128 rows, T 845) and K6 5 a
+     backward on each rank, ms of a forward + backward against the
+     sequential one's; (b) 'pipe' in the Trainer, in the same pair of
+     processes: the flagship in f32, 3 eager steps of `train_step`,
+     nothing split, losses and parameters bit-equal to one process (else
+     the gap, within phase 39's limits), K1 6, K2 6, K5 2, K6 2 a step on
+     rank 0; (c) the MoE flagship encoder pipelined in training: its aux
+     within 1e-5 of the mean over microbatches of the sequential layers'
+     summed aux, the output within 1e-4, a finite backward, ValueError
+     ('load-balance') without the aux; (d) the flagship Trainer at
+     dropout 0.1 takes 2 steps, writes `train_state.msgpack` in the JAX
+     package's layout, a new trainer loads it and takes 2 more, bit-equal
+     to 4 uninterrupted steps;
+ 42. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
      timed training steps of each kernel's path, plus, split in
      `launches_by_path`, phases 16, 17 and 19's UEA run for K1 and K2, the
      serving paths for K1, K3 and K5: phase 5, phase 11's requests, phase
@@ -321,12 +341,13 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      `extra_experts`, phase 37 for K1, K2, K5 and K6 as `ensemble`, phase
      38 for K1 and K2 as `ensemble_uea`, phase 39's (a), (b) and (c)
      steps (rank 0) and (e) for K1, K2, K5 and K6 as `mesh`, phase 40's
-     (a) and (e) as `seq` and (b) and (e) as `expert`), then the device
-     line.
+     (a) and (e) as `seq` and (b) and (e) as `expert`, phase 41's (a),
+     (c) (rank 0) for K5 and K6 and (b) (rank 0) and (d) for K1, K2, K5
+     and K6 as `pipe`), then the device line.
 
 After each phase a `[time]` line gives its seconds and the seconds since
 the start. The K5 and K6 phases (4, 6, 8, 12), the serving phases (20-22)
-and phases 23-40 run under a time limit that ends the process (and the
+and phases 23-41 run under a time limit that ends the process (and the
 servers it started), so that a kernel that hangs fails the run instead of
 holding the card. Times
 are CUDA-event times after warm-up (kernels) or host-clock times of work
@@ -4698,6 +4719,9 @@ def mesh_rank(kinds: str, out_dir: str) -> None:
     layers.fused_attention = recorded
     seen = time_probe()
     for kind in kinds.split(","):
+        if kind == "pipeline":
+            pipeline_rank(out_dir, k5_shapes)
+            continue
         cfg = kind_config(kind)
         ds = random_rows(cfg, MESH_ROWS)
         t = Trainer(cfg, MESH_STEPS, device="cuda:0",
@@ -5294,6 +5318,342 @@ def phase_seq_expert(tmp: str, smi: str) -> tuple:
     return total["seq"], total["expert"]
 
 
+# ---- phase 41: the 'pipe' axis and the GPipe executor -----------------------
+PIPE_B, PIPE_M = 64, 4     # (a)/(c): batch and microbatches of the pipeline
+PIPE_TOL = {False: 1e-4, True: 5e-2}   # (a) by amp: the forward (x max
+# |want|) and each leaf's gradient (x its max |g|; a leaf whose max |g| is
+# below 1e-6 of the tree's, x the tree's) against the sequential encoder
+PIPE_TIMED = 5             # (a): forward + backward passes timed
+PIPE_SHAPES = {"bank": [10, 122, 43], "query": [512, 512],
+               "ffn": [2048, 512]}   # (b): nothing split over 'pipe'
+SNAP_STEPS = 2             # (d): steps before and after the snapshot
+
+
+def pipe_encoder_config(amp: bool):
+    """(a): the flagship's encoder settings (d_model 512, 8 heads, d_ff
+    2048, 2 layers: one a stage), at dropout 0."""
+    return flagship_config().replace(amp=amp, batch_size=PIPE_B)
+
+
+def leaf_errors(got: dict, want: dict) -> float:
+    """The worst per-leaf max |got - want| / the leaf's max |want| (a leaf
+    whose max is below 1e-6 of the tree's, rounding noise: over the
+    tree's)."""
+    top = max(float(np.abs(w).max()) for w in want.values())
+    worst = 0.0
+    for key, w in want.items():
+        scale = max(float(np.abs(w).max()), 1e-6 * top)
+        worst = max(worst, float(np.abs(got[key] - w).max()) / scale)
+    return worst
+
+
+def pipeline_rank(out_dir: str, k5_shapes: list) -> None:
+    """Phase 41 (a) and (c) in one of the two processes of `mesh_rank`,
+    over `Mesh((2,), ("pipe",))`: for f32 and bf16 amp, this rank's stage
+    of the flagship encoder pipelined (M 4) against the sequential encoder
+    run here at the same weights (forward, and the gradients of
+    sum(sin(out)): this stage's leaves, `norm`, the input's), its K5/K6
+    launches and K5 shapes, and the ms of PIPE_TIMED forward + backward
+    passes of both (the sequential one timed on rank 0 while rank 1
+    waits); then the MoE flagship encoder in training with its aux against
+    the sequential layers a microbatch at a time, and the ValueError
+    without the aux. Process 0 writes `<out_dir>/mesh_pipeline.npz` with
+    both ranks' numbers."""
+    import torch.distributed as dist
+    from sie_tpu_torch.compat.from_jax import (_flatten, load_jax_stage,
+                                               to_jax_params, to_jax_tree)
+    from sie_tpu_torch.parallel.mesh import Mesh
+    from sie_tpu_torch.parallel.pipeline import (encoder_stage,
+                                                 pipelined_encoder_apply)
+    mesh = Mesh((2,), ("pipe",))
+    s = mesh.index("pipe")
+    dev = torch.device("cuda", 0)
+    counts = Counts()
+    flat = lambda tree: {"/".join(k): v for k, v in _flatten(tree).items()}
+    out = {"rank": s}
+
+    def grads_of(module, rename=None):
+        tree = to_jax_tree(module, {n: p.grad for n, p in
+                                    module.named_parameters()})
+        return flat({rename(k) if rename else k: v for k, v in tree.items()})
+
+    x_host = np.random.default_rng(1).normal(
+        size=(PIPE_B, 845, 512)).astype(np.float32)
+    for amp in (False, True):
+        tag = "bf16" if amp else "f32"
+        cfg = pipe_encoder_config(amp)
+        full = encoder_stage(cfg, 1, torch.Generator().manual_seed(0),
+                             dev).eval()
+        stage = load_jax_stage(encoder_stage(cfg, 2, device=dev),
+                               to_jax_params(full), s, 2)
+        x = torch.from_numpy(x_host).to(dev)
+        xs = x.clone().requires_grad_(True)
+        want = full(xs)
+        torch.sin(want).sum().backward()
+        xp = x.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        counts.zero()
+        k5_shapes.clear()
+        got = pipelined_encoder_apply(cfg, stage, xp, mesh,
+                                      n_microbatches=PIPE_M)
+        torch.cuda.synchronize()
+        fwd = counts.read()
+        counts.zero()
+        torch.sin(got).sum().backward()
+        torch.cuda.synchronize()
+        bwd = counts.read()
+        per = len(stage.layers)
+        rename = lambda k: k if k == "norm" else \
+            f"layer_{s * per + int(k[6:])}"
+        mine = grads_of(stage, rename)
+        ref = {k: v for k, v in grads_of(full).items() if k in mine}
+        xgrad = xp.grad.cpu().numpy()
+        out[tag] = {
+            "fwd": fwd, "bwd": bwd, "k5": [list(t) for t in k5_shapes],
+            "forward_err": float((got - want).abs().max()
+                                 / want.abs().max()),
+            "grad_err": leaf_errors(mine, ref),
+            "x_err": (leaf_errors({"x": xgrad},
+                                  {"x": xs.grad.cpu().numpy()}) if s == 0
+                      else float(np.abs(xgrad).max())),
+            "leaves": len(mine)}
+        ms = []
+        for _ in range(PIPE_TIMED):
+            stage.zero_grad(set_to_none=True)
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = pipelined_encoder_apply(cfg, stage, xp, mesh,
+                                        n_microbatches=PIPE_M)
+            torch.sin(o).sum().backward()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        seq_ms = []
+        dist.barrier()
+        if s == 0:
+            for _ in range(PIPE_TIMED):
+                full.zero_grad(set_to_none=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                torch.sin(full(xs)).sum().backward()
+                torch.cuda.synchronize()
+                seq_ms.append(1e3 * (time.perf_counter() - t0))
+        dist.barrier()
+        out[tag].update(ms=ms, seq_ms=seq_ms)
+        del full, stage, want, got, o, x, xs, xp
+        torch.cuda.empty_cache()
+    # (c) the MoE flagship encoder, in training, with its aux
+    cfg = kind_config("expert")
+    full = encoder_stage(cfg, 1, torch.Generator().manual_seed(0), dev)
+    stage = load_jax_stage(encoder_stage(cfg, 2, device=dev),
+                           to_jax_params(full), s, 2)
+    x = torch.from_numpy(x_host).to(dev)
+    full.train()
+    ys, auxes = [], []
+    with torch.no_grad():
+        for mb in x.chunk(PIPE_M):
+            sown = []
+            ys.append(full(mb, None, sown))
+            auxes.append(float(sum(a.float().sum() for a in sown)))
+    want = torch.cat(ys)
+    try:
+        pipelined_encoder_apply(cfg, stage, x, mesh, n_microbatches=PIPE_M,
+                                train=True)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    counts.zero()
+    got, aux = pipelined_encoder_apply(cfg, stage, x, mesh,
+                                       n_microbatches=PIPE_M, train=True,
+                                       return_aux=True,
+                                       generator=torch.Generator(dev))
+    (torch.sin(got).sum() + aux).backward()
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(p.grad).all())
+                 for p in stage.parameters() if p.grad is not None)
+    out["moe"] = {"launches": counts.read(), "aux": float(aux),
+                  "want_aux": float(np.mean(auxes)),
+                  "forward_err": float((got - want).abs().max()
+                                       / want.abs().max()),
+                  "raised": raised, "finite": finite}
+    del full, stage, got, want, x
+    torch.cuda.empty_cache()
+    both = [None, None]
+    dist.all_gather_object(both, out)
+    if s == 0:
+        np.savez(os.path.join(out_dir, "mesh_pipeline.npz"),
+                 meta=np.frombuffer(json.dumps(both).encode(), np.uint8))
+
+
+def pipe_snapshot(smi: str) -> dict:
+    """(d): the flagship Trainer at dropout RATE takes SNAP_STEPS steps and
+    writes `train_state.msgpack` in the JAX package's layout; a new
+    trainer loads it and takes SNAP_STEPS more, bit for bit the last steps
+    of a trainer that took all of them -> the launches of every step."""
+    from sie_tpu_torch.compat import flax_msgpack
+    from sie_tpu_torch.train import checkpoint as ckpt
+    from sie_tpu_torch.train.trainer import Trainer
+    import tempfile
+    cfg = train_config(dropout=RATE)
+    ds = random_rows(cfg, MESH_ROWS)
+    w = np.ones(cfg.batch_size, np.float32)
+    batches = [(ds.x[i], ds.y[i], ds.padding_mask[i], w) for i in
+               mesh_schedule(MESH_ROWS, cfg.batch_size, 2 * SNAP_STEPS)]
+    mk = lambda seed: Trainer(cfg, 2 * SNAP_STEPS, device="cuda",
+                              generator=torch.Generator().manual_seed(seed))
+    counts = Counts()
+    counts.zero()
+    whole = mk(0)
+    want = [whole.train_step(b, 1.0)[0] for b in batches]
+    first = mk(0)
+    for b in batches[:SNAP_STEPS]:
+        first.train_step(b, 1.0)
+    d = tempfile.mkdtemp(prefix="chip_smoke_snap_")
+    try:
+        t0 = time.perf_counter()
+        ckpt.save_train_state(d, first, 1, {"best_score": 0.0, "counter": 0,
+                                            "has_best": False})
+        save_s = time.perf_counter() - t0
+        path = os.path.join(d, ckpt.FULL_STATE_NAME)
+        size = os.path.getsize(path)
+        with open(path, "rb") as f:
+            keys = sorted(flax_msgpack.from_bytes(f.read()))
+        del first
+        again = mk(1)                     # other weights: all from the file
+        ckpt.load_train_state(d, again)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    got = [again.train_step(b, 1.0)[0] for b in batches[SNAP_STEPS:]]
+    launched = counts.read()
+    if keys != ["batch_stats", "early", "epoch", "opt_state", "params",
+                "rng", "step"]:
+        fail(f"pipe (d): the snapshot holds {keys}")
+    gaps = [float((g - w_).abs().max()) for g, w_ in
+            zip(got, want[SNAP_STEPS:])]
+    with torch.no_grad():
+        pgap = max(float((p - q).abs().max()) for p, q in zip(
+            whole.model.parameters(), again.model.parameters()))
+    if any(gaps) or pgap:
+        fail(f"pipe (d): the resumed steps' losses differ by {gaps} and "
+             f"the parameters by {pgap:.3e} from the uninterrupted run "
+             f"(the same kernels on the same card, so any gap is a state "
+             f"the snapshot lost)")
+    steps = 4 * SNAP_STEPS      # the whole run's, the first's, the resumed
+    if launched != Counts.full(TRAIN_WANT, steps):
+        fail(f"pipe (d): {steps} steps launched {launched}")
+    print(f"[pipe] (d) the flagship Trainer at dropout {RATE}: "
+          f"{SNAP_STEPS} steps, train_state.msgpack in the JAX package's "
+          f"layout ({size / 2 ** 20:.1f} MiB, keys {keys}, written in "
+          f"{save_s:.2f} s), a new trainer loads it and takes {SNAP_STEPS} "
+          f"more: losses {[float(g) for g in got]} and parameters bit-equal "
+          f"to the uninterrupted run; {smi}")
+    del whole, again
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_pipe(tmp: str, smi: str) -> dict:
+    """Phase 41, (a)-(d), each a check of its own -> the launches of the
+    'pipe' path: (b)'s steps on rank 0, (a)'s and (c)'s pipelines on rank
+    0, (d)'s steps."""
+    t0 = time.perf_counter()
+    ref = mesh_one_process()
+    t1 = time.perf_counter()
+    runs = mesh_ranks("pipe,pipeline", tmp)
+    t2 = time.perf_counter()
+    # (b) 'pipe' is replication in the Trainer, as in the JAX package
+    got = runs["pipe"]
+    meta = got["meta"]
+    total = Counts.full({})
+    for step in meta["launches"]:
+        if step != Counts.full(TRAIN_WANT):
+            fail(f"pipe (b): a step launched {step} on rank 0")
+        total = {n: total[n] + step[n] for n in total}
+    if meta["shapes"] != PIPE_SHAPES:
+        fail(f"pipe (b): local shapes {meta['shapes']}")
+    losses, params, _ = ref
+    same = list(got["losses"]) == list(losses) and all(
+        np.array_equal(got[k], v) for k, v in params.items())
+    if same:
+        how = "bit-equal to one process, losses and parameters"
+    else:
+        loss_gap, param_gap = mesh_against_one("pipe", got, ref,
+                                               mesh_config().lr)
+        how = (f"not bit-equal to one process: losses within "
+               f"{loss_gap:.3e}, parameters within {param_gap:.3e} where "
+               f"held (phase 39's limits); each rank runs the one-process "
+               f"step on the whole batch, so a gap is another summation "
+               f"order of the same kernels")
+    print(f"[pipe] (b) 'pipe' over 2 processes on this card (gloo), "
+          f"flagship f32 B=64, nothing split ({meta['shapes']}): "
+          f"{MESH_STEPS} losses {got['losses'].tolist()} {how}; ms a global "
+          f"step " + ", ".join(f"{v:.1f}" for v in got["ms"])
+          + f"; launches a step {TRAIN_WANT} on rank 0; {smi}")
+    # (a) the pipelined flagship encoder, (c) the MoE one
+    ranks = runs["pipeline"]["meta"]
+    ticks = PIPE_M + 2 - 1
+    for tag, amp in (("f32", False), ("bf16", True)):
+        tol = PIPE_TOL[amp]
+        for r in ranks:
+            a = r[tag]
+            k5 = Counts.full({"K5": ticks})
+            k6 = Counts.full({"K6": ticks})
+            rows = PIPE_B // PIPE_M * 8
+            if a["fwd"] != k5 or a["bwd"] != k6 or any(
+                    t != [rows, 845] for t in a["k5"]):
+                fail(f"pipe (a) {tag}: rank {r['rank']} launched "
+                     f"{a['fwd']} in the forward, {a['bwd']} in the "
+                     f"backward, K5 at {a['k5']}")
+            x_ok = a["x_err"] <= tol if r["rank"] == 0 else a["x_err"] == 0
+            if a["forward_err"] > tol or a["grad_err"] > tol or not x_ok:
+                fail(f"pipe (a) {tag}: rank {r['rank']} forward error "
+                     f"{a['forward_err']:.3e}, leaf gradients "
+                     f"{a['grad_err']:.3e}, input gradient "
+                     f"{a['x_err']:.3e} (limit {tol:g})")
+        r0 = ranks[0][tag]
+        total = {n: total[n] + r0["fwd"][n] + r0["bwd"][n] for n in total}
+        print(f"[pipe] (a) {tag}: the flagship encoder (d_model 512, 8 "
+              f"heads, d_ff 2048, 2 layers) over 'pipe' 2 (gloo, this "
+              f"card), B={PIPE_B} T=845 M={PIPE_M}: forward within "
+              + " / ".join(f"{r[tag]['forward_err']:.3e}" for r in ranks)
+              + " of the sequential encoder (x max|out|), each stage's "
+              f"{r0['leaves']} leaf gradients within "
+              + " / ".join(f"{r[tag]['grad_err']:.3e}" for r in ranks)
+              + f", the input's within {r0['x_err']:.3e} (stage 1's "
+              f"{ranks[1][tag]['x_err']:g}); launches a rank: K5 "
+              f"{ticks} a forward at (rows, T) {r0['k5'][0]}, K6 {ticks} "
+              f"a backward; forward + backward ms pipelined "
+              + ", ".join(f"{v:.1f}" for v in r0["ms"])
+              + f" (median {np.median(r0['ms']):.1f}) against the "
+              f"sequential encoder's "
+              + ", ".join(f"{v:.1f}" for v in r0["seq_ms"])
+              + f" (median {np.median(r0['seq_ms']):.1f}) in one process; "
+              f"{smi}")
+    for r in ranks:
+        m = r["moe"]
+        if "load-balance" not in m["raised"] or not m["finite"] or \
+                abs(m["aux"] - m["want_aux"]) > 1e-5 * abs(m["want_aux"]) \
+                or m["forward_err"] > PIPE_TOL[False] or \
+                m["launches"] != Counts.full({"K5": ticks, "K6": ticks}):
+            fail(f"pipe (c): rank {r['rank']}: {m}")
+    m = ranks[0]["moe"]
+    total = {n: total[n] + m["launches"][n] for n in total}
+    print(f"[pipe] (c) the MoE flagship encoder (8 experts) over 'pipe' "
+          f"2 in training, f32, M={PIPE_M}: aux {m['aux']:.7g} against the "
+          f"mean over microbatches of the sequential layers' summed aux "
+          f"{m['want_aux']:.7g}, output within {m['forward_err']:.3e}, "
+          f"the backward of sum(sin(out)) + aux finite; training without "
+          f"return_aux raises ValueError ('load-balance'); launches a rank "
+          f"{m['launches']}")
+    t3 = time.perf_counter()
+    snap = pipe_snapshot(smi)
+    total = {n: total[n] + snap[n] for n in total}
+    print(f"[pipe] phase 41: one-process reference {t1 - t0:.1f} s, (a) + "
+          f"(b) + (c) in one pair of processes {t2 - t1:.1f} s, (d) "
+          f"{time.perf_counter() - t3:.1f} s; launches {total}")
+    return total
+
+
 def lap(what: str) -> None:
     """Prints the seconds since the previous lap (a phase's time) and since
     the start."""
@@ -5389,6 +5749,9 @@ def main() -> None:
         with time_limit(300, "the seq and expert phase"):
             seq, expert = phase_seq_expert(work, smi)
             lap("seq_expert")
+        with time_limit(120, "the pipe phase"):
+            pipe = phase_pipe(work, smi)
+            lap("pipe")
     finally:
         for proc in list(CHILDREN):
             stop_server(proc)
@@ -5401,7 +5764,7 @@ def main() -> None:
                  "cli_timesnet": by_cli["TimesNet"], "moe": moe,
                  "variants": variants, "extra_experts": extra_experts,
                  "ensemble": ensemble, "ensemble_uea": ensemble_uea,
-                 "mesh": mesh, "seq": seq, "expert": expert}
+                 "mesh": mesh, "seq": seq, "expert": expert, "pipe": pipe}
     others = {"K1": {"uea_fcn": uea_fcn, "uea_resnet": uea_resnet,
                      "cli_uea_fcn": cli_uea, "serve": serve_launches,
                      "serve_bundle": bundle, "serve_export": exported,
@@ -5413,10 +5776,10 @@ def main() -> None:
                      "serve_export": exported, **options,
                      "forecast_long": forecast_long, "moe": moe,
                      "ensemble": ensemble, "mesh": mesh, "seq": seq,
-                     "expert": expert},
+                     "expert": expert, "pipe": pipe},
               "K6": {**options, "forecast_long": forecast_long, "moe": moe,
                      "ensemble": ensemble, "mesh": mesh, "seq": seq,
-                     "expert": expert}}
+                     "expert": expert, "pipe": pipe}}
     paths = ((k1, launches, "K1"), (k2, launches, "K2"),
              (k3, fused, "K3"), (k4, fused, "K4"), (k5, launches, "K5"),
              (k6, launches, "K6"), (k7, long_launches, "K5"),

@@ -8,6 +8,7 @@ over NCCL:
         --seq_len 844
     python scripts/port_mesh_cards.py --mesh 2x2 --mesh_axes data,expert \
         --moe_experts 8
+    python scripts/port_mesh_cards.py --mesh 2x2 --mesh_axes data,pipe
 
 Without the launch variables (parallel/multihost.py) it builds the
 kernels, starts one worker a card with the variables set, waits for all
@@ -25,7 +26,13 @@ encoder layer chip_smoke.py's Switch-MoE FFN (top 1, capacity factor
 2. the flagship as trained (amp, dropout 0.1), 64 rows a 'data' rank:
    warm-up, capture, then `--timed` replays, each timed with the host
    clock around a synchronisation; process 0 then times the lone
-   trainer's replays of 64 rows on its card.
+   trainer's replays of 64 rows on its card;
+3. with a 'pipe' axis: the flagship's encoder (d_model 512, 8 heads,
+   d_ff 2048, 2 layers) through parallel/pipeline.py, one layer a stage,
+   64 rows a 'data' rank in 4 microbatches, amp: the forward against the
+   sequential encoder on the same rows (within 5e-2 x max |out|), then
+   `--timed` forward + backward passes of sum(sin(out)), each timed;
+   process 0 then times the sequential encoder's on its 64 rows alone.
 Process 0 prints the card's name and power limit, the time widths its
 backbone's forwards saw in step 1 (a 'seq' rank's block), the losses and
 their gap, the medians of the mesh's and the lone replays, and the rows a
@@ -158,7 +165,63 @@ def worker(shape, axes, timed: int) -> None:
             f"{B * dp / m / (B / lm):.3f} x one card's rows a second",
             flush=True)
     dist.barrier()
+    if mesh.size("pipe") > 1:
+        pipeline(mesh, rank, say, timed)
+    dist.barrier()
     dist.destroy_process_group()
+
+
+def pipeline(mesh, rank: int, say, timed: int) -> None:
+    """Step 3 of the module docstring."""
+    import torch.distributed as dist
+    from sie_tpu_torch.compat.from_jax import load_jax_stage, to_jax_params
+    from sie_tpu_torch.parallel.pipeline import (encoder_stage,
+                                                 pipelined_encoder_apply)
+    cfg = flagship()
+    n, dp = mesh.size("pipe"), mesh.size("data")
+    full = encoder_stage(cfg, 1, torch.Generator().manual_seed(0),
+                         "cuda").eval()
+    stage = load_jax_stage(encoder_stage(cfg, n, device="cuda"),
+                           to_jax_params(full), mesh.index("pipe"), n)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(B * dp, cfg.seq_len, cfg.d_model)).astype(np.float32)).cuda()
+    mine = x[mesh.index("data") * B:(mesh.index("data") + 1) * B]
+    with torch.no_grad():
+        want = full(mine)
+        got = pipelined_encoder_apply(cfg, stage, x, mesh, n_microbatches=4,
+                                      data_axis="data")
+    err = float((got - want).abs().max() / want.abs().max())
+    errs = [None] * dist.get_world_size()
+    dist.all_gather_object(errs, err)
+    xg = x.clone().requires_grad_(True)
+
+    def passes(fn) -> list:
+        out = []
+        for _ in range(timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.sin(fn()).sum().backward()
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return out
+    ms = passes(lambda: pipelined_encoder_apply(
+        cfg, stage, xg, mesh, n_microbatches=4, data_axis="data"))
+    dist.barrier()
+    if rank == 0:
+        xs = mine.clone().requires_grad_(True)
+        lone = passes(lambda: full(xs))
+        m, lm = float(np.median(ms)), float(np.median(lone))
+        ok = max(errs) <= 5e-2
+        say(f"[cards] pipeline, amp, {B} rows a 'data' rank, 4 "
+            f"microbatches, {n} stages: forward within "
+            + ", ".join(f"{e:.3e}" for e in errs) + f" (ranks; x max|out|) "
+            f"of the sequential encoder ({'within' if ok else 'OUTSIDE'} "
+            f"5e-2); forward + backward ms " + ", ".join(
+                f"{v:.2f}" for v in ms) + f", median {m:.3f} "
+            f"({B * dp / m * 1e3:.1f} rows/s); the sequential encoder "
+            f"alone {lm:.3f} ms ({B / lm * 1e3:.1f} rows/s)", flush=True)
+        if not ok:
+            raise SystemExit(1)
 
 
 def main() -> None:

@@ -57,6 +57,12 @@ stays the full one (every expert, the whole d_ff). Loading (`_fill`,
 `port_layout`) keeps this rank's block of each such leaf, and
 `to_jax_tree` gathers every rank's blocks (a collective on every rank
 of those axes), so checkpoints cross between the packages as before.
+
+A pipeline stage (parallel/pipeline.py `encoder_stage`: L/S layers of
+an `Encoder` and its `norm`) takes its layers from a flax `Encoder` tree
+with `load_jax_stage` (stage s reads `layer_{s·L/S + i}` into its layer
+i, and `norm`), and `gather_stage_params` gathers every stage back to
+that tree (a collective over the 'pipe' axis).
 """
 
 from __future__ import annotations
@@ -357,3 +363,58 @@ def to_jax_variables(module: nn.Module) -> Dict[str, Any]:
     package writes it."""
     return {"params": to_jax_params(module),
             "batch_stats": to_jax_tree(module, batch_stats_buffers(module))}
+
+
+def _stage_layers(encoder_params: MappingT[str, Any], n_stages: int) -> int:
+    names = set(encoder_params)
+    n = sum(1 for k in names if re.fullmatch(r"layer_\d+", k))
+    want = {f"layer_{i}" for i in range(n)} | {"norm"}
+    if names != want:
+        raise ParamLoadError(f"an Encoder tree holds layer_0..layer_<L-1> "
+                             f"and norm; got {sorted(names)}")
+    if n % n_stages:
+        raise ParamLoadError(f"{n} layers do not split into {n_stages} "
+                             f"equal stages")
+    return n // n_stages
+
+
+def load_jax_stage(stage: nn.Module, encoder_params: MappingT[str, Any],
+                   stage_index: int, n_stages: int) -> nn.Module:
+    """Fill a pipeline stage (an `Encoder` of L/S layers) from the params
+    of a flax `Encoder` of L layers: layer_{s·L/S + i} into its layer i,
+    and `norm`. Every leaf of those scopes is consumed exactly once and
+    every parameter of the stage filled (`load_jax_params`)."""
+    per = _stage_layers(encoder_params, n_stages)
+    if len(stage.layers) != per:
+        raise ParamLoadError(f"a stage of {len(stage.layers)} layers; the "
+                             f"tree gives {per} a stage")
+    sub = {f"layer_{i}": encoder_params[f"layer_{stage_index * per + i}"]
+           for i in range(per)}
+    return load_jax_params(stage, dict(sub, norm=encoder_params["norm"]))
+
+
+def gather_stage_params(stage: nn.Module, mesh, axis: str = "pipe"
+                        ) -> Dict[str, Any]:
+    """The flax `Encoder` params of every `axis` rank's stage: stage s's
+    layer i becomes layer_{s·L/S + i}; `norm` is this rank's (the same on
+    every rank). A collective on every rank of the axis."""
+    from sie_tpu_torch.parallel import comm
+    own = to_jax_params(stage)
+    per, n = len(stage.layers), mesh.size(axis)
+    leaves = _flatten({k: v for k, v in own.items() if k != "norm"})
+    keys = sorted(leaves)
+    flat = torch.from_numpy(np.concatenate(
+        [leaves[k].reshape(-1) for k in keys]).astype(np.float32)).to(
+            next(stage.parameters()).device)
+    parts = (comm.all_gather(flat, mesh.group(axis), n) if n > 1
+             else flat[None]).cpu().numpy()
+    out: Dict[str, Any] = {"norm": own["norm"]}
+    sizes = np.cumsum([0] + [leaves[k].size for k in keys])
+    for s in range(n):
+        for k, lo, hi in zip(keys, sizes[:-1], sizes[1:]):
+            i = int(k[0][len("layer_"):])
+            node = out.setdefault(f"layer_{s * per + i}", {})
+            for p in k[1:-1]:
+                node = node.setdefault(p, {})
+            node[k[-1]] = parts[s, lo:hi].reshape(leaves[k].shape).copy()
+    return _sorted(out)

@@ -39,12 +39,6 @@ _LN_EPS = 1e-6   # flax LayerNorm default
 _SKINNY = 16     # `dense` computes products with fewer outputs in f32
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to sie_tpu_torch yet (ROADMAP.md, 'Modules "
-        f"still to port')")
-
-
 # ------------------------------------------------------------------ init
 def uniform_(t: torch.Tensor, bound: float, g: torch.Generator) -> None:
     with torch.no_grad():

@@ -29,6 +29,11 @@ block), and these helpers put the global arithmetic back:
 - the same pair over 'expert' (`copy_to`, `reduce_from` with the axis):
   in front of a rank's experts (their tokens and combine weights) and
   behind them (the sum of every rank's experts' output).
+- over 'pipe' (parallel/pipeline.py, which the JAX package runs inside
+  `shard_map`): `ppermute`, the ring rotation of `lax.ppermute` (every
+  stage sends to the next and receives from the previous; the backward
+  rotates the other way), and `from_last`, the masked `psum` that gives
+  every stage the last stage's output.
 
 How each leaf's gradient is counted once. 'model' and 'expert' keep
 Megatron's rule: the work after a seam is repeated on every such rank,
@@ -46,6 +51,20 @@ the LayerNorms, the head's rows) its blocks' partial sums, and the summed
 gradient equals the single-device gradient of the global batch
 (tests/test_torch_port_mesh_seq.py and test_torch_port_mesh_expert.py
 hold it to `jax.grad`).
+
+'pipe' takes Megatron's rule too. Every 'pipe' rank computes the same
+loss from `from_last`'s output and runs its backward, so each stage's
+backward receives the whole cotangent of the output: `from_last` hands
+it on only on the last stage (zeros on the others), where one copy
+reaches the outputs it collected, and never S copies. The pipeline's aux
+loss is summed over 'pipe' by `reduce_from` (identity backward), so each
+stage's share gets its gradient once. The input's gradient lands on
+stage 0, zeros on the others. Every rank issues the same exchanges in
+the same order in both passes: the stages run the same schedule, and
+stage 0 keeps what it received in the graph (it reads its microbatch
+instead, with a zero gradient for the received state), so its reverse
+rotation runs like every other stage's (tests/test_torch_port_pipeline.py
+holds each stage's gradients to `jax.grad`).
 
 The trainer sets the mesh of a step (`using`); with no mesh every helper
 is the identity and launches nothing, as is every 'seq' or 'expert'
@@ -109,6 +128,19 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
         dist.all_reduce(host, group=group)
         return t.copy_(host)
     dist.all_reduce(t, group=group)
+    return t
+
+
+def broadcast_(t: torch.Tensor, group, index: int) -> torch.Tensor:
+    """In place: the tensor of `group`'s rank `index` on every rank
+    (through the host for a card's tensor under gloo)."""
+    src = dist.get_global_rank(group, index) \
+        if group is not dist.group.WORLD else index
+    if t.is_cuda and dist.get_backend(group) == "gloo":
+        host = t.detach().cpu()
+        dist.broadcast(host, src=src, group=group)
+        return t.copy_(host)
+    dist.broadcast(t, src=src, group=group)
     return t
 
 
@@ -346,3 +378,70 @@ def whole_time(call, *ts, keep_block: bool = False):
     with full_time():
         out = call(*full)
     return seq_block(out) if keep_block else out
+
+
+# ---------------------------------------------------------------- 'pipe'
+def _exchange(t: torch.Tensor, group, to: int, frm: int) -> torch.Tensor:
+    """Sends t to group rank `to` and returns what group rank `frm` sends
+    (a tensor of t's shape and dtype), the send and the receive posted
+    together (a blocking send on every rank of a ring would wait
+    forever); through the host for a card's tensor under gloo."""
+    glob = (lambda i: i) if group is dist.group.WORLD else (
+        lambda i: dist.get_global_rank(group, i))
+    staged = t.is_cuda and dist.get_backend(group) == "gloo"
+    src = (t.detach().cpu() if staged else t.detach()).contiguous()
+    buf = torch.empty_like(src)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, src, glob(to), group),
+        dist.P2POp(dist.irecv, buf, glob(frm), group)])
+    for r in reqs:
+        r.wait()
+    return buf.to(t.device) if staged else buf
+
+
+class _Rotate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, index, shift):
+        ctx.args = (group, size, index, shift)
+        return _exchange(x, group, (index + shift) % size,
+                         (index - shift) % size)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, size, index, shift = ctx.args
+        return (_exchange(g, group, (index - shift) % size,
+                          (index + shift) % size), None, None, None, None)
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str = "pipe",
+             shift: int = 1) -> torch.Tensor:
+    """`lax.ppermute(x, axis, [(i, (i + shift) % S)])`: what the `axis`
+    rank `shift` places before this one holds; the gradient rotates back.
+    Every rank of the axis calls it, with tensors of one shape and
+    dtype."""
+    size = mesh.size(axis)
+    if size <= 1 or shift % size == 0:
+        return x
+    return _Rotate.apply(x, mesh.group(axis), size, mesh.index(axis), shift)
+
+
+class _FromLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, last):
+        ctx.last = last
+        return broadcast_(x.detach().clone(), group, size - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.last else torch.zeros_like(g)), None, None, None
+
+
+def from_last(x: torch.Tensor, mesh, axis: str = "pipe") -> torch.Tensor:
+    """The last `axis` rank's x on every rank (the pipeline's masked
+    `psum`); the gradient reaches the last rank's x once and the other
+    ranks' x not at all (the rule of the module docstring)."""
+    size = mesh.size(axis)
+    if size <= 1:
+        return x
+    return _FromLast.apply(x, mesh.group(axis), size,
+                           mesh.index(axis) == size - 1)

@@ -1,14 +1,14 @@
 """Device meshes (counterpart of sie_tpu/parallel/mesh.py): data
 parallelism over the 'data' axis, tensor parallelism over 'model',
-sequence parallelism over 'seq' and expert parallelism over 'expert'.
+sequence parallelism over 'seq', expert parallelism over 'expert' and
+the pipeline stages of parallel/pipeline.py over 'pipe'.
 
 A process mesh has one process a card (parallel/multihost.py starts them)
 laid out in `cfg.mesh_axes` order: rank = the row-major index of its mesh
 coordinates, with one torch.distributed group per axis (the ranks that
 differ only along it). A mesh built from `devices=[...]` is a
 single-process mesh over this process's devices, for serving
-(serve.Predictor). The axis 'pipe' is not ported yet: a mesh that gives
-it more than one member raises NotImplementedError naming ROADMAP.md.
+(serve.Predictor).
 
 The rules of the JAX package (`params_partition_specs`, unchanged) say
 which parameters GSPMD shards. The port's shards give the same numbers
@@ -24,7 +24,9 @@ under 'expert' it gives each rank E/X of the MoE experts (`expert_wi`,
 `expert_bi`, `expert_wo`, `expert_bo` on their expert axis; with 'model'
 too, d_ff split as `expert_wi` P('expert', None, 'model'), `expert_bi`
 P('expert', 'model'), `expert_wo` P('expert', 'model', None));
-and replicates everything else (under 'seq' nothing is split).
+and replicates everything else (under 'seq' and 'pipe' nothing is
+split: as in the JAX Trainer, 'pipe' is replication there, and only
+parallel/pipeline.py gives its ranks different work).
 `shard_params` makes the split in place and records it in the model's
 `tp_shards` ({parameter name: Shard}), which compat/from_jax.py reads: a
 checkpoint is gathered to the full flax layout (`gather_params`) and read
@@ -36,8 +38,8 @@ Batches: `cfg.batch_size` is the global batch, as in the JAX package; a
 rank takes its row block (B divisible by the 'data' size) and, under
 'seq', the block of axis 1 (time) of every array of rank 2 or more (T
 divisible by the 'seq' size, where the JAX package's `device_put`
-raises too): `shard_batch`, `data_block`, `seq_block`. 'model' and
-'expert' ranks take the same rows.
+raises too): `shard_batch`, `data_block`, `seq_block`. 'model',
+'expert' and 'pipe' ranks take the same rows.
 """
 
 from __future__ import annotations
@@ -50,11 +52,9 @@ import torch.distributed as dist
 from torch import nn
 
 from sie_tpu_torch.config import Config
-from sie_tpu_torch.models.layers import not_ported
 from sie_tpu_torch.parallel import comm
 
 AXES = ("data", "model", "seq", "expert", "pipe")
-_NOT_PORTED = {"pipe": "the 'pipe' mesh axis (parallel/pipeline.py)"}
 
 
 class PartitionSpec(tuple):
@@ -84,11 +84,9 @@ class Mesh:
         if len(axes) != len(shape):
             raise ValueError(f"mesh {shape} needs {len(shape)} axis names; "
                              f"got {tuple(axis_names)}")
-        for a, s in zip(axes, shape):
+        for a in axes:
             if a not in AXES:
                 raise ValueError(f"unknown mesh axis {a!r}; one of {AXES}")
-            if a in _NOT_PORTED and s > 1:
-                raise not_ported(_NOT_PORTED[a])
         self.axis_names = axes
         self.shape = dict(zip(axes, shape))
         n = int(np.prod(shape))
@@ -117,7 +115,7 @@ class Mesh:
         self._coords = dict(zip(axes, (int(c) for c in
                                        np.unravel_index(rank, shape))))
         # every rank creates every group, in the same order
-        for name in ("data", "model", "seq", "expert"):
+        for name in AXES:
             if name not in axes:
                 rows = grid.reshape(-1, 1)
             else:
@@ -347,29 +345,22 @@ def _split_experts(mod, mesh: Mesh, pre: str,
 
 
 def _broadcast(tensors, mesh: Mesh, axis: str) -> None:
-    group = mesh.group(axis)
-    src = dist.get_global_rank(group, 0) if group is not dist.group.WORLD \
-        else 0
     with torch.no_grad():
         for t in tensors:
-            if t.is_cuda and mesh.backend == "gloo":
-                host = t.detach().cpu()
-                dist.broadcast(host, src=src, group=group)
-                t.copy_(host)
-            else:
-                dist.broadcast(t.data, src=src, group=group)
+            comm.broadcast_(t.data, mesh.group(axis), 0)
 
 
 def replicate(model: nn.Module, mesh: Optional[Mesh]) -> nn.Module:
     """Every parameter and buffer broadcast from index 0 of its 'data'
-    group (and of its 'seq' group; over 'expert', every one but the
-    experts), so that every replica starts from the same state."""
+    group (and of its 'seq' and 'pipe' groups; over 'expert', every one
+    but the experts), so that every replica starts from the same state."""
     if mesh is None or mesh.devices is not None:
         return model
     tensors = list(model.parameters()) + list(model.buffers())
     _broadcast(tensors, mesh, "data")
-    if mesh.size("seq") > 1:
-        _broadcast(tensors, mesh, "seq")
+    for axis in ("seq", "pipe"):
+        if mesh.size(axis) > 1:
+            _broadcast(tensors, mesh, axis)
     if mesh.size("expert") > 1:
         shards = getattr(model, "tp_shards", {})
         local = {id(p) for n, p in model.named_parameters()

@@ -44,12 +44,14 @@ starts the workers itself (`multihost.spawn_workers`: one a local card
 over NCCL, or with `--device cpu` or an explicit `--device cuda:K` that
 many processes over gloo) and returns the first failing exit code.
 Classification and regression take the mesh; process 0 writes the
-checkpoints, CSVs, pickles and exports, gathered to the full layout. The
-'seq', 'expert' and 'pipe' axes raise NotImplementedError naming
-ROADMAP.md. Checkpoint converters the reference lacks (the extra
-backbones) raise where they are called. `--no_pallas`,
-`--multi_gpu` and `--num_workers` are accepted and change nothing, as in
-run.py off a TPU.
+checkpoints, CSVs, pickles and exports, gathered to the full layout.
+Every axis of the JAX CLI is taken: 'data', 'model', 'seq', 'expert'
+and 'pipe' (replication in training, as in the JAX Trainer); an unknown
+axis name, or fewer names than the mesh has dimensions, raises
+ValueError before any process starts. Checkpoint converters the
+reference lacks (the extra backbones) raise where they are called.
+`--no_pallas`, `--multi_gpu` and `--num_workers` are accepted and change
+nothing, as in run.py off a TPU.
 """
 
 from __future__ import annotations
@@ -63,7 +65,6 @@ import numpy as np
 
 from sie_tpu_torch.config import DEFAULT_SEEDS, Config
 from sie_tpu_torch.data.augment import validate as validate_augment
-from sie_tpu_torch.models.layers import not_ported
 
 
 def get_args(argv=None):
@@ -198,9 +199,9 @@ def get_args(argv=None):
                         "one device and ignore it, as in the JAX package")
     p.add_argument("--mesh_axes", type=str, default="data,model",
                    help="comma-separated mesh axis names matching --mesh, "
-                        "from {data, seq, model, expert}: e.g. "
+                        "from {data, seq, model, expert, pipe}: e.g. "
                         "'data,seq,model' with --mesh 2x2x2, 'data,expert' "
-                        "with --mesh 2x4 ('pipe' is not ported yet)")
+                        "with --mesh 2x4")
     p.add_argument("--moe_experts", type=int, default=0,
                    help="replace the Transformer encoder's FFN with a "
                         "Switch mixture of this many expert FFNs "
@@ -285,10 +286,6 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-# flag -> what it asks for, when set to other than its default
-_UNPORTED: dict = {}
-
-
 def mesh_shape(args) -> tuple:
     return tuple(int(t) for t in args.mesh.split("x") if t) \
         if args.mesh else ()
@@ -298,17 +295,18 @@ def mesh_axes(args) -> tuple:
     return tuple(t.strip() for t in args.mesh_axes.split(",") if t.strip())
 
 
-def refuse_unported(args) -> None:
-    """Raises NotImplementedError, naming ROADMAP.md, for a flag whose path
-    the port does not have yet (a mesh axis of 'pipe')."""
-    from sie_tpu_torch.parallel.mesh import _NOT_PORTED
-    for flag, what in _UNPORTED.items():
-        if getattr(args, flag):
-            raise not_ported(what)
-    shape = mesh_shape(args)
-    for axis, size in zip(mesh_axes(args), shape):
-        if axis in _NOT_PORTED and size > 1:
-            raise not_ported(_NOT_PORTED[axis])
+def check_mesh_args(args) -> None:
+    """ValueError for a mesh axis name the mesh does not know, or fewer
+    names than `--mesh` has dimensions (parallel/mesh.py `Mesh` refuses
+    both), before any process or process group starts."""
+    from sie_tpu_torch.parallel.mesh import AXES
+    shape, axes = mesh_shape(args), mesh_axes(args)
+    if len(axes) < len(shape):
+        raise ValueError(f"--mesh {args.mesh} needs {len(shape)} axis names; "
+                         f"--mesh_axes gives {axes}")
+    for axis in axes[: len(shape)]:
+        if axis not in AXES:
+            raise ValueError(f"unknown mesh axis {axis!r}; one of {AXES}")
 
 
 def args_to_config(args, seed: int) -> Config:
@@ -423,7 +421,7 @@ def main(argv=None):
     from sie_tpu_torch.utils.profiling import debug_nans
     argv = list(sys.argv[1:] if argv is None else argv)
     args = get_args(argv)
-    refuse_unported(args)
+    check_mesh_args(args)
     n = int(np.prod(mesh_shape(args))) if args.mesh else 1
     if n > 1 and args.task_name in TASKS:
         # the JAX CLI builds the mesh (make_mesh raises on too few

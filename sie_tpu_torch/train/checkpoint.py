@@ -1,17 +1,20 @@
 """Best-model checkpoints and full-state snapshots (counterpart of
 sie_tpu/train/checkpoint.py), in flax's msgpack format
 (`compat/flax_msgpack.py`), so the two packages read each other's
-`checkpoint.msgpack`.
+`checkpoint.msgpack` and `train_state.msgpack`.
 
 - `checkpoint.msgpack` holds {"params": the flax parameter tree,
   "batch_stats": the BatchNorm running statistics under the flax names, {}
   for a model without BatchNorm} (`compat.from_jax.to_jax_variables` of
   the model), and `meta.json` the epoch and validation accuracy it was
   taken at;
-- `train_state.msgpack` is the port's own snapshot for resuming exactly:
-  step, params, batch_stats, the optimizer's state, the dropout
-  generator's state, the epoch and the early-stopping state
-  (`Trainer.state_tree`).
+- `train_state.msgpack` is the snapshot for resuming exactly, in the
+  JAX package's layout: step, params, batch_stats, `opt_state` (optax's
+  state tree for the config), the epoch and the early-stopping state
+  (`Trainer.state_tree`); the port adds its generators' states under
+  `rng` and `augment_rng`, which the JAX package's loader passes over,
+  and seeds them from the seed and the step where a file (the JAX
+  package's) holds none.
 
 Every write is atomic (a temporary file, then `os.replace`), so a crash
 mid-save never leaves a torn file. `save_checkpoint(..., background=True)`

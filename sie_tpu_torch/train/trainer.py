@@ -844,31 +844,39 @@ class Trainer(GraphSteps):
         return [n for n, p in self.model.named_parameters() if p.requires_grad]
 
     def state_tree(self) -> Dict[str, Any]:
-        """The trainer's whole state as a tree of host arrays: step,
-        params and batch_stats in the flax layout, the optimizer (count,
-        mini_step, Adam's moments and the accumulation mean under the
-        flax names), the dropout generator's state and, under augment, the
-        augmentation generator's."""
+        """The trainer's whole state as a tree of host arrays, in the JAX
+        package's `train_state.msgpack` layout: step, params and
+        batch_stats in the flax layout, `opt_state` as optax's state tree
+        for the config (`opt_state_tree`); besides, the dropout
+        generator's state (`rng`) and, under augment, the augmentation
+        generator's (`augment_rng`), keys that the JAX package's loader
+        passes over."""
         opt = self.optimizer.state()
         tree = lambda ts: to_jax_tree(self.model, dict(zip(self._named(),
                                                            ts)))
-        out = {"step": self.step, **to_jax_variables(self.model),
-               "opt_state": {"count": opt["count"],
-                             "mini_step": opt["mini_step"],
-                             "mu": tree(opt["mu"]), "nu": tree(opt["nu"]),
-                             "acc": tree(opt["acc"])},
+        acc = opt["acc"] if opt["mini_step"] else \
+            [torch.zeros_like(a) for a in opt["acc"]]
+        out = {"step": np.asarray(self.step, np.int32),
+               **to_jax_variables(self.model),
+               "opt_state": opt_state_tree(
+                   self.cfg, opt["count"], opt["mini_step"], tree(opt["mu"]),
+                   tree(opt["nu"]), tree(acc)),
                "rng": self.generator.get_state().numpy()}
         if self.augment_generator is not None:
             out["augment_rng"] = self.augment_generator.get_state().numpy()
         return out
 
     def load_state_tree(self, tree: Dict[str, Any]) -> None:
-        """The reverse of `state_tree`. Drops the captured graphs, which
-        read the optimizer state that this replaces."""
+        """The reverse of `state_tree`, from a snapshot that either package
+        wrote. Without a generator state (the JAX package writes none:
+        its step draws from the seed and the step), each generator is
+        seeded from its seed and the step (`seed_at_step`). Drops the
+        captured graphs, which read the optimizer state that this
+        replaces."""
         self._graphs.clear()
         self._warm.clear()
         load_jax_variables(self.model, tree)
-        opt = tree["opt_state"]
+        opt = read_opt_state(self.cfg, tree["opt_state"])
         per_param = {k: port_layout(self.model, opt[k])
                      for k in ("mu", "nu", "acc")}
         names = self._named()
@@ -877,6 +885,76 @@ class Trainer(GraphSteps):
             *([per_param[k][n] for n in names] for k in ("mu", "nu", "acc")))
         self.step = int(tree["step"])
         as_state = lambda a: torch.from_numpy(np.asarray(a, np.uint8).copy())
-        self.generator.set_state(as_state(tree["rng"]))
-        if self.augment_generator is not None and "augment_rng" in tree:
-            self.augment_generator.set_state(as_state(tree["augment_rng"]))
+        for g, key, seed in (
+                (self.generator, "rng", self.cfg.seed + 17),
+                (self.augment_generator, "augment_rng",
+                 self.cfg.seed + 17 + self.AUGMENT_OFFSET)):
+            if g is None:
+                continue
+            if key in tree:
+                g.set_state(as_state(tree[key]))
+            else:
+                g.manual_seed(seed_at_step(seed, self.step))
+
+
+def seed_at_step(seed: int, step: int) -> int:
+    """The seed a generator restarts from at `step` when a snapshot holds
+    no state of it: `seed` itself at step 0 (a fresh trainer's)."""
+    return (seed + (step << 32)) % (1 << 64)
+
+
+def _int32(v) -> np.ndarray:
+    return np.asarray(int(v), np.int32)
+
+
+def opt_state_tree(cfg: Config, count: int, mini_step: int, mu, nu,
+                   acc) -> Dict[str, Any]:
+    """optax's state of `make_optimizer`'s chain in flax's state-dict
+    layout (a chain's states under "0", "1", ...; a NamedTuple's by field):
+    `chain(clip_by_global_norm?, adam(lr))`, adam itself the chain of
+    `scale_by_adam` {count, mu, nu} and the learning rate's state ({count}
+    under a schedule, {} at a constant rate), wrapped under gradient
+    accumulation in `MultiSteps` {mini_step, gradient_step,
+    inner_opt_state, acc_grads, skip_state}, where the inner Adam counts
+    groups. mu, nu and acc are flax-layout trees."""
+    scheduled = cfg.lr_decay or cfg.lr_warmup_epochs > 0
+    adam = {"0": {"count": _int32(count), "mu": mu, "nu": nu},
+            "1": {"count": _int32(count)} if scheduled else {}}
+    chain = ([{}] if cfg.gradient_clip > 0 else []) + [adam]
+    inner = {str(i): st for i, st in enumerate(chain)}
+    if max(cfg.gradient_accumulation_steps, 1) == 1:
+        return inner
+    return {"mini_step": _int32(mini_step), "gradient_step": _int32(count),
+            "inner_opt_state": inner, "acc_grads": acc, "skip_state": {}}
+
+
+def read_opt_state(cfg: Config, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The reverse of `opt_state_tree`: {count, mini_step, mu, nu, acc},
+    acc zeros without accumulation. ValueError when the tree is not the
+    layout of this config's optimizer."""
+    want = opt_state_tree(cfg, 0, 0, None, None, None)
+
+    def shape(t):
+        return {k: shape(v) if isinstance(v, dict) and k not in (
+            "mu", "nu", "acc_grads") else None for k, v in t.items()}
+
+    if not isinstance(tree, dict) or shape(tree) != shape(want):
+        raise ValueError(
+            "the snapshot's opt_state is not the optax state of this "
+            "config's optimizer (gradient_clip, lr schedule, "
+            "gradient_accumulation_steps); snapshots of port versions "
+            "before the JAX layout do not load")
+    accum = max(cfg.gradient_accumulation_steps, 1) > 1
+    inner = tree["inner_opt_state"] if accum else tree
+    adam = inner[str(len(inner) - 1)]["0"]
+    return {"count": int(adam["count"]),
+            "mini_step": int(tree["mini_step"]) if accum else 0,
+            "mu": adam["mu"], "nu": adam["nu"],
+            "acc": tree["acc_grads"] if accum else
+            _tree_zeros(adam["mu"])}
+
+
+def _tree_zeros(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_zeros(v) for k, v in tree.items()}
+    return np.zeros(np.shape(tree), np.float32)

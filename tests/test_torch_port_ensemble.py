@@ -51,7 +51,7 @@ from sie_tpu_torch.config import Config
 from sie_tpu_torch.data.synthetic import write_synthetic_uea
 from sie_tpu_torch.models.registry import build_model
 from sie_tpu_torch.train.ensemble import EnsembleTrainer, stack_seed_batches
-from sie_tpu_torch.train.trainer import Trainer
+from sie_tpu_torch.train.trainer import Trainer, read_opt_state
 
 SEEDS = (0, 42, 7)
 TOL = 1e-5
@@ -242,7 +242,8 @@ def test_alive_freezes_a_stopped_seed_as_jax_does(opt):
         np.asarray(states.step).tolist() == [N_STEPS] * len(SEEDS)
     # the frozen seed against JAX's frozen one, the live ones as they move
     _assert_params_close(pe, states, N_STEPS, kw["lr"])
-    tree = pe.trainers[1].state_tree()["opt_state"]
+    tree = read_opt_state(pe.trainers[1].cfg,
+                          pe.trainers[1].state_tree()["opt_state"])
     want_mu = jax.tree.map(lambda a: np.asarray(a)[1], jopt["mu"])
     for a, b in zip(jax.tree.leaves(tree["mu"]), jax.tree.leaves(want_mu)):
         assert np.abs(a - b).max() <= 2 * N_STEPS * kw["lr"]

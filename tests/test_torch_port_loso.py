@@ -96,9 +96,9 @@ def test_cli_loso_prints_the_fold_mean(tmp_path, capsys, monkeypatch):
     assert f"LOSO (2 folds): accuracy {mean:.2f}" in out
     assert "(random baseline 33.33)" in out
     # under the launch variables the folds split across processes
-    # (tests/test_torch_port_mesh_cli.py runs them); a mesh axis the port
-    # lacks is refused before any process group starts
+    # (tests/test_torch_port_mesh_cli.py runs them); a mesh axis no mesh
+    # knows is refused before any process group starts
     monkeypatch.setenv("SIE_TPU_COORDINATOR", "localhost:1234")
     monkeypatch.setenv("SIE_TPU_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_run.main(argv + ["--mesh", "2", "--mesh_axes", "pipe"])
+    with pytest.raises(ValueError, match="unknown mesh axis"):
+        port_run.main(argv + ["--mesh", "2", "--mesh_axes", "stage"])

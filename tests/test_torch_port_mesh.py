@@ -9,10 +9,11 @@ package's, in one process on the CPU:
   LTS, EEGCNN and a MoE encoder, under ('data', 'model'), ('data',
   'expert', 'model'), ('data', 'expert') and ('expert', 'model');
 - `host_fold_slice` over the JAX package's cases;
-- `init_distributed` without the launch variables is a no-op; the 'pipe'
-  axis raises NotImplementedError naming ROADMAP.md, in `Mesh` and on the
-  command line; 'seq' and 'expert' meshes build, pass the command line
-  and serve one step equal to the predictor without a mesh; a batch that
+- `init_distributed` without the launch variables is a no-op; every
+  axis of the JAX CLI ('pipe' too) builds a `Mesh` and passes the
+  command line, where an unknown axis name, or fewer names than the mesh
+  has dimensions, raises ValueError; 'seq', 'expert' and 'pipe' meshes
+  serve one step equal to the predictor without a mesh; a batch that
   does not split over 'data', or a time axis over 'seq', raises;
 - `Predictor(mesh=...)` over two "cpu" devices gives the predictor's
   outputs without a mesh bit for bit at 1, 5, 64 and 70 rows (a chunk of
@@ -124,23 +125,32 @@ def test_init_distributed_is_a_noop_without_the_launch(monkeypatch):
 
 @pytest.mark.parametrize("axis", ["pipe"])
 def test_unported_axes_raise(axis, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_mesh.Mesh((2, 2), ("data", axis), devices=["cpu"] * 4)
-    args = port_run.get_args(["--mesh", "2x2", "--mesh_axes",
-                              f"data,{axis}"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_run.refuse_unported(args)
+    """No axis is left unported: 'pipe' builds and passes the command
+    line (the JAX CLI takes it, `run.py:165-171`); what still raises is
+    an axis name no mesh knows, or too few names."""
+    mesh = port_mesh.Mesh((2, 2), ("data", axis), devices=["cpu"] * 4)
+    assert (mesh.size(axis), mesh.size("data")) == (2, 2)
+    port_run.check_mesh_args(port_run.get_args(
+        ["--mesh", "2x2", "--mesh_axes", f"data,{axis}"]))
+    with pytest.raises(ValueError, match="unknown mesh axis"):
+        port_mesh.Mesh((2, 2), ("data", "stage"), devices=["cpu"] * 4)
+    with pytest.raises(ValueError, match="unknown mesh axis"):
+        port_run.check_mesh_args(port_run.get_args(
+            ["--mesh", "2x2", "--mesh_axes", "data,stage"]))
+    with pytest.raises(ValueError, match="axis names"):
+        port_run.check_mesh_args(port_run.get_args(
+            ["--mesh", "2x2", "--mesh_axes", axis]))
     # an axis of one member is no parallelism: accepted
     port_mesh.Mesh((2, 1), ("data", axis), devices=["cpu"] * 2)
 
 
-@pytest.mark.parametrize("axis", ["seq", "expert"])
+@pytest.mark.parametrize("axis", ["seq", "expert", "pipe"])
 def test_seq_and_expert_meshes_build_and_serve_a_step(axis):
     mesh = port_mesh.Mesh((2, 2), ("data", axis), devices=["cpu"] * 4)
     assert mesh.size(axis) == 2
     args = port_run.get_args(["--mesh", "2x2", "--mesh_axes",
                               f"data,{axis}"])
-    port_run.refuse_unported(args)
+    port_run.check_mesh_args(args)
     cfg = Config(**TINY, model="InterpGN", dnn_type="Transformer",
                  moe_experts=4 if axis == "expert" else 0)
     model = build_model(cfg, "cpu", torch.Generator().manual_seed(5))

@@ -12,6 +12,11 @@ which all fall on the second 'data' rank:
   global batches (the SBM's banks, the attention's heads and the FFN
   split);
 - 2 x 2 'data' x 'model' over 4 processes: InterpGN + Transformer.
+- 'pipe' over 2 processes: InterpGN + Transformer through `train_step`
+  on global batches. As in the JAX Trainer the axis shards nothing, so
+  each rank trains the whole batch as one process does: losses and
+  parameters equal a worker's run without a mesh bit for bit (the same
+  process settings, so the same summation order).
 
 Limits (f32 summation order; ROADMAP.md §3 lists the gaps seen):
 - losses rtol 1e-5, atol 1e-6 at every step, against the JAX trainer and
@@ -54,6 +59,7 @@ SCENARIOS = {
     "model_fcn": ("fcn", 2, (2,), ("model",), "step"),
     "grid_transformer": ("transformer", 4, (2, 2), ("data", "model"),
                          "step"),
+    "pipe_transformer": ("transformer", 2, (2,), ("pipe",), "step"),
 }
 
 
@@ -83,6 +89,8 @@ def runs(references, tmp_path_factory):
         by_n[2].append(dict(R.scenario(f"first_{model}", ref, (2,),
                                        ("data",), "staged", tmp),
                             data=str(one)))
+    by_n[2].append(R.scenario("alone_transformer", references["transformer"],
+                              (), (), "step", tmp))
     for n, spec in by_n.items():
         R.launch(spec, n, tmp, f"procs{n}")
     return {sc["name"]: dict(np.load(tmp / f"{sc['name']}.npz"))
@@ -153,3 +161,11 @@ def test_gathered_checkpoint_gives_the_logits_in_jax(name, runs, references):
 def test_first_step_gradients_equal_jax_grad(name, runs, references):
     R.assert_grads_equal_jax(runs[name],
                              references[SCENARIOS[name][0]].grads[0])
+
+
+def test_pipe_trains_as_one_process_bit_for_bit(runs):
+    got, want = runs["pipe_transformer"], runs["alone_transformer"]
+    assert set(got) == set(want)
+    for key in ("losses", "logits") + tuple(
+            k for k in want if k.startswith(("params/", "grads/"))):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)

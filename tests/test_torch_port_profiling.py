@@ -201,9 +201,15 @@ def test_profile_dir_writes_a_trace_of_training(tmp_path, capsys):
 
 
 def test_flags_are_no_longer_refused():
-    args = port_run.get_args(["--profile_dir", "p", "--debug_nans"])
-    port_run.refuse_unported(args)
-    assert set(port_run._UNPORTED) == set()   # --mesh is ported too
+    """No flag of run.py is refused any more (the last one, a 'pipe'
+    mesh axis, is ported too): the flags reach the config."""
+    args = port_run.get_args(["--profile_dir", "p", "--debug_nans",
+                              "--mesh", "2", "--mesh_axes", "pipe"])
+    port_run.check_mesh_args(args)
+    assert not hasattr(port_run, "refuse_unported")
+    cfg = port_run.args_to_config(args, 0)
+    assert (cfg.mesh_shape, cfg.mesh_axes) == ((2,), ("pipe",))
+    assert (args.profile_dir, args.debug_nans) == ("p", True)
 
 
 

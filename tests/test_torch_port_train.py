@@ -325,7 +325,8 @@ def test_default_device_needs_a_card(monkeypatch):
 
 def test_unported_training_paths_raise():
     from sie_tpu_torch.parallel.mesh import Mesh
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # 'pipe' is ported: like any axis it trains over a process mesh
+    with pytest.raises(ValueError, match="process mesh"):
         Trainer(Config(**KW), 1, device="cpu",
                 mesh=Mesh((2,), ("pipe",), devices=["cpu", "cpu"]))
     with pytest.raises(ValueError, match="process mesh"):

@@ -124,26 +124,35 @@ def scenario(name, ref, shape, axes, path, out):
 def launch(spec, n, tmp_path, tag):
     """Runs n worker processes on `spec` -> nothing; fails with the logs of
     a worker that failed."""
-    path = tmp_path / f"{tag}.json"
-    path.write_text(json.dumps(spec))
-    env = {**os.environ, "SIE_TPU_COORDINATOR": f"localhost:{free_port()}",
-           "SIE_TPU_NUM_PROCESSES": str(n), "SIE_TPU_BACKEND": "gloo",
-           "OMP_NUM_THREADS": "1"}
-    logs = [open(tmp_path / f"{tag}_{i}.log", "wb") for i in range(n)]
-    procs = [subprocess.Popen([sys.executable, WORKER, str(path)],
-                              env={**env, "SIE_TPU_PROCESS_ID": str(i)},
-                              stdout=logs[i], stderr=subprocess.STDOUT)
-             for i in range(n)]
+    launch_together([(spec, n, tag)], tmp_path)
+
+
+def launch_together(runs, tmp_path):
+    """`launch` of several (spec, n, tag) process groups at once, each with
+    a coordinator of its own."""
+    started = []
     try:
-        for p in procs:
+        for spec, n, tag in runs:
+            path = tmp_path / f"{tag}.json"
+            path.write_text(json.dumps(spec))
+            env = {**os.environ,
+                   "SIE_TPU_COORDINATOR": f"localhost:{free_port()}",
+                   "SIE_TPU_NUM_PROCESSES": str(n),
+                   "SIE_TPU_BACKEND": "gloo", "OMP_NUM_THREADS": "1"}
+            for i in range(n):
+                log = open(tmp_path / f"{tag}_{i}.log", "wb")
+                started.append((tag, i, log, subprocess.Popen(
+                    [sys.executable, WORKER, str(path)],
+                    env={**env, "SIE_TPU_PROCESS_ID": str(i)},
+                    stdout=log, stderr=subprocess.STDOUT)))
+        for *_, p in started:
             p.wait(timeout=300)
     finally:
-        for p in procs:
+        for *_, log, p in started:
             if p.poll() is None:
                 p.kill()
-        for lg in logs:
-            lg.close()
-    for i, p in enumerate(procs):
+            log.close()
+    for tag, i, _, p in started:
         log = (tmp_path / f"{tag}_{i}.log").read_text()
         assert p.returncode == 0, log[-4000:]
 

@@ -3,7 +3,8 @@
     SIE_TPU_COORDINATOR=localhost:PORT SIE_TPU_NUM_PROCESSES=N \
     SIE_TPU_PROCESS_ID=i python tests/torch_port_mesh_worker.py SPEC.json
 
-SPEC.json lists scenarios, each a config, a mesh (shape, axes), the flax
+SPEC.json lists scenarios, each a config, a mesh (shape, axes; an
+empty shape trains without a mesh, in each process alone), the flax
 variables to start from and the rows and schedule (npz files). For each,
 every process builds the model from the variables, trains it under
 `Trainer(mesh=...)` on the CPU (gloo) through the staged path or
@@ -26,7 +27,15 @@ that every process shares, over gloo). A scenario of kind "moe" applies
 one MoE layer (`moe` holds its constructor's arguments) in eval mode to
 this rank's rows and time block of `x` under the mesh; every process
 writes `<out>/<name>_<rank>.npz`: its output block and its 'data' and
-'seq' indices. Imports nothing of JAX.
+'seq' indices. A scenario of kind "pipeline" runs this rank's stage of
+an encoder (`cfg`, the flax `Encoder` params in `variables`) through
+`parallel.pipeline.pipelined_encoder_apply` on `x` (with `grads`, the
+backward of sum(sin(out)) too; with `repeat`, x's first microbatch in
+every microbatch's place); every process writes `<out>/<name>_<rank>.npz`:
+its output rows, aux, its stage's gradients in the flax layout
+("grads/..."), the input's gradient, its 'data' and 'pipe' indices, and
+on rank 0 the stages gathered back ("gathered/..."). Imports nothing of
+JAX.
 """
 
 import json
@@ -104,15 +113,60 @@ def run_moe(sc: dict, rank: int) -> None:
              y=y.numpy(), data=mesh.index("data"), seq=mesh.index("seq"))
 
 
+def run_pipeline(sc: dict, rank: int) -> None:
+    from sie_tpu_torch.compat.from_jax import (gather_stage_params,
+                                               load_jax_stage, to_jax_params)
+    from sie_tpu_torch.parallel.pipeline import (encoder_stage,
+                                                 pipelined_encoder_apply)
+    cfg = Config(**sc["cfg"])
+    mesh = Mesh(sc["mesh_shape"], sc["mesh_axes"])
+    s, n = mesh.index("pipe"), mesh.size("pipe")
+    stage = load_jax_stage(encoder_stage(cfg, n), nested(np.load(
+        sc["variables"])), s, n)
+    x = np.load(sc["data"])["x"]
+    m = sc["n_micro"]
+    if sc.get("repeat"):
+        x = np.concatenate([x[: len(x) // m]] * m)
+    xt = torch.from_numpy(x).requires_grad_(bool(sc.get("grads")))
+    out = pipelined_encoder_apply(
+        cfg, stage, xt, mesh, n_microbatches=m,
+        data_axis=sc.get("data_axis"), train=sc.get("train", False),
+        generator=torch.Generator().manual_seed(11),
+        return_aux=sc.get("return_aux", False))
+    out, aux = out if isinstance(out, tuple) else (out, torch.zeros(()))
+    extra = {}
+    if sc.get("grads"):
+        torch.sin(out).sum().backward()
+        per = len(stage.layers)
+        tree = to_jax_params(stage)
+        grads = {k if k == "norm" else f"layer_{s * per + int(k[6:])}": v
+                 for k, v in to_jax_tree(stage, {
+                     name: p.grad for name, p in stage.named_parameters()
+                 }).items()}
+        assert set(grads) == {k if k == "norm" else
+                              f"layer_{s * per + int(k[6:])}" for k in tree}
+        extra.update(flat(grads, "grads/"), xgrad=xt.grad.numpy())
+    gathered = gather_stage_params(stage, mesh)
+    if rank == 0:
+        extra.update(flat(gathered, "gathered/"))
+    np.savez(os.path.join(sc["out"], f"{sc['name']}_{rank}.npz"),
+             out=out.detach().numpy(), aux=aux.detach().numpy(),
+             data=mesh.index("data"), pipe=s, **extra)
+
+
 def run(sc: dict, rank: int) -> None:
     if sc.get("kind") == "moe":
         return run_moe(sc, rank)
+    if sc.get("kind") == "pipeline":
+        return run_pipeline(sc, rank)
     cfg = Config(**sc["cfg"])
     data = np.load(sc["data"])
     variables = nested(np.load(sc["variables"]))
     device = sc.get("device", "cpu")
     model = load_jax_variables(build_model(cfg, "cpu"), variables)
-    mesh = Mesh(sc["mesh_shape"], sc["mesh_axes"])
+    # an empty mesh shape: this process alone, without a mesh
+    mesh = Mesh(sc["mesh_shape"], sc["mesh_axes"]) if sc["mesh_shape"] \
+        else None
     idx, w, beta = data["idx"], data["w"], float(sc["beta"])
     tr = Trainer(cfg, len(idx), model=model, device=device, mesh=mesh)
     grads = {}
