@@ -7,8 +7,8 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
   2. build: nvcc builds every kernel source of the package, in parallel;
      ptxas's registers and spills of each instantiation beside its SASS
      counts of HGMMA (wgmma) and HMMA (mma.sync) instructions
-     (`cuobjdump -sass`); fails unless each of the 32 bf16 attention
-     instantiations has HGMMA and no HMMA; the FP32, ALU and LDS
+     (`cuobjdump -sass`); fails unless each of the 44 bf16 attention
+     instantiations (K5/K6 and K9/K10) has HGMMA and no HMMA; the FP32, ALU and LDS
      instructions of the inner loop of each shapelet kernel's flagship
      instantiation (K1/K3 10, K2/K4 5 shapelet rows a block);
   3. K1 (shapelet distance) against its plain version at the flagship
@@ -330,7 +330,24 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      dropout 0.1 takes 2 steps, writes `train_state.msgpack` in the JAX
      package's layout, a new trainer loads it and takes 2 more, bit-equal
      to 4 uninterrupted steps;
- 42. one JSON line of per-kernel numbers (K1 ... K8b; launches from the
+ 42. `use_flash_attention` (each part a check of its own): (k) K9, K10b
+     and K10a (the stock flash kernels' counterparts, ops/flash.py)
+     against their plain versions at the flagship's attention (BH 512, T
+     845, dk 64), dk 128 (BH 256) and 256 (BH 128), PatchTST's chunk (BH
+     15616, T 105) and the EigenWorms shape (BH 64, T 17984; the first 2
+     heads against the chunked plain versions): outputs, gradients, the
+     row log-sum-exp and di, the backward bit for bit twice; each
+     kernel's ms beside its bound, the plain versions' and SDPA's with
+     the flash backend forced; (a) the flagship with the flag (dropout 0,
+     amp, B 64): eager steps against graph replays bit for bit, K1 6, K2
+     6, K9 2, K10a 2, K10b 2 a step and no K5 or K6, the first loss and
+     gradients against the CPU plain path, replay ms beside the same
+     model without the flag; (b) the flag at dropout 0.1: a training step
+     takes K5 2, K6 2, its Predictor K9 2 (no K5) a request of 64 rows;
+     (c) the EigenWorms-shaped InterpGN in amp with the flag at the
+     default fused_attention_max_len 4096: 3 steps, K9 2, K10a 2, K10b 2
+     each, finite losses, moved weights, peak memory;
+ 43. one JSON line of per-kernel numbers (K1 ... K10b; launches from the
      timed training steps of each kernel's path, plus, split in
      `launches_by_path`, phases 16, 17 and 19's UEA run for K1 and K2, the
      serving paths for K1, K3 and K5: phase 5, phase 11's requests, phase
@@ -343,11 +360,13 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      steps (rank 0) and (e) for K1, K2, K5 and K6 as `mesh`, phase 40's
      (a) and (e) as `seq` and (b) and (e) as `expert`, phase 41's (a),
      (c) (rank 0) for K5 and K6 and (b) (rank 0) and (d) for K1, K2, K5
-     and K6 as `pipe`), then the device line.
+     and K6 as `pipe`; K9, K10a and K10b from phase 42 (a) as `train`, (b)'s
+     request for K9 as `flash_serve`, (c) as `flash_long`), then the
+     device line.
 
 After each phase a `[time]` line gives its seconds and the seconds since
 the start. The K5 and K6 phases (4, 6, 8, 12), the serving phases (20-22)
-and phases 23-41 run under a time limit that ends the process (and the
+and phases 23-42 run under a time limit that ends the process (and the
 servers it started), so that a kernel that hangs fails the run instead of
 holding the card. Times
 are CUDA-event times after warm-up (kernels) or host-clock times of work
@@ -615,8 +634,9 @@ def phase_build() -> None:
                 print(f"[build] {src}: {name}: inner loop FP32 {fp32}, ALU "
                       f"{alu}, LDS {lds}, all {total} instructions")
     wg = {k: v for k, v in sass.items() if k.startswith(WGMMA_KERNELS)}
-    # 2 widths x 2 loaders (TMA, cp.async) x (4 forward, 2 + 2 backward)
-    if len(wg) != 32:
+    # K5/K6: 2 widths x 2 loaders (TMA, cp.async) x (4 forward, 2 + 2
+    # backward); K9/K10: 3 widths x TMA x (2 forward, 1 + 1 backward)
+    if len(wg) != 44:
         fail(f"bf16 attention instantiations in the SASS: {sorted(wg)}")
     off = {k: v for k, v in wg.items() if v[0] == 0 or v[1] != 0}
     if off:
@@ -752,19 +772,27 @@ def flagship_config():
                   seed=0)
 
 
+KERNEL_IDS = ("K1", "K2", "K3", "K4", "K5", "K6", "K9", "K10a", "K10b")
+
+
 class Counts:
     """The kernels' launch counters: zeroed, read, and checked. K7 is K5's
     wrapper and K8a/K8b are K6's: they count under K5 and K6."""
 
     def __init__(self):
         from sie_tpu_torch.ops.attention import attention_bwd, fused_attention
+        from sie_tpu_torch.ops.flash import (flash_attention,
+                                             flash_attention_bwd_dkv,
+                                             flash_attention_bwd_dq)
         from sie_tpu_torch.ops.shapelet_l1 import (
             l1_sliding_distance, l1_sliding_distance_bwd,
             l1_sliding_distance_grouped, l1_sliding_distance_grouped_bwd)
         self.fns = {"K1": l1_sliding_distance, "K2": l1_sliding_distance_bwd,
                     "K3": l1_sliding_distance_grouped,
                     "K4": l1_sliding_distance_grouped_bwd,
-                    "K5": fused_attention, "K6": attention_bwd}
+                    "K5": fused_attention, "K6": attention_bwd,
+                    "K9": flash_attention, "K10a": flash_attention_bwd_dq,
+                    "K10b": flash_attention_bwd_dkv}
 
     def zero(self) -> None:
         for fn in self.fns.values():
@@ -779,8 +807,7 @@ class Counts:
     @staticmethod
     def full(want: dict, times: int = 1) -> dict:
         """`want` scaled by `times`, with 0 for every kernel it omits."""
-        return {k: want.get(k, 0) * times
-                for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+        return {k: want.get(k, 0) * times for k in KERNEL_IDS}
 
 
 SERVE_SIZES = (1, 5, 64, 150)
@@ -2514,7 +2541,7 @@ EXPORT_CHILD = r"""
 import json, sys, time
 import numpy as np
 import sie_tpu_torch.ops
-from sie_tpu_torch.ops import attention as A, shapelet_l1 as S
+from sie_tpu_torch.ops import attention as A, flash as Fl, shapelet_l1 as S
 from sie_tpu_torch.serve import CompiledPredictor
 aot, inputs, outputs = sys.argv[1:4]
 t0 = time.perf_counter()
@@ -2525,7 +2552,8 @@ with np.load(inputs) as z:
 fns = {"K1": S.l1_sliding_distance, "K2": S.l1_sliding_distance_bwd,
        "K3": S.l1_sliding_distance_grouped,
        "K4": S.l1_sliding_distance_grouped_bwd, "K5": A.fused_attention,
-       "K6": A.attention_bwd}
+       "K6": A.attention_bwd, "K9": Fl.flash_attention,
+       "K10a": Fl.flash_attention_bwd_dq, "K10b": Fl.flash_attention_bwd_dkv}
 read = lambda: {k: f.launches for k, f in fns.items()}
 for b, x in xs.items():
     cp.predict(x[: min(b, 64)])                      # warm-up
@@ -5654,6 +5682,251 @@ def phase_pipe(tmp: str, smi: str) -> dict:
     return total
 
 
+# ---- phase 42: use_flash_attention (K9, K10b, K10a) --------------------------
+# (shape, BH, T, dk) of the kernel checks (k): the flagship's attention, the
+# wider heads of the gate, PatchTST's encoder chunk and the EigenWorms shape
+FLASH_SHAPES = (("flagship", 512, 845, 64), ("dk 128", 256, 845, 128),
+                ("dk 256", 128, 845, 256), ("PatchTST chunk", 15616, 105, 64),
+                ("EigenWorms", LONG_BH, LONG_T, LONG_DK))
+FLASH_TOL = 2e-2   # x max|want|, as K6's bf16 limit: outputs rounded to
+# bf16, the online softmax's rounding of unnormalised probabilities, di
+# from the bf16 output
+FLASH_WANT = {"K1": 6, "K2": 6, "K9": 2, "K10a": 2, "K10b": 2}   # (a)
+FLASH_STEPS = 5    # (a): eager steps, each followed by the graph step
+FLASH_LONG_STEPS = 3   # (c): steps of the EigenWorms-shaped model
+STOCK = "jax/experimental/pallas/ops/tpu/flash_attention.py"   # the TPU
+# kernels, reached from sie_tpu/models/layers.py:119 (`_flash`)
+
+
+def sdpa_flash_ms(q, k, v, do, scale: float, reps: int) -> tuple:
+    """(forward ms, backward ms) of F.scaled_dot_product_attention with the
+    flash backend forced on the same bf16 inputs, or (None, None) where
+    that backend refuses the shape."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    bh, t, dk = q.shape
+    q4, k4, v4 = (z.view(1, bh, t, dk).detach().requires_grad_()
+                  for z in (q, k, v))
+    try:
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            fwd = events_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, scale=scale), reps=reps)
+            out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+            bwd = events_ms(lambda: torch.autograd.grad(
+                out4, (q4, k4, v4), do.view(1, bh, t, dk),
+                retain_graph=True), reps=reps)
+    except RuntimeError as exc:
+        print(f"[flash] SDPA's flash backend refuses BH {bh} T {t} dk {dk}: "
+              f"{str(exc).splitlines()[0]}")
+        return None, None
+    return fwd, bwd
+
+
+def flash_kernel_rows() -> tuple:
+    """(k) K9, K10b and K10a against their plain versions at FLASH_SHAPES
+    (the first LONG_HEADS heads at T 17984, the chunked plain versions):
+    outputs, gradients, the row log-sum-exp and di; the backward run twice
+    bit for bit; CUDA-event ms of each kernel beside its bound, the plain
+    versions' and SDPA's (flash backend). Returns the three rows of the
+    kernels line, timed at the flagship's shape."""
+    from sie_tpu_torch.ops.flash import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_bwd_plain, flash_attention_plain, flash_delta_plain,
+        flash_fwd, flash_lse_plain)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    err = [0.0, 0.0, 0.0]   # max abs: K9's output, K10a's dQ, K10b's dK/dV
+    rows = None
+    for tag, bh, t, dk in FLASH_SHAPES:
+        q, k, v, do = (torch.randn((bh, t, dk), generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        scale, hd = 1.0 / dk ** 0.5, (LONG_HEADS if t > 4096 else bh)
+        o, lse = flash_fwd(q, k, v, scale, want_lse=True)
+        bwd_dkv = lambda: flash_attention_bwd_dkv(q, k, v, o, do, lse, scale)
+        dkk, dv, delta = bwd_dkv()
+        bwd_dq = lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                scale)
+        dq = bwd_dq()
+        if not (all(torch.equal(a, b) for a, b in zip((dkk, dv, delta),
+                                                      bwd_dkv()))
+                and torch.equal(dq, bwd_dq())):
+            fail(f"K10 {tag}: two runs differ")
+        sub = lambda z: z[:hd]
+        want_o = flash_attention_plain(q[:hd], k[:hd], v[:hd], scale)
+        want_d = flash_delta_plain(sub(o), sub(do))
+        wants = flash_attention_bwd_plain(q[:hd], k[:hd], v[:hd], do[:hd],
+                                          want_d, scale)
+        errs = {}
+        for name, got, want in (("out", o, want_o), ("dq", dq, wants[0]),
+                                ("dk", dkk, wants[1]), ("dv", dv, wants[2])):
+            scl = float(want.float().abs().max())
+            e = float((sub(got).float() - want.float()).abs().max())
+            errs[name] = e
+            if not e <= FLASH_TOL * scl:
+                fail(f"flash {tag} {name}: max abs err {e} > {FLASH_TOL} x "
+                     f"{scl}")
+        e_lse = float((sub(lse) - flash_lse_plain(q[:hd], k[:hd], scale))
+                      .abs().max())
+        e_d = float((sub(delta) - want_d).abs().max())
+        if not e_lse <= 1e-3 or not e_d <= 1e-3 * float(want_d.abs().max()):
+            fail(f"flash {tag}: log-sum-exp err {e_lse}, di err {e_d}")
+        del want_o, wants, want_d
+        err = [max(err[0], errs["out"]), max(err[1], errs["dq"]),
+               max(err[2], errs["dk"], errs["dv"])]
+        long = t > 4096
+        reps = 3 if long else 10
+        ms9 = events_ms(lambda: flash_fwd(q, k, v, scale, want_lse=True),
+                        reps=reps)
+        ms10b = events_ms(bwd_dkv, reps=reps)
+        ms10a = events_ms(bwd_dq, reps=reps)
+        plain9 = events_ms(lambda: flash_attention_plain(q, k, v, scale),
+                           reps=1, warmup=0)
+        plain10 = events_ms(lambda: flash_attention_bwd_plain(
+            q, k, v, do, delta, scale), reps=1, warmup=0)
+        lib9, lib10 = sdpa_flash_ms(q, k, v, do, scale, reps)
+        # bytes: each input read once, each output written once; (BH, T)
+        # f32 rows: lse, di
+        io, r4, fl = bh * t * dk * 2, 4 * bh * t, bh * t * t * dk
+        b9 = bound_ms(4 * io + r4, 4 * fl, PEAK_BF16)
+        b10b = bound_ms(7 * io + 2 * r4, 8 * fl, PEAK_BF16)
+        b10a = bound_ms(5 * io + 2 * r4, 6 * fl, PEAK_BF16)
+        print(f"[flash] {tag} (BH={bh} T={t} dk={dk}): K9 {ms9:.4f} ms "
+              f"(bound {b9[0]:.4f}, {b9[1]}; plain {plain9:.3f}; SDPA flash "
+              f"{lib9}), K10b {ms10b:.4f} ms (bound {b10b[0]:.4f}, "
+              f"{b10b[1]}), K10a {ms10a:.4f} ms (bound {b10a[0]:.4f}, "
+              f"{b10a[1]}); plain backward {plain10:.3f} ms, SDPA flash "
+              f"backward {lib10} ms; max abs err out/dq/dk/dv "
+              + "/".join(f"{errs[n]:.3e}" for n in ("out", "dq", "dk", "dv"))
+              + f" (first {hd} rows of BH), lse {e_lse:.2e}, di {e_d:.2e}")
+        if rows is None:   # the flagship's shape
+            rows = [
+                {"name": "K9 flash_fwd", "source":
+                 "sie_tpu_torch/csrc/attention_fwd.cu", "replaces":
+                 f"{STOCK}:758", "ms": ms9, "plain_ms": plain9,
+                 "bound_ms": b9[0], "bound_by": b9[1], "library_ms": lib9},
+                {"name": "K10a flash_bwd_dq", "source":
+                 "sie_tpu_torch/csrc/attention_bwd.cu", "replaces":
+                 f"{STOCK}:1456", "ms": ms10a, "plain_ms": plain10,
+                 "bound_ms": b10a[0], "bound_by": b10a[1],
+                 "library_ms": lib10},
+                {"name": "K10b flash_bwd_dkv", "source":
+                 "sie_tpu_torch/csrc/attention_bwd.cu", "replaces":
+                 f"{STOCK}:1121", "ms": ms10b, "plain_ms": plain10,
+                 "bound_ms": b10b[0], "bound_by": b10b[1],
+                 "library_ms": lib10}]
+        del q, k, v, do, o, lse, dkk, dv, delta, dq
+    for row, e in zip(rows, err):
+        row.update(route="cuda", max_abs_err=e)
+    return tuple(rows)
+
+
+def flash_flagship(smi: str) -> dict:
+    """(a) The flagship with `use_flash_attention` (bench_kernel.py's
+    dnn_flash: dropout 0, amp, B 64): eager steps against the captured
+    staged steps, bit for bit, K1 6, K2 6, K9 2, K10a 2, K10b 2 a step and
+    no K5 or K6 (counts zeroed just before, read just after); the first
+    loss and the gradients against the CPU plain path; replays' median
+    and idle share beside the same model without the flag (K5, K6)."""
+    cfg = train_config(use_flash_attention=True)
+    ds = random_rows(cfg, 4 * cfg.batch_size)
+    sched = schedule(cfg, len(ds.y), 4)
+    counts = Counts()
+    counts.zero()   # the path's main run
+    graph_against_eager(cfg, ds, sched, FLASH_STEPS, FLASH_WANT, "flash",
+                        True, stats=False)
+    launches = counts.read()
+    print(f"[flash] (a) launches over the run {launches}")
+    against_cpu(cfg, ds, "flash", grads=True)
+    on_ms, on_idle = replay_ms(cfg, ds, sched, "flash")
+    off_ms, off_idle = replay_ms(train_config(), ds, sched, "flash/off")
+    print(f"[flash] (a) replayed step with the flag (K9, K10) {on_ms:.3f} ms "
+          f"(idle {on_idle:.3f}) against without it (K5, K6) {off_ms:.3f} ms "
+          f"(idle {off_idle:.3f}); {smi}")
+    return launches
+
+
+def flash_dropout() -> tuple:
+    """(b) The flagship with the flag at dropout 0.1: training takes the
+    fused branch (K5 2, K6 2 a step: the flash gate wants rate 0), and its
+    Predictor, in eval, the flash branch (K9 2 and K1 6 a request of 64
+    rows, no K5); 2 rows against the CPU plain path. Returns (the step's
+    launches, the request's)."""
+    from sie_tpu_torch.serve import Predictor
+    cfg = train_config(use_flash_attention=True, dropout=RATE)
+    ds = random_rows(cfg, 2 * cfg.batch_size)
+    trainer = seed0_trainer(cfg)
+    dev = trainer.device_data("train", ds)
+    counts = Counts()
+    counts.zero()
+    loss, _ = trainer.train_step_indexed(dev, np.arange(cfg.batch_size),
+                                         np.ones(cfg.batch_size, np.float32),
+                                         1.0)
+    step = counts.read()
+    if step != Counts.full(TRAIN_WANT) or not np.isfinite(float(loss)):
+        fail(f"flash dropout {RATE} step: launches {step}, loss "
+             f"{float(loss)}")
+    model = seed0_trainer(cfg).model
+    pred = Predictor.from_module(cfg, model, device="cuda", max_batch=64)
+    pred.predict(ds.x[:64])   # warm-up
+    counts.zero()
+    t0 = time.perf_counter()
+    out = pred.predict(ds.x[:64])
+    ms = 1e3 * (time.perf_counter() - t0)
+    served = counts.read()
+    if served != Counts.full({"K1": 6, "K9": 2}):
+        fail(f"flash dropout {RATE}: a request of 64 rows launched {served}")
+    cpu = Predictor.from_module(cfg, copy.deepcopy(model).cpu(),
+                                device="cpu", max_batch=64).predict(ds.x[:2])
+    e = float(np.abs(out.logits[:2] - cpu.logits).max())
+    if not e <= SERVE_TOL or not (out.classes[:2] == cpu.classes).all():
+        fail(f"flash dropout {RATE}: served logits differ from the CPU plain "
+             f"path by {e}")
+    print(f"[flash] (b) dropout {RATE}: a training step (loss "
+          f"{float(loss):.4f}) launched {step}; a request of 64 rows "
+          f"{ms:.3f} ms launched {served}; 2 rows within {e:.3e} of the CPU "
+          f"plain path")
+    return step, served
+
+
+def flash_long() -> dict:
+    """(c) The EigenWorms-shaped InterpGN + Transformer (`long_config`) in
+    amp with the flag at the default fused_attention_max_len 4096, where
+    the plain branch's f32 scores would take 8 x 8 x 17984^2 x 4 bytes:
+    FLASH_LONG_STEPS steps, each K1 = K2 = the strided banks' components,
+    K9 2, K10a 2, K10b 2, a finite loss and moved weights; peak memory."""
+    cfg = long_config().replace(amp=True, use_flash_attention=True,
+                                fused_attention_max_len=4096)
+    want = dict(strided_launches(cfg, "flash long"), K9=2, K10a=2, K10b=2)
+    ds = random_rows(cfg, 2 * cfg.batch_size)
+    torch.cuda.reset_peak_memory_stats()
+    _, _, _, times, losses, launches = train_steps(
+        cfg, ds, want, 0, FLASH_LONG_STEPS, "flash long")
+    plain = cfg.batch_size * cfg.n_heads * cfg.seq_len ** 2 * 4
+    print(f"[flash] (c) EigenWorms-shaped, amp, the flag: steps "
+          + ", ".join(f"{t:.1f}" for t in times) + " ms, losses "
+          + ", ".join(f"{l:.4f}" for l in losses) + f"; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, against "
+          f"{plain / 1e9:.1f} GB for the plain branch's f32 scores alone")
+    return launches
+
+
+def phase_flash(smi: str) -> tuple:
+    """Phase 42: (k), (a), (b) and (c). Returns (K9, K10a, K10b rows, the
+    launches by path)."""
+    t0 = time.perf_counter()
+    rows = flash_kernel_rows()
+    t1 = time.perf_counter()
+    trained = flash_flagship(smi)
+    t2 = time.perf_counter()
+    dropout_step_counts, served = flash_dropout()
+    t3 = time.perf_counter()
+    long = flash_long()
+    print(f"[flash] phase 42: (k) {t1 - t0:.1f} s, (a) {t2 - t1:.1f} s, (b) "
+          f"{t3 - t2:.1f} s, (c) {time.perf_counter() - t3:.1f} s; "
+          f"dropout {RATE} step {dropout_step_counts}")
+    return rows, {"flash": trained, "flash_serve": served,
+                  "flash_long": long}
+
+
 def lap(what: str) -> None:
     """Prints the seconds since the previous lap (a phase's time) and since
     the start."""
@@ -5752,6 +6025,9 @@ def main() -> None:
         with time_limit(120, "the pipe phase"):
             pipe = phase_pipe(work, smi)
             lap("pipe")
+        with time_limit(300, "the flash phase"):
+            (k9, k10a, k10b), flash = phase_flash(smi)
+            lap("flash")
     finally:
         for proc in list(CHILDREN):
             stop_server(proc)
@@ -5779,11 +6055,17 @@ def main() -> None:
                      "expert": expert, "pipe": pipe},
               "K6": {**options, "forecast_long": forecast_long, "moe": moe,
                      "ensemble": ensemble, "mesh": mesh, "seq": seq,
-                     "expert": expert, "pipe": pipe}}
+                     "expert": expert, "pipe": pipe},
+              # phase 42: (a) is their training path; (b)'s request, (c)
+              "K9": {p: flash[p] for p in ("flash_serve", "flash_long")},
+              "K10a": {"flash_long": flash["flash_long"]},
+              "K10b": {"flash_long": flash["flash_long"]}}
     paths = ((k1, launches, "K1"), (k2, launches, "K2"),
              (k3, fused, "K3"), (k4, fused, "K4"), (k5, launches, "K5"),
              (k6, launches, "K6"), (k7, long_launches, "K5"),
-             (k8a, long_launches, "K6"), (k8b, long_launches, "K6"))
+             (k8a, long_launches, "K6"), (k8b, long_launches, "K6"),
+             (k9, flash["flash"], "K9"), (k10a, flash["flash"], "K10a"),
+             (k10b, flash["flash"], "K10b"))
     kernels = []
     for d, counted, key in paths:
         d["launches"] = counted[key]

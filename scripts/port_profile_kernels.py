@@ -12,10 +12,13 @@ CUDA card, for A/B runs of two trees in one call:
   BH=512, T=845, dk=64 (`--rate` adds attention dropout, in a tree that
   has it); with `--long`, at the EigenWorms-shaped model's BH=64, T=17984,
   dk=64 (K7, and K8a + K8b in K6). `--dtypes` picks bf16, float32 or both
-  (default: both at the flagship shape, float32 with `--long`).
+  (default: both at the flagship shape, float32 with `--long`);
+- `flash`: the flash kernels of `use_flash_attention`, bf16: K9 (with the
+  row log-sum-exp, as training runs it), K10b (di and dK, dV) and K10a
+  (dQ) from its outputs, at the same shapes (`--long` as above).
 
     python scripts/port_profile_kernels.py [--tree DIR] [--reps 20]
-        [--kernels shapelet,attention] [--rate R] [--long]
+        [--kernels shapelet,attention,flash] [--rate R] [--long]
         [--dtypes bfloat16,float32] [--sass]
 
 `--tree` imports `sie_tpu_torch` from another checkout (e.g. the parent
@@ -77,6 +80,22 @@ def attention_runs(torch, gen, rate, long, dtypes):
     return runs
 
 
+def flash_runs(torch, gen, long):
+    from sie_tpu_torch.ops.flash import (flash_attention_bwd_dkv,
+                                         flash_attention_bwd_dq, flash_fwd)
+    shape = (64, 17984, 64) if long else (512, 845, 64)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = flash_fwd(q, k, v, 0.125, want_lse=True)
+    _, _, delta = flash_attention_bwd_dkv(q, k, v, o, do, lse, 0.125)
+    tag = "x".join(map(str, shape))
+    return {f"K9 {tag}": lambda: flash_fwd(q, k, v, 0.125, want_lse=True),
+            f"K10b {tag}": lambda: flash_attention_bwd_dkv(
+                q, k, v, o, do, lse, 0.125),
+            f"K10a {tag}": lambda: flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, 0.125)}
+
+
 def print_sass(tree: str) -> None:
     """ptxas's registers and spills and the inner loop's instruction mix of
     every instantiation of the tree's shapelet kernels."""
@@ -118,8 +137,10 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     from sie_tpu_torch.ops import build
+    groups = {"shapelet": "shapelet", "attention": "attention",
+              "flash": "attention"}   # the flash kernels' sources
     build.build([n for n in build.SIGNATURES if any(
-        n.startswith(k[:5]) for k in args.kernels.split(","))])
+        n.startswith(groups.get(k, k)) for k in args.kernels.split(","))])
     if args.sass:
         print_sass(args.tree)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -130,6 +151,8 @@ def main(argv=None) -> None:
         elif group == "attention":
             runs.update(attention_runs(torch, gen, args.rate, args.long,
                                         args.dtypes))
+        elif group == "flash":
+            runs.update(flash_runs(torch, gen, args.long))
         else:
             raise SystemExit(f"unknown kernel group {group!r}")
     start = torch.cuda.Event(enable_timing=True)

@@ -72,6 +72,17 @@
 // accumulator and added to the running one in f32, as in K5. The FP32-FMA
 // passes this replaces (3.0-3.6x their FP32 bound) read one shared word per
 // FMA; here one word a lane feeds one and a half 16x8x8 TF32 products.
+//
+// K10b and K10a, the backward of the JAX package's stock flash attention
+// (entries `flash_bwd_dkv` and `flash_bwd_dq` at the end of this file),
+// are passes 1 + 2 and pass 3 of the bf16 design above, instantiated with
+// RAW scores (not rounded to bf16), no dropout and TMA staging only, at dk
+// 64, 128 or 256, and launched as two entries in the stock VJP's order.
+// Bounds, bf16 tensor-core peak: K10b 8*BH*T^2*dk FLOP (S^T, dP^T, dV, dK),
+// K10a 6*BH*T^2*dk (S, dP, dQ). At dk 256 dK and dV together would take
+// 256 accumulator registers a thread, so each tile runs as two blocks, one
+// a half of the output columns (`out_cols`), both recomputing the scores
+// and dP over all of dk.
 
 #include "attention_common.cuh"
 
@@ -124,8 +135,10 @@ constexpr size_t dkv_smem_bytes() {
          sizeof(float) * 4 * BT;
 }
 
-// TMA: the tiles are staged by TMA (`tma_fits`), else by all threads
-template <int DKP, bool DROP, bool TMA>
+// RAW: f32 scores (K10b, the stock flash kernel's numerics), else rounded
+// to bf16 before the scale (K6); TMA: the tiles are staged by TMA
+// (`tma_fits`), else by all threads
+template <int DKP, bool RAW, bool DROP, bool TMA>
 __global__ void __launch_bounds__(128)
 attn_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -140,7 +153,9 @@ attn_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int TILE = sw_tile_elems<DKP>();
   constexpr uint32_t TB = sw_tile_bytes<DKP>();
   constexpr int NS = BT / 8;      // 8-query column chunks of S^T
-  constexpr int ND = DKP / 8;     // 8-wide column chunks of dK, dV
+  constexpr int DKO = out_cols<DKP>();   // columns of dK, dV of this block
+  constexpr int ND = DKO / 8;     // 8-wide column chunks of dK, dV
+  const int p0 = blockIdx.y * (DKO / 64);   // this block's first panel
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[3];   // TMA: K/V, Q/dO buffers 0, 1
   bf16* Ks = reinterpret_cast<bf16*>(sw_align(smem_raw));
@@ -243,10 +258,12 @@ attn_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // past T get 0 from lse2 = +inf), then its dropped form, packed: the A
     // operand of dV += P_drop^T dO (dO read MN-major); element 4 nt + e's
     // keep bit is bit 4 nt + e of `keep`
+    if constexpr (!RAW) {
 #pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
+      for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; e += 2) round_bf16_pair(st[nt][e], st[nt][e + 1]);
+        for (int e = 0; e < 4; e += 2) round_bf16_pair(st[nt][e], st[nt][e + 1]);
+    }
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
@@ -281,7 +298,7 @@ attn_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs<4 * ND>(&accv[0][0]);
     wgmma_fence();
 #pragma unroll
-    for (int p = 0; p < DKP / 64; ++p) mma_ab(&accv[8 * p][0], pa, dOs, p);
+    for (int p = 0; p < DKO / 64; ++p) mma_ab(&accv[8 * p][0], pa, dOs, p0 + p);
     wgmma_commit();
     wgmma_wait_one();   // dP^T is complete
     fence_regs<4 * NS>(&dp[0][0]);
@@ -300,7 +317,7 @@ attn_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs<4 * ND>(&acck[0][0]);
     wgmma_fence();
 #pragma unroll
-    for (int p = 0; p < DKP / 64; ++p) mma_ab(&acck[8 * p][0], sa, Qs, p);
+    for (int p = 0; p < DKO / 64; ++p) mma_ab(&acck[8 * p][0], sa, Qs, p0 + p);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<4 * ND>(&accv[0][0]);
@@ -317,7 +334,7 @@ attn_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int dn = 0; dn < ND; ++dn)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = dn * 8 + i2 + e;
+        const int col = p0 * 64 + dn * 8 + i2 + e;
         if (col < dk) {
           dk_out[off + col] = __float2bfloat16(acck[dn][2 * h + e]);
           dv_out[off + col] = __float2bfloat16(accv[dn][2 * h + e]);
@@ -333,8 +350,8 @@ constexpr size_t dq_smem_bytes() {
   return sizeof(bf16) * 6 * sw_tile_elems<DKP>() + 1024;
 }
 
-// TMA: the tiles are staged by TMA (`tma_fits`), else by all threads
-template <int DKP, bool DROP, bool TMA>
+// RAW and TMA as in the dK/dV pass
+template <int DKP, bool RAW, bool DROP, bool TMA>
 __global__ void __launch_bounds__(128)
 attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -349,7 +366,9 @@ attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int TILE = sw_tile_elems<DKP>();
   constexpr uint32_t TB = sw_tile_bytes<DKP>();
   constexpr int NS = BT / 8;      // 8-key column chunks of S
-  constexpr int ND = DKP / 8;
+  constexpr int DKO = out_cols<DKP>();   // columns of dQ of this block
+  constexpr int ND = DKO / 8;
+  const int p0 = blockIdx.y * (DKO / 64);   // this block's first panel
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[3];   // TMA: Q/dO, K/V buffers 0, 1
   bf16* Qs = reinterpret_cast<bf16*>(sw_align(smem_raw));
@@ -438,10 +457,12 @@ attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs<4 * NS>(&s[0][0]);
 
     // P (keys past T, in the last tile only, get 0), then dS into dp
+    if constexpr (!RAW) {
 #pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
+      for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; e += 2) round_bf16_pair(s[nt][e], s[nt][e + 1]);
+        for (int e = 0; e < 4; e += 2) round_bf16_pair(s[nt][e], s[nt][e + 1]);
+    }
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
@@ -477,7 +498,7 @@ attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs<4 * ND>(&acc[0][0]);
     wgmma_fence();
 #pragma unroll
-    for (int p = 0; p < DKP / 64; ++p) mma_ab(&acc[8 * p][0], sa, Ks, p);
+    for (int p = 0; p < DKO / 64; ++p) mma_ab(&acc[8 * p][0], sa, Ks, p0 + p);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<4 * ND>(&acc[0][0]);
@@ -493,7 +514,7 @@ attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int dn = 0; dn < ND; ++dn)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = dn * 8 + i2 + e;
+        const int col = p0 * 64 + dn * 8 + i2 + e;
         if (col < dk) orow[col] = __float2bfloat16(acc[dn][2 * h + e]);
       }
   }
@@ -825,42 +846,64 @@ int launch_delta(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// the tensor maps of q, k, v and dO (they hold the pointers: per call)
+struct Maps {
+  CUtensorMap q, k, v, o;
+};
+
+inline int encode_maps(Maps& m, const Args& a) {
+  int err = encode_tile_map(&m.q, a.q, a.BH, a.T, a.dk);
+  if (!err) err = encode_tile_map(&m.k, a.k, a.BH, a.T, a.dk);
+  if (!err) err = encode_tile_map(&m.v, a.v, a.BH, a.T, a.dk);
+  if (!err) err = encode_tile_map(&m.o, a.dout, a.BH, a.T, a.dk);
+  return err;
+}
+
+// pass 2 (dK, dV) of a bf16 backward, after the delta pass
+template <int DKP, bool RAW, bool DROP, bool TMA>
+int launch_dkv(const Args& a, const Maps& m) {
+  const size_t bytes = dkv_smem_bytes<DKP>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      attn_bwd_dkv_bf16<DKP, RAW, DROP, TMA>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  attn_bwd_dkv_bf16<DKP, RAW, DROP, TMA>
+      <<<tile_grid(a.BH, a.T, BT, DKP / out_cols<DKP>()), 128, bytes,
+         a.stream>>>(
+          static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+          static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+          a.lse, a.delta, static_cast<bf16*>(a.grad_k),
+          static_cast<bf16*>(a.grad_v), a.T, a.dk, a.scale, a.seed, a.thresh,
+          a.inv_keep, m.q, m.k, m.v, m.o);
+  return (int)cudaGetLastError();
+}
+
+// pass 3 (dQ) of a bf16 backward, after pass 2
+template <int DKP, bool RAW, bool DROP, bool TMA>
+int launch_dq(const Args& a, const Maps& m) {
+  const size_t bytes = dq_smem_bytes<DKP>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      attn_bwd_dq_bf16<DKP, RAW, DROP, TMA>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  attn_bwd_dq_bf16<DKP, RAW, DROP, TMA>
+      <<<tile_grid(a.BH, a.T, BT, DKP / out_cols<DKP>()), 128, bytes,
+         a.stream>>>(
+          static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+          static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+          a.lse, a.delta, static_cast<bf16*>(a.grad_q), a.T, a.dk, a.scale,
+          a.seed, a.thresh, a.inv_keep, m.q, m.k, m.v, m.o);
+  return (int)cudaGetLastError();
+}
+
 template <int DKP, bool DROP, bool TMA>
 int launch_bf16_as(const Args& a) {
   int err = launch_delta<bf16>(a);
   if (err) return err;
-  const dim3 grid = tile_grid(a.BH, a.T, BT);
-  const size_t b1 = dkv_smem_bytes<DKP>(), b2 = dq_smem_bytes<DKP>();
-  cudaError_t e = cudaFuncSetAttribute(
-      attn_bwd_dkv_bf16<DKP, DROP, TMA>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b1);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(attn_bwd_dq_bf16<DKP, DROP, TMA>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)b2);
-  if (e != cudaSuccess) return (int)e;
-  CUtensorMap mq{}, mk{}, mv{}, mo{};   // the maps hold the pointers
-  if (TMA) {
-    err = encode_tile_map(&mq, a.q, a.BH, a.T, a.dk);
-    if (!err) err = encode_tile_map(&mk, a.k, a.BH, a.T, a.dk);
-    if (!err) err = encode_tile_map(&mv, a.v, a.BH, a.T, a.dk);
-    if (!err) err = encode_tile_map(&mo, a.dout, a.BH, a.T, a.dk);
-    if (err) return err;
-  }
-  const bf16 *q = static_cast<const bf16*>(a.q),
-             *k = static_cast<const bf16*>(a.k),
-             *v = static_cast<const bf16*>(a.v),
-             *dout = static_cast<const bf16*>(a.dout);
-  attn_bwd_dkv_bf16<DKP, DROP, TMA><<<grid, 128, b1, a.stream>>>(
-      q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.grad_k),
-      static_cast<bf16*>(a.grad_v), a.T, a.dk, a.scale, a.seed, a.thresh,
-      a.inv_keep, mq, mk, mv, mo);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  attn_bwd_dq_bf16<DKP, DROP, TMA><<<grid, 128, b2, a.stream>>>(
-      q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.grad_q), a.T, a.dk,
-      a.scale, a.seed, a.thresh, a.inv_keep, mq, mk, mv, mo);
-  return (int)cudaGetLastError();
+  Maps m{};
+  if (TMA && (err = encode_maps(m, a))) return err;
+  err = launch_dkv<DKP, false, DROP, TMA>(a, m);
+  return err ? err : launch_dq<DKP, false, DROP, TMA>(a, m);
 }
 
 template <int DKP, bool DROP>
@@ -933,4 +976,80 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v,
                inv_keep, static_cast<cudaStream_t>(stream)};
   return dropout ? dispatch<true>(a, is_bf16 != 0)
                  : dispatch<false>(a, is_bf16 != 0);
+}
+
+namespace {
+
+// the flash instantiations: f32 scores, no dropout, TMA only
+bool flash_args_ok(const Args& a) {
+  return (a.dk == 64 || a.dk == 128 || a.dk == 256) && tma_fits(a.q, a.dk) &&
+         tma_fits(a.k, a.dk) && tma_fits(a.v, a.dk) &&
+         tma_fits(a.dout, a.dk);
+}
+
+template <int DKP>
+int flash_dkv_as(const Args& a) {
+  int err = launch_delta<bf16>(a);
+  if (err) return err;
+  Maps m{};
+  if ((err = encode_maps(m, a))) return err;
+  return launch_dkv<DKP, true, false, true>(a, m);
+}
+
+template <int DKP>
+int flash_dq_as(const Args& a) {
+  Maps m{};
+  const int err = encode_maps(m, a);
+  return err ? err : launch_dq<DKP, true, false, true>(a, m);
+}
+
+}  // namespace
+
+// The backward of the JAX package's stock flash attention (its custom VJP,
+// jax/experimental/pallas/ops/tpu/flash_attention.py:254-315), in the
+// stock kernels' numerics: scores in f32, not rounded; p = exp(s - lse) in
+// f32 from K9's row log-sum-exp (the stock kernels read m and l: exp(s -
+// m) / l); dV += bf16(p)^T dO; dS = (dO V^T - di) p scale; dK += bf16(dS)^T
+// Q; dQ += bf16(dS) K; f32 sums, bf16 outputs. Two entries, launched in the
+// VJP's order. All tensors (BH, T, dk) bf16, contiguous and 16-byte
+// aligned, dk in {64, 128, 256}; lse and delta (BH, T) f32. At dk 256 each
+// tile runs as two blocks, one a half of the output columns (`out_cols`).
+// The caller checks BH * T < 2^31.
+//
+// K10b (`_flash_attention_bwd_dkv` :941, launched at :1121, body
+// `_flash_attention_dkv_kernel` :796): di = sum(o * dO) of each row into
+// delta (the VJP's jnp.sum; the delta pass), then dK and dV (pass 2).
+extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout,
+                             const void* lse, void* delta, void* dk,
+                             void* dv, int BH, int T, int dkdim, float scale,
+                             void* stream) {
+  const Args a{q, k, v, o, dout, static_cast<const float*>(lse),
+               static_cast<float*>(delta), nullptr, dk, dv, nullptr, BH, T,
+               dkdim, scale, 0u, 1.f, static_cast<cudaStream_t>(stream)};
+  if (!flash_args_ok(a)) return (int)cudaErrorInvalidValue;
+  switch (dkdim) {
+    case 64: return flash_dkv_as<64>(a);
+    case 128: return flash_dkv_as<128>(a);
+    default: return flash_dkv_as<256>(a);
+  }
+}
+
+// K10a (`_flash_attention_bwd_dq`, launched at :1456, body
+// `_flash_attention_dq_kernel` :1146): dQ (pass 3), from the delta that
+// K10b wrote.
+extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, int BH, int T,
+                            int dkdim, float scale, void* stream) {
+  const Args a{q, k, v, nullptr, dout, static_cast<const float*>(lse),
+               const_cast<float*>(static_cast<const float*>(delta)), dq,
+               nullptr, nullptr, nullptr, BH, T, dkdim, scale, 0u, 1.f,
+               static_cast<cudaStream_t>(stream)};
+  if (!flash_args_ok(a)) return (int)cudaErrorInvalidValue;
+  switch (dkdim) {
+    case 64: return flash_dq_as<64>(a);
+    case 128: return flash_dq_as<128>(a);
+    default: return flash_dq_as<256>(a);
+  }
 }

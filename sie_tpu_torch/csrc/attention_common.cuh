@@ -1,5 +1,7 @@
 // Pieces shared by the fused-attention kernels K5 (attention_fwd.cu) and K6
-// (attention_bwd.cu): for the bf16 paths the swizzled tiles, their two
+// (attention_bwd.cu), and by the flash-attention kernels K9, K10b and K10a
+// built from the same bf16 bodies: for the bf16 paths the swizzled tiles,
+// their two
 // loaders (TMA, and element by element for the shapes TMA cannot take) and
 // the wgmma wrappers; for the f32 paths the 3xTF32 mma.sync pieces and the
 // cp.async tile loader; and the dropout hash.
@@ -42,8 +44,10 @@ __device__ __forceinline__ TileRow tile_row(int T, int rows) {
   return {(int)(blockIdx.x / tiles), (int)(blockIdx.x % tiles) * rows};
 }
 
-inline dim3 tile_grid(int BH, int T, int rows) {
-  return dim3((unsigned)(((size_t)T + rows - 1) / rows * (size_t)BH));
+// halves: the column halves of each tile (DKP / out_cols<DKP>()), on y
+inline dim3 tile_grid(int BH, int T, int rows, int halves = 1) {
+  return dim3((unsigned)(((size_t)T + rows - 1) / rows * (size_t)BH),
+              (unsigned)halves);
 }
 
 // ------------------------------------------------------------ dropout hash
@@ -105,7 +109,8 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 // ------------------------------------------- bf16 paths: swizzled tiles
 // A staged bf16 tile holds 64 rows of a (T, dk) matrix, dk zero-padded to
-// DKP in {64, 128}, in the layout that wgmma reads with its 128-byte
+// DKP in {64, 128} (256 for the flash kernels), in the layout that wgmma
+// reads with its 128-byte
 // swizzle: panels of 64 columns (panel p at byte p * SW_PANEL_BYTES), each
 // row of a panel 128 bytes, and the 16-byte chunk c of row r stored at
 // chunk c ^ (r % 8). The swizzle acts on address bits (bits 4-6 XOR bits
@@ -123,6 +128,14 @@ constexpr uint32_t KMAJOR_LBO_BYTES = 16;     // unused by K-major swizzled
 
 template <int DKP>
 __host__ __device__ constexpr int sw_tile_elems() { return 64 * DKP; }
+
+// Output columns a bf16 block accumulates: all DKP up to 128. At 256 one
+// warpgroup's f32 accumulators of a 64 x 256 output would take 128
+// registers a thread (dK and dV together 256), so a block computes one
+// half of the columns (gridDim.y = 2, half blockIdx.y) from the whole rows
+// of scores, which both halves recompute.
+template <int DKP>
+__host__ __device__ constexpr int out_cols() { return DKP < 128 ? DKP : 128; }
 
 // element offset of (row, col) in a staged tile
 __device__ __forceinline__ int sw_index(int row, int col) {

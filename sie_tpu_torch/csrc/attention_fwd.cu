@@ -86,6 +86,16 @@
 // and was held at the shared-memory rate (4.8x its FP32 bound); here one
 // f32 word a lane feeds one and a half TF32 products of 16x8x8, so the
 // tensor cores, and not shared memory, set the pace.
+//
+// K9, the forward of the JAX package's stock flash attention (entry
+// `flash_fwd` at the end of this file), is the bf16 body above instantiated
+// with RAW scores: no rounding to bf16 before the scale, no dropout, TMA
+// staging only (the wrapper copies an unaligned tensor), and dk 64, 128 or
+// 256. Its work is K5's, 4*BH*T^2*dk FLOP on the bf16 tensor cores (0.0946
+// ms at the flagship's attention). At dk 256 a 64 x 256 f32 accumulator
+// would take 128 registers a thread, so each tile runs as two blocks, one
+// a half of the output columns (`out_cols`), and both compute the whole
+// row of scores: 1.5x the tensor-core work of one block.
 
 #include "attention_common.cuh"
 
@@ -105,8 +115,10 @@ constexpr size_t bf16_smem_bytes() {
   return sizeof(bf16) * 5 * sw_tile_elems<DKP>() + 1024;
 }
 
-// TMA: the tiles are staged by TMA (`tma_fits`), else by all threads
-template <int DKP, bool DROP, bool LSE, bool TMA>
+// RAW: the scores stay f32 (K9, the stock flash kernel's numerics), else
+// they are rounded to bf16 before the scale (K5); TMA: the tiles are
+// staged by TMA (`tma_fits`), else by all threads
+template <int DKP, bool RAW, bool DROP, bool LSE, bool TMA>
 __global__ void __launch_bounds__(128)
 attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -118,7 +130,8 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int TILE = sw_tile_elems<DKP>();
   constexpr uint32_t TB = sw_tile_bytes<DKP>();
   constexpr int NS = BK / 8;      // 8-key column chunks of the scores
-  constexpr int ND = DKP / 8;     // 8-wide column chunks of the output
+  constexpr int DKO = out_cols<DKP>();   // output columns of this block
+  constexpr int ND = DKO / 8;     // 8-wide column chunks of the output
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[3];   // TMA: Q, K/V buffers 0, 1
   bf16* Qs = reinterpret_cast<bf16*>(sw_align(smem_raw));
@@ -196,13 +209,15 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_wait_all();
     fence_regs<4 * NS>(&s[0][0]);
 
-    // raw scores rounded to bf16; keys past T (in the last tile only)
-    // masked; the scale goes into the exponent's FMA (max of r * sl2 is
-    // sl2 * max of r, as sl2 > 0)
+    // raw scores rounded to bf16 (not RAW); keys past T (in the last tile
+    // only) masked; the scale goes into the exponent's FMA (max of r * sl2
+    // is sl2 * max of r, as sl2 > 0)
+    if constexpr (!RAW) {
 #pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
+      for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; e += 2) round_bf16_pair(s[nt][e], s[nt][e + 1]);
+        for (int e = 0; e < 4; e += 2) round_bf16_pair(s[nt][e], s[nt][e + 1]);
+    }
     if (k0 + BK > T) {
 #pragma unroll
       for (int nt = 0; nt < NS; ++nt)
@@ -250,14 +265,16 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) acc[dn][e] *= alpha[e / 2];
 
     // O += P V: the score accumulators of chunks 2kk, 2kk + 1 are the A
-    // operand of key step kk (registers); V is read MN-major
+    // operand of key step kk (registers); V is read MN-major, this block's
+    // column panels
     uint32_t pa[BK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) pack_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
     fence_regs<4 * ND>(&acc[0][0]);
     wgmma_fence();
 #pragma unroll
-    for (int p = 0; p < DKP / 64; ++p) mma_ab(&acc[8 * p][0], pa, Vs, p);
+    for (int p = 0; p < DKO / 64; ++p)
+      mma_ab(&acc[8 * p][0], pa, Vs, blockIdx.y * (DKO / 64) + p);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<4 * ND>(&acc[0][0]);
@@ -274,15 +291,16 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = q0 + warp * 16 + g + 8 * h;
     if (row >= T) continue;
     const float inv = 1.f / l[h];
-    bf16* orow = o + base + (size_t)row * dk;
+    bf16* orow = o + base + (size_t)row * dk + blockIdx.y * DKO;
 #pragma unroll
     for (int dn = 0; dn < ND; ++dn)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = dn * 8 + i2 + e;
-        if (col < dk) orow[col] = __float2bfloat16(acc[dn][2 * h + e] * inv);
+        if (blockIdx.y * DKO + col < dk)
+          orow[col] = __float2bfloat16(acc[dn][2 * h + e] * inv);
       }
-    if (LSE && i2 == 0)
+    if (LSE && i2 == 0 && blockIdx.y == 0)
       lse[(size_t)bh * T + row] = (m[h] + log2f(l[h])) * LN2;
   }
 }
@@ -472,11 +490,11 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int DKP, bool DROP, bool LSE, bool TMA>
+template <int DKP, bool RAW, bool DROP, bool LSE, bool TMA>
 int launch_bf16_as(const Args& a) {
   const size_t bytes = bf16_smem_bytes<DKP>();
   cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_bf16<DKP, DROP, LSE, TMA>,
+      attn_fwd_bf16<DKP, RAW, DROP, LSE, TMA>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap mq{}, mk{}, mv{};   // the maps hold the pointers: per call
@@ -486,8 +504,8 @@ int launch_bf16_as(const Args& a) {
     if (!e) e = encode_tile_map(&mv, a.v, a.BH, a.T, a.dk);
     if (e) return e;
   }
-  const dim3 grid = tile_grid(a.BH, a.T, BQ);
-  attn_fwd_bf16<DKP, DROP, LSE, TMA><<<grid, 128, bytes, a.stream>>>(
+  const dim3 grid = tile_grid(a.BH, a.T, BQ, DKP / out_cols<DKP>());
+  attn_fwd_bf16<DKP, RAW, DROP, LSE, TMA><<<grid, 128, bytes, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.T,
       a.dk, a.scale, a.seed, a.thresh, a.inv_keep, mq, mk, mv);
@@ -497,8 +515,8 @@ int launch_bf16_as(const Args& a) {
 template <int DKP, bool DROP, bool LSE>
 int launch_bf16(const Args& a) {
   return tma_fits(a.q, a.dk) && tma_fits(a.k, a.dk) && tma_fits(a.v, a.dk)
-             ? launch_bf16_as<DKP, DROP, LSE, true>(a)
-             : launch_bf16_as<DKP, DROP, LSE, false>(a);
+             ? launch_bf16_as<DKP, false, DROP, LSE, true>(a)
+             : launch_bf16_as<DKP, false, DROP, LSE, false>(a);
 }
 
 template <int DKP, bool DROP, bool LSE>
@@ -550,4 +568,41 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
   if (lse != nullptr)
     return dropout ? dispatch<true, true>(a, bf) : dispatch<false, true>(a, bf);
   return dropout ? dispatch<true, false>(a, bf) : dispatch<false, false>(a, bf);
+}
+
+namespace {
+
+// K9: the flash instantiations, unrounded f32 scores, no dropout, TMA only
+template <bool LSE>
+int flash_dispatch(const Args& a) {
+  switch (a.dk) {
+    case 64: return launch_bf16_as<64, true, false, LSE, true>(a);
+    case 128: return launch_bf16_as<128, true, false, LSE, true>(a);
+    default: return launch_bf16_as<256, true, false, LSE, true>(a);
+  }
+}
+
+}  // namespace
+
+// K9, the forward of the JAX package's stock flash attention
+// (jax/experimental/pallas/ops/tpu/flash_attention.py:758,
+// `_flash_attention_impl`, body `_flash_attention_kernel_single_batch`;
+// reached from sie_tpu/models/layers.py `FullAttentionLayer._flash`): K5's
+// bf16 body with the stock kernel's numerics, s = Q K^T accumulated and
+// scaled in f32 and not rounded to bf16; the unnormalised probabilities
+// rounded to bf16 for P V, accumulated in f32; the output rounded once.
+// In place of the stock kernel's m and l it writes the row log-sum-exp,
+// which K10b and K10a read. q, k, v, o (BH, T, dk) bf16, contiguous and
+// 16-byte aligned (TMA stages every tile), dk in {64, 128, 256}; lse (BH,
+// T) f32 or null. At dk 256 each 64-row tile runs as two blocks, one a
+// half of the output columns (`out_cols`). The caller checks BH * T < 2^31.
+extern "C" int flash_fwd(const void* q, const void* k, const void* v,
+                         void* o, void* lse, int BH, int T, int dk,
+                         float scale, void* stream) {
+  if ((dk != 64 && dk != 128 && dk != 256) || !tma_fits(q, dk) ||
+      !tma_fits(k, dk) || !tma_fits(v, dk))
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, o, static_cast<float*>(lse), nullptr, BH, T, dk,
+               scale, 0u, 1.f, static_cast<cudaStream_t>(stream)};
+  return lse != nullptr ? flash_dispatch<true>(a) : flash_dispatch<false>(a);
 }

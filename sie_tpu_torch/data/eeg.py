@@ -303,5 +303,10 @@ def _load_processed(cfg: Config, three_class: bool, synthetic: Optional[bool]):
 
     x, y, subjects = process_trials(np.asarray(raw), labels, subjects,
                                     text_maps, three_class, cfg)
-    np.savez_compressed(cache, x=x, y=y, subjects=subjects)
+    # written under a temporary name and renamed into place, so that a
+    # process of a multi-process run that finds the cache never reads one
+    # that another process is still writing
+    tmp = f"{cache}.{os.getpid()}.tmp.npz"
+    np.savez_compressed(tmp, x=x, y=y, subjects=subjects)
+    os.replace(tmp, cache)
     return x, y, subjects

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sie_tpu_torch.ops.attention import fused_attention
+from sie_tpu_torch.ops.flash import FLASH_DKS, flash_attention
 from sie_tpu_torch.parallel import comm
 from sie_tpu_torch.utils.masking import triangular_causal_mask
 
@@ -429,24 +430,37 @@ class DataEmbedding(nn.Module):
 
 
 # ------------------------------------------------------------ attention
+def on_accelerator(x: torch.Tensor) -> bool:
+    """The flash gate's "on the accelerator", the JAX package's
+    `jax.default_backend() == "tpu"`: the layer's tensors lie on a CUDA
+    device. The CPU tests replace it to run the flash branch there, where
+    `flash_attention` takes its plain versions."""
+    return x.device.type == "cuda"
+
+
 class FullAttentionLayer(nn.Module):
-    """QKV projections + scaled dot-product full attention. The fused branch
-    runs kernels K5 and K6 (dropout by their hash, seeded per call from the
-    generator); the other branch is plain `torch.matmul` with dropout on
-    the probabilities, as the JAX package leaves it to XLA. The gate is the
-    JAX package's; with `fused_max_len=0` a sequence longer than 4096 takes
-    the fused branch too, where the JAX package runs its kv-blocked kernels
-    (K7, K8a, K8b) and this port the same K5 and K6. `use_flash` is taken
-    and ignored: the JAX package runs its stock flash kernel only on a TPU
-    and everywhere else takes these two branches, as this layer does.
-    `causal` (the decoder's self-attention) scores -inf where the key
-    comes after the query and always takes the plain branch, as a
-    cross-attention (query and key lengths differ) does.
+    """QKV projections + scaled dot-product full attention. Three
+    branches, the JAX package's gate (sie_tpu/models/layers.py:150-161):
+    the flash branch runs kernels K9, K10b and K10a (the JAX package's
+    stock flash kernels, ops/flash.py) when `use_flash` is set, the layer
+    is bf16, not causal, with no attention dropout in this pass, equal
+    query and key lengths, dk in {64, 128, 256} and the tensors on the
+    card (`on_accelerator`), at any T and ahead of the fused branch; off
+    the card the JAX package and this layer take the other two. The fused
+    branch runs kernels K5 and K6 (dropout by their hash, seeded per call
+    from the generator); the plain branch is `torch.matmul` with dropout
+    on the probabilities, as the JAX package leaves it to XLA. With
+    `fused_max_len=0` a sequence longer than 4096 takes the fused branch
+    too, where the JAX package runs its kv-blocked kernels (K7, K8a, K8b)
+    and this port the same K5 and K6. `causal` (the decoder's
+    self-attention) scores -inf where the key comes after the query and
+    always takes the plain branch, as a cross-attention (query and key
+    lengths differ) does.
 
     Split over a mesh's 'model' axis (`tp`, parallel/mesh.py
     `shard_params`), `query`, `key` and `value` hold this rank's H/M heads
-    (column-parallel: K5/K6 run on B·H/M rows) and `out` their rows of the
-    output kernel (row-parallel, summed over 'model')."""
+    (column-parallel: K9/K10 or K5/K6 run on B·H/M rows) and `out` their
+    rows of the output kernel (row-parallel, summed over 'model')."""
 
     def __init__(self, d_model: int, n_heads: int, dtype: torch.dtype,
                  g: torch.Generator, use_fused: bool = False,
@@ -458,6 +472,7 @@ class FullAttentionLayer(nn.Module):
         self.attention_dropout = attention_dropout
         self.dtype = dtype
         self.causal = causal
+        self.use_flash = use_flash
         self.use_fused = use_fused
         self.fused_max_len = fused_max_len
         self.fused_min_len = fused_min_len
@@ -468,7 +483,17 @@ class FullAttentionLayer(nn.Module):
         self.out = linear(dk * n_heads, d_model, g)
         self.tp = None
 
+    def uses_flash(self, q_len: int, k_len: int, dk: int,
+                   x: torch.Tensor) -> bool:
+        """Whether a pass over inputs like x takes the flash branch."""
+        rate = self.attention_dropout if self.training else 0.0
+        return (self.use_flash and not self.causal
+                and self.dtype == torch.bfloat16 and rate == 0.0
+                and q_len == k_len and dk in FLASH_DKS
+                and on_accelerator(x))
+
     def uses_kernel(self, q_len: int, k_len: int, dk: int) -> bool:
+        """The fused gate, which the flash branch goes before."""
         return (self.use_fused and not self.causal and q_len == k_len
                 and (self.fused_max_len == 0 or q_len <= self.fused_max_len)
                 and q_len >= self.fused_min_len
@@ -486,9 +511,12 @@ class FullAttentionLayer(nn.Module):
         k = dense(k_in, self.key, dt).unflatten(-1, (h, -1))
         v = dense(v_in, self.value, dt).unflatten(-1, (h, -1))
         dk = q.shape[-1]
-        if self.uses_kernel(l, k_in.shape[1], dk):
-            # bh = b * H + h in the dropout hash, as the JAX package folds
-            fold = lambda z: z.transpose(1, 2).contiguous().view(b * h, l, dk)
+        # bh = b * H + h, as the JAX package folds (the dropout hash's bh)
+        fold = lambda z: z.transpose(1, 2).contiguous().view(b * h, l, dk)
+        if self.uses_flash(l, k_in.shape[1], dk, q):
+            o = flash_attention(fold(q), fold(k), fold(v), 1.0 / math.sqrt(dk))
+            out = o.view(b, h, l, dk).transpose(1, 2)
+        elif self.uses_kernel(l, k_in.shape[1], dk):
             rate = self.attention_dropout if self.training else 0.0
             seed = dropout_seed(generator) if rate > 0.0 else 0
             o = fused_attention(fold(q), fold(k), fold(v), 1.0 / math.sqrt(dk),

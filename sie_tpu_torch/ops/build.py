@@ -59,12 +59,20 @@ SIGNATURES = {
         # inv_keep, is_bf16, stream
         "attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _U, _F,
                           _I, _P],
+        # K9: q, k, v, o, lse, BH, T, dk, scale, stream
+        "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     },
     "attention_bwd": {
         # q, k, v, o, dout, lse, delta, dq, dk, dv, seed, BH, T, dk, scale,
         # dropout, thresh, inv_keep, is_bf16, stream
         "attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                           _I, _F, _I, _U, _F, _I, _P],
+        # K10b: q, k, v, o, dout, lse, delta, dk, dv, BH, T, dk, scale,
+        # stream
+        "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                          _P],
+        # K10a: q, k, v, dout, lse, delta, dq, BH, T, dk, scale, stream
+        "flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     },
 }
 

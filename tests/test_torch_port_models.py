@@ -193,8 +193,11 @@ def test_load_rejects_missing_and_extra_leaves():
 @pytest.mark.parametrize("use_fused", [False, True])
 def test_use_flash_attention_builds_and_matches_jax(use_fused, amp):
     """The JAX package takes its stock flash kernel only on a TPU and
-    otherwise the fused gate or the XLA branch; the port takes the flag and
-    the same two branches (min_len 0 puts T=40 through the fused one)."""
+    otherwise the fused gate or the XLA branch; on the CPU the port takes
+    the same two branches (min_len 0 puts T=40 through the fused one).
+    These assertions are unchanged since the flag took effect on the card,
+    where the port's flash branch runs K9, K10b and K10a
+    (tests/test_torch_port_flash.py holds it against the stock kernels)."""
     kw = dict(BASE, model="InterpGN", amp=amp, use_flash_attention=True,
               use_fused_attention=use_fused, fused_attention_min_len=0)
     layer = build_model(Config(**kw), "cpu").deep_model.encoder.layers[0] \
