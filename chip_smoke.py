@@ -8,7 +8,7 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      ptxas's registers and spills of each instantiation beside its SASS
      counts of HGMMA (wgmma) and HMMA (mma.sync) instructions
      (`cuobjdump -sass`); fails unless each of the 44 bf16 attention
-     instantiations (K5/K6 and K9/K10) has HGMMA and no HMMA; the FP32, ALU and LDS
+     instantiations (K5/K6, K9, K10) has HGMMA and no HMMA; the FP32, ALU and LDS
      instructions of the inner loop of each shapelet kernel's flagship
      instantiation (K1/K3 10, K2/K4 5 shapelet rows a block);
   3. K1 (shapelet distance) against its plain version at the flagship
@@ -336,9 +336,10 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
      845, dk 64), dk 128 (BH 256) and 256 (BH 128), PatchTST's chunk (BH
      15616, T 105) and the EigenWorms shape (BH 64, T 17984; the first 2
      heads against the chunked plain versions): outputs, gradients, the
-     row log-sum-exp and di, the backward bit for bit twice; each
-     kernel's ms beside its bound, the plain versions' and SDPA's with
-     the flash backend forced; (a) the flagship with the flag (dropout 0,
+     row log-sum-exp and di, the forward and the backward bit for bit
+     twice; each kernel's ms beside its bound, the plain versions' and
+     SDPA's, with the flash backend forced and with its default
+     choice; (a) the flagship with the flag (dropout 0,
      amp, B 64): eager steps against graph replays bit for bit, K1 6, K2
      6, K9 2, K10a 2, K10b 2 a step and no K5 or K6, the first loss and
      gradients against the CPU plain path, replay ms beside the same
@@ -529,7 +530,9 @@ def ptxas_entries(log: str) -> list:
 
 
 # the bf16 attention kernels, which must run their products on wgmma
-WGMMA_KERNELS = ("attn_fwd_bf16", "attn_bwd_dq_bf16", "attn_bwd_dkv_bf16")
+WGMMA_KERNELS = ("attn_fwd_bf16", "attn_bwd_dq_bf16", "attn_bwd_dkv_bf16",
+                 "attn_flash_fwd")
+WGMMA_SOURCES = ("attention_fwd", "attention_bwd", "flash_fwd")
 
 
 def sass_counts(lib: str) -> dict:
@@ -612,7 +615,7 @@ def phase_build() -> None:
     print(f"[build] {time.perf_counter() - t0:.3f} s for "
           f"{', '.join(build.SIGNATURES)}")
     sass = {}
-    for src in ("attention_fwd", "attention_bwd"):
+    for src in WGMMA_SOURCES:
         sass.update(sass_counts(build._lib_path(src)))
     for src, log in build.PTXAS_LOG.items():
         for name, regs, stores, loads in ptxas_entries(log):
@@ -620,7 +623,7 @@ def phase_build() -> None:
             extra = "" if ops is None else f"; SASS HGMMA {ops[0]}, HMMA {ops[1]}"
             print(f"[build] {src}: {name}: {regs} registers, spill stores "
                   f"{stores} B, loads {loads} B{extra}")
-    for src in ("attention_fwd", "attention_bwd"):   # e.g. serialized wgmma
+    for src in WGMMA_SOURCES:   # e.g. serialized wgmma
         for line in build.PTXAS_LOG.get(src, "").splitlines():
             if "arning" in line:
                 print(f"[build] {src}: ptxas: {line.strip()}")
@@ -635,7 +638,8 @@ def phase_build() -> None:
                       f"{alu}, LDS {lds}, all {total} instructions")
     wg = {k: v for k, v in sass.items() if k.startswith(WGMMA_KERNELS)}
     # K5/K6: 2 widths x 2 loaders (TMA, cp.async) x (4 forward, 2 + 2
-    # backward); K9/K10: 3 widths x TMA x (2 forward, 1 + 1 backward)
+    # backward); K9 (with and without the log-sum-exp) and K10 (1 + 1): 3
+    # widths x 2
     if len(wg) != 44:
         fail(f"bf16 attention instantiations in the SASS: {sorted(wg)}")
     off = {k: v for k, v in wg.items() if v[0] == 0 or v[1] != 0}
@@ -5698,17 +5702,20 @@ STOCK = "jax/experimental/pallas/ops/tpu/flash_attention.py"   # the TPU
 # kernels, reached from sie_tpu/models/layers.py:119 (`_flash`)
 
 
-def sdpa_flash_ms(q, k, v, do, scale: float, reps: int) -> tuple:
-    """(forward ms, backward ms) of F.scaled_dot_product_attention with the
-    flash backend forced on the same bf16 inputs, or (None, None) where
-    that backend refuses the shape."""
+def sdpa_ms(q, k, v, do, scale: float, reps: int, flash: bool) -> tuple:
+    """(forward ms, backward ms) of F.scaled_dot_product_attention on the
+    same bf16 inputs, with the flash backend forced (flash) or PyTorch's
+    own choice of backend, or (None, None) where the flash backend refuses
+    the shape."""
+    import contextlib
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     bh, t, dk = q.shape
     q4, k4, v4 = (z.view(1, bh, t, dk).detach().requires_grad_()
                   for z in (q, k, v))
     try:
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        with (sdpa_kernel(SDPBackend.FLASH_ATTENTION) if flash
+              else contextlib.nullcontext()):
             fwd = events_ms(lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, scale=scale), reps=reps)
             out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
@@ -5716,6 +5723,8 @@ def sdpa_flash_ms(q, k, v, do, scale: float, reps: int) -> tuple:
                 out4, (q4, k4, v4), do.view(1, bh, t, dk),
                 retain_graph=True), reps=reps)
     except RuntimeError as exc:
+        if not flash:
+            raise
         print(f"[flash] SDPA's flash backend refuses BH {bh} T {t} dk {dk}: "
               f"{str(exc).splitlines()[0]}")
         return None, None
@@ -5727,8 +5736,10 @@ def flash_kernel_rows() -> tuple:
     (the first LONG_HEADS heads at T 17984, the chunked plain versions):
     outputs, gradients, the row log-sum-exp and di; the backward run twice
     bit for bit; CUDA-event ms of each kernel beside its bound, the plain
-    versions' and SDPA's (flash backend). Returns the three rows of the
-    kernels line, timed at the flagship's shape."""
+    versions' and SDPA's, forward and backward, with the flash backend
+    forced and with PyTorch's own choice. Returns the three rows of the
+    kernels line, timed at the flagship's shape (library_ms: SDPA's flash
+    backend)."""
     from sie_tpu_torch.ops.flash import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq,
         flash_attention_bwd_plain, flash_attention_plain, flash_delta_plain,
@@ -5741,6 +5752,10 @@ def flash_kernel_rows() -> tuple:
                        .to(torch.bfloat16) for _ in range(4))
         scale, hd = 1.0 / dk ** 0.5, (LONG_HEADS if t > 4096 else bh)
         o, lse = flash_fwd(q, k, v, scale, want_lse=True)
+        o2, lse2 = flash_fwd(q, k, v, scale, want_lse=True)
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            fail(f"K9 {tag}: two runs differ")
+        del o2, lse2
         bwd_dkv = lambda: flash_attention_bwd_dkv(q, k, v, o, do, lse, scale)
         dkk, dv, delta = bwd_dkv()
         bwd_dq = lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta,
@@ -5782,7 +5797,8 @@ def flash_kernel_rows() -> tuple:
                            reps=1, warmup=0)
         plain10 = events_ms(lambda: flash_attention_bwd_plain(
             q, k, v, do, delta, scale), reps=1, warmup=0)
-        lib9, lib10 = sdpa_flash_ms(q, k, v, do, scale, reps)
+        lib9, lib10 = sdpa_ms(q, k, v, do, scale, reps, flash=True)
+        def9, def10 = sdpa_ms(q, k, v, do, scale, reps, flash=False)
         # bytes: each input read once, each output written once; (BH, T)
         # f32 rows: lse, di
         io, r4, fl = bh * t * dk * 2, 4 * bh * t, bh * t * t * dk
@@ -5791,16 +5807,17 @@ def flash_kernel_rows() -> tuple:
         b10a = bound_ms(5 * io + 2 * r4, 6 * fl, PEAK_BF16)
         print(f"[flash] {tag} (BH={bh} T={t} dk={dk}): K9 {ms9:.4f} ms "
               f"(bound {b9[0]:.4f}, {b9[1]}; plain {plain9:.3f}; SDPA flash "
-              f"{lib9}), K10b {ms10b:.4f} ms (bound {b10b[0]:.4f}, "
-              f"{b10b[1]}), K10a {ms10a:.4f} ms (bound {b10a[0]:.4f}, "
-              f"{b10a[1]}); plain backward {plain10:.3f} ms, SDPA flash "
-              f"backward {lib10} ms; max abs err out/dq/dk/dv "
+              f"{lib9}, SDPA default {def9:.4f}), K10b {ms10b:.4f} ms (bound "
+              f"{b10b[0]:.4f}, {b10b[1]}), K10a {ms10a:.4f} ms (bound "
+              f"{b10a[0]:.4f}, {b10a[1]}); plain backward {plain10:.3f} ms, "
+              f"SDPA flash backward {lib10} ms, SDPA default backward "
+              f"{def10:.4f} ms; max abs err out/dq/dk/dv "
               + "/".join(f"{errs[n]:.3e}" for n in ("out", "dq", "dk", "dv"))
               + f" (first {hd} rows of BH), lse {e_lse:.2e}, di {e_d:.2e}")
         if rows is None:   # the flagship's shape
             rows = [
                 {"name": "K9 flash_fwd", "source":
-                 "sie_tpu_torch/csrc/attention_fwd.cu", "replaces":
+                 "sie_tpu_torch/csrc/flash_fwd.cu", "replaces":
                  f"{STOCK}:758", "ms": ms9, "plain_ms": plain9,
                  "bound_ms": b9[0], "bound_by": b9[1], "library_ms": lib9},
                 {"name": "K10a flash_bwd_dq", "source":

@@ -15,7 +15,10 @@ CUDA card, for A/B runs of two trees in one call:
   (default: both at the flagship shape, float32 with `--long`);
 - `flash`: the flash kernels of `use_flash_attention`, bf16: K9 (with the
   row log-sum-exp, as training runs it), K10b (di and dK, dV) and K10a
-  (dQ) from its outputs, at the same shapes (`--long` as above).
+  (dQ) from its outputs, and the forward of scaled_dot_product_attention
+  with its flash backend and with its default choice, at each shape of
+  chip_smoke.py's FLASH_SHAPES (the flagship's attention, dk 128 and 256,
+  PatchTST's chunk, the EigenWorms shape).
 
     python scripts/port_profile_kernels.py [--tree DIR] [--reps 20]
         [--kernels shapelet,attention,flash] [--rate R] [--long]
@@ -80,20 +83,43 @@ def attention_runs(torch, gen, rate, long, dtypes):
     return runs
 
 
-def flash_runs(torch, gen, long):
+def flash_runs(torch, gen):
+    """K9 (with the row log-sum-exp), K10b and K10a from its outputs, and
+    SDPA's forward with its flash backend forced and with its default
+    choice, at each shape of chip_smoke.FLASH_SHAPES."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from chip_smoke import FLASH_SHAPES
     from sie_tpu_torch.ops.flash import (flash_attention_bwd_dkv,
                                          flash_attention_bwd_dq, flash_fwd)
-    shape = (64, 17984, 64) if long else (512, 845, 64)
-    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
-    o, lse = flash_fwd(q, k, v, 0.125, want_lse=True)
-    _, _, delta = flash_attention_bwd_dkv(q, k, v, o, do, lse, 0.125)
-    tag = "x".join(map(str, shape))
-    return {f"K9 {tag}": lambda: flash_fwd(q, k, v, 0.125, want_lse=True),
-            f"K10b {tag}": lambda: flash_attention_bwd_dkv(
-                q, k, v, o, do, lse, 0.125),
-            f"K10a {tag}": lambda: flash_attention_bwd_dq(
-                q, k, v, do, lse, delta, 0.125)}
+
+    def sdpa(q4, k4, v4, scale, flash):
+        if not flash:
+            return F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+
+    runs = {}
+    for tag, bh, t, dk in FLASH_SHAPES:
+        q, k, v, do = (torch.randn((bh, t, dk), generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        scale = 1.0 / dk ** 0.5
+        o, lse = flash_fwd(q, k, v, scale, want_lse=True)
+        _, _, delta = flash_attention_bwd_dkv(q, k, v, o, do, lse, scale)
+        q4, k4, v4 = (z.view(1, bh, t, dk) for z in (q, k, v))
+        tag = f"{tag} {bh}x{t}x{dk}"
+        runs.update({
+            f"K9 {tag}": lambda q=q, k=k, v=v, s=scale: flash_fwd(
+                q, k, v, s, want_lse=True),
+            f"K10b {tag}": lambda q=q, k=k, v=v, o=o, do=do, lse=lse,
+            s=scale: flash_attention_bwd_dkv(q, k, v, o, do, lse, s),
+            f"K10a {tag}": lambda q=q, k=k, v=v, do=do, lse=lse, d=delta,
+            s=scale: flash_attention_bwd_dq(q, k, v, do, lse, d, s),
+            f"SDPA flash {tag}": lambda a=(q4, k4, v4, scale): sdpa(
+                *a, flash=True),
+            f"SDPA default {tag}": lambda a=(q4, k4, v4, scale): sdpa(
+                *a, flash=False)})
+    return runs
 
 
 def print_sass(tree: str) -> None:
@@ -137,10 +163,10 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     from sie_tpu_torch.ops import build
-    groups = {"shapelet": "shapelet", "attention": "attention",
-              "flash": "attention"}   # the flash kernels' sources
+    groups = {"shapelet": ("shapelet",), "attention": ("attention",),
+              "flash": ("attention", "flash")}   # the flash kernels' sources
     build.build([n for n in build.SIGNATURES if any(
-        n.startswith(groups.get(k, k)) for k in args.kernels.split(","))])
+        n.startswith(groups.get(k, (k,))) for k in args.kernels.split(","))])
     if args.sass:
         print_sass(args.tree)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -152,7 +178,7 @@ def main(argv=None) -> None:
             runs.update(attention_runs(torch, gen, args.rate, args.long,
                                         args.dtypes))
         elif group == "flash":
-            runs.update(flash_runs(torch, gen, args.long))
+            runs.update(flash_runs(torch, gen))
         else:
             raise SystemExit(f"unknown kernel group {group!r}")
     start = torch.cuda.Event(enable_timing=True)

@@ -1,7 +1,7 @@
 // Pieces shared by the fused-attention kernels K5 (attention_fwd.cu) and K6
-// (attention_bwd.cu), and by the flash-attention kernels K9, K10b and K10a
-// built from the same bf16 bodies: for the bf16 paths the swizzled tiles,
-// their two
+// (attention_bwd.cu), by the flash-attention backward K10b and K10a built
+// from K6's bf16 bodies, and by the flash-attention forward K9
+// (flash_fwd.cu): for the bf16 paths the swizzled tiles, their two
 // loaders (TMA, and element by element for the shapes TMA cannot take) and
 // the wgmma wrappers; for the f32 paths the 3xTF32 mma.sync pieces and the
 // cp.async tile loader; and the dropout hash.

@@ -87,16 +87,6 @@
 // f32 word a lane feeds one and a half TF32 products of 16x8x8, so the
 // tensor cores, and not shared memory, set the pace.
 //
-// K9, the forward of the JAX package's stock flash attention (entry
-// `flash_fwd` at the end of this file), is the bf16 body above instantiated
-// with RAW scores: no rounding to bf16 before the scale, no dropout, TMA
-// staging only (the wrapper copies an unaligned tensor), and dk 64, 128 or
-// 256. Its work is K5's, 4*BH*T^2*dk FLOP on the bf16 tensor cores (0.0946
-// ms at the flagship's attention). At dk 256 a 64 x 256 f32 accumulator
-// would take 128 registers a thread, so each tile runs as two blocks, one
-// a half of the output columns (`out_cols`), and both compute the whole
-// row of scores: 1.5x the tensor-core work of one block.
-
 #include "attention_common.cuh"
 
 namespace {
@@ -115,10 +105,8 @@ constexpr size_t bf16_smem_bytes() {
   return sizeof(bf16) * 5 * sw_tile_elems<DKP>() + 1024;
 }
 
-// RAW: the scores stay f32 (K9, the stock flash kernel's numerics), else
-// they are rounded to bf16 before the scale (K5); TMA: the tiles are
-// staged by TMA (`tma_fits`), else by all threads
-template <int DKP, bool RAW, bool DROP, bool LSE, bool TMA>
+// TMA: the tiles are staged by TMA (`tma_fits`), else by all threads
+template <int DKP, bool DROP, bool LSE, bool TMA>
 __global__ void __launch_bounds__(128)
 attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -209,15 +197,13 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_wait_all();
     fence_regs<4 * NS>(&s[0][0]);
 
-    // raw scores rounded to bf16 (not RAW); keys past T (in the last tile
-    // only) masked; the scale goes into the exponent's FMA (max of r * sl2
-    // is sl2 * max of r, as sl2 > 0)
-    if constexpr (!RAW) {
+    // raw scores rounded to bf16; keys past T (in the last tile only)
+    // masked; the scale goes into the exponent's FMA (max of r * sl2 is
+    // sl2 * max of r, as sl2 > 0)
 #pragma unroll
-      for (int nt = 0; nt < NS; ++nt)
+    for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; e += 2) round_bf16_pair(s[nt][e], s[nt][e + 1]);
-    }
+      for (int e = 0; e < 4; e += 2) round_bf16_pair(s[nt][e], s[nt][e + 1]);
     if (k0 + BK > T) {
 #pragma unroll
       for (int nt = 0; nt < NS; ++nt)
@@ -490,11 +476,11 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int DKP, bool RAW, bool DROP, bool LSE, bool TMA>
+template <int DKP, bool DROP, bool LSE, bool TMA>
 int launch_bf16_as(const Args& a) {
   const size_t bytes = bf16_smem_bytes<DKP>();
   cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_bf16<DKP, RAW, DROP, LSE, TMA>,
+      attn_fwd_bf16<DKP, DROP, LSE, TMA>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap mq{}, mk{}, mv{};   // the maps hold the pointers: per call
@@ -505,7 +491,7 @@ int launch_bf16_as(const Args& a) {
     if (e) return e;
   }
   const dim3 grid = tile_grid(a.BH, a.T, BQ, DKP / out_cols<DKP>());
-  attn_fwd_bf16<DKP, RAW, DROP, LSE, TMA><<<grid, 128, bytes, a.stream>>>(
+  attn_fwd_bf16<DKP, DROP, LSE, TMA><<<grid, 128, bytes, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.T,
       a.dk, a.scale, a.seed, a.thresh, a.inv_keep, mq, mk, mv);
@@ -515,8 +501,8 @@ int launch_bf16_as(const Args& a) {
 template <int DKP, bool DROP, bool LSE>
 int launch_bf16(const Args& a) {
   return tma_fits(a.q, a.dk) && tma_fits(a.k, a.dk) && tma_fits(a.v, a.dk)
-             ? launch_bf16_as<DKP, false, DROP, LSE, true>(a)
-             : launch_bf16_as<DKP, false, DROP, LSE, false>(a);
+             ? launch_bf16_as<DKP, DROP, LSE, true>(a)
+             : launch_bf16_as<DKP, DROP, LSE, false>(a);
 }
 
 template <int DKP, bool DROP, bool LSE>
@@ -568,41 +554,4 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
   if (lse != nullptr)
     return dropout ? dispatch<true, true>(a, bf) : dispatch<false, true>(a, bf);
   return dropout ? dispatch<true, false>(a, bf) : dispatch<false, false>(a, bf);
-}
-
-namespace {
-
-// K9: the flash instantiations, unrounded f32 scores, no dropout, TMA only
-template <bool LSE>
-int flash_dispatch(const Args& a) {
-  switch (a.dk) {
-    case 64: return launch_bf16_as<64, true, false, LSE, true>(a);
-    case 128: return launch_bf16_as<128, true, false, LSE, true>(a);
-    default: return launch_bf16_as<256, true, false, LSE, true>(a);
-  }
-}
-
-}  // namespace
-
-// K9, the forward of the JAX package's stock flash attention
-// (jax/experimental/pallas/ops/tpu/flash_attention.py:758,
-// `_flash_attention_impl`, body `_flash_attention_kernel_single_batch`;
-// reached from sie_tpu/models/layers.py `FullAttentionLayer._flash`): K5's
-// bf16 body with the stock kernel's numerics, s = Q K^T accumulated and
-// scaled in f32 and not rounded to bf16; the unnormalised probabilities
-// rounded to bf16 for P V, accumulated in f32; the output rounded once.
-// In place of the stock kernel's m and l it writes the row log-sum-exp,
-// which K10b and K10a read. q, k, v, o (BH, T, dk) bf16, contiguous and
-// 16-byte aligned (TMA stages every tile), dk in {64, 128, 256}; lse (BH,
-// T) f32 or null. At dk 256 each 64-row tile runs as two blocks, one a
-// half of the output columns (`out_cols`). The caller checks BH * T < 2^31.
-extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         void* o, void* lse, int BH, int T, int dk,
-                         float scale, void* stream) {
-  if ((dk != 64 && dk != 128 && dk != 256) || !tma_fits(q, dk) ||
-      !tma_fits(k, dk) || !tma_fits(v, dk))
-    return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, o, static_cast<float*>(lse), nullptr, BH, T, dk,
-               scale, 0u, 1.f, static_cast<cudaStream_t>(stream)};
-  return lse != nullptr ? flash_dispatch<true>(a) : flash_dispatch<false>(a);
 }

@@ -59,6 +59,8 @@ SIGNATURES = {
         # inv_keep, is_bf16, stream
         "attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _U, _F,
                           _I, _P],
+    },
+    "flash_fwd": {
         # K9: q, k, v, o, lse, BH, T, dk, scale, stream
         "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     },

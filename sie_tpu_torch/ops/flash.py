@@ -9,11 +9,13 @@ whose backward launches K10b (`flash_attention_bwd_dkv`: each row's di =
 sum(o * dO), then dK and dV) and then K10a (`flash_attention_bwd_dq`: dQ),
 in the order of the stock kernel's custom VJP (flash_attention.py:254-315).
 For CPU tensors they run the plain versions `flash_attention_plain` and
-`flash_attention_bwd_plain`; for CUDA tensors the hand-written kernels,
-which are the bf16 warpgroup-MMA bodies of K5 and K6 instantiated with the
-stock kernels' numerics (`flash_fwd` in csrc/attention_fwd.cu,
-`flash_bwd_dkv` and `flash_bwd_dq` in csrc/attention_bwd.cu; the sources
-say what bounds them and how dk 256 is split). There is no other route.
+`flash_attention_bwd_plain`; for CUDA tensors the hand-written kernels:
+K9 a warp-specialised kernel of its own (csrc/flash_fwd.cu: a TMA producer
+and two wgmma consumer warpgroups over 128 query rows), K10b and K10a the
+bf16 warpgroup-MMA bodies of K6 instantiated with the stock kernels'
+numerics (`flash_bwd_dkv` and `flash_bwd_dq` in csrc/attention_bwd.cu).
+The sources say what bounds them and how dk 256 is held. There is no
+other route.
 
 Numerics (no dropout, not causal), those of the stock kernels: s = Q K^T
 accumulates in f32 from bf16 and is scaled in f32, not rounded to bf16
@@ -176,7 +178,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out, lse
     q, k, v = (_aligned(z) for z in (q, k, v))
-    lib = build.load("attention_fwd")
+    lib = build.load("flash_fwd")
     with torch.cuda.device(q.device):
         code = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

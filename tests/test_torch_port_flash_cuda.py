@@ -62,11 +62,14 @@ def _close(got, want, what):
 
 
 @pytest.mark.parametrize("dk", [64, 128, 256])
-@pytest.mark.parametrize("t", [1, 64, 65, 105, 4097])
+@pytest.mark.parametrize("t", [1, 64, 65, 105, 127, 128, 129, 192, 193,
+                               4097])
 def test_kernels_match_plain(card, t, dk):
     """K9's output and log-sum-exp, K10b's dK, dV and di, K10a's dQ, with
-    T a multiple of the 64-row tile, one past it, under it and past 4096;
-    two backward runs equal bit for bit."""
+    T at the edges of the 64-row tiles and of K9's 128-row blocks (T <= 64:
+    K9's second consumer warpgroup has no real rows; 129, 193: the last
+    block's second one has none), under them and past 4096; two backward
+    runs equal bit for bit."""
     bh = 3
     q, k, v, do = _normal(t + dk, card, *[(bh, t, dk)] * 4)
     scale = 1.0 / dk ** 0.5
@@ -87,6 +90,23 @@ def test_kernels_match_plain(card, t, dk):
     assert all(torch.equal(a, b) for a, b in zip((dkk, dv, delta), again))
     assert torch.equal(dq, flash.flash_attention_bwd_dq(q, k, v, do, lse,
                                                         delta, scale))
+
+
+@pytest.mark.parametrize("dk", [64, 128, 256])
+def test_forward_odd_heads_and_twice(card, dk):
+    """K9 at BH 13 (a prime: no block count of the grid's fold divides it)
+    and T 300 (three 128-row blocks, the last with 44 rows): output and
+    log-sum-exp against the plain versions, and two runs bit-equal."""
+    q, k, v = _normal(dk, card, *[(13, 300, dk)] * 3)
+    scale = 1.0 / dk ** 0.5
+    o, lse = flash.flash_fwd(q, k, v, scale, want_lse=True)
+    o2, lse2 = flash.flash_fwd(q, k, v, scale, want_lse=True)
+    torch.cuda.synchronize()
+    _close(o, flash.flash_attention_plain(q, k, v, scale), "out")
+    assert float((lse - flash.flash_lse_plain(q, k, scale)).abs().max()) \
+        <= 1e-3
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(flash.flash_fwd(q, k, v, scale)[0], o)
 
 
 def test_autograd_launches_k9_then_k10b_and_k10a(card):
