@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero without the final `ok` line:
   2. build: nvcc builds every kernel source of the package, in parallel;
      ptxas's registers and spills of each instantiation beside its SASS
      counts of HGMMA (wgmma) and HMMA (mma.sync) instructions
-     (`cuobjdump -sass`); fails unless each of the 44 bf16 attention
+     (`cuobjdump -sass`); fails unless each of the 45 bf16 attention
      instantiations (K5/K6, K9, K10) has HGMMA and no HMMA; the FP32, ALU and LDS
      instructions of the inner loop of each shapelet kernel's flagship
      instantiation (K1/K3 10, K2/K4 5 shapelet rows a block);
@@ -531,8 +531,8 @@ def ptxas_entries(log: str) -> list:
 
 # the bf16 attention kernels, which must run their products on wgmma
 WGMMA_KERNELS = ("attn_fwd_bf16", "attn_bwd_dq_bf16", "attn_bwd_dkv_bf16",
-                 "attn_flash_fwd")
-WGMMA_SOURCES = ("attention_fwd", "attention_bwd", "flash_fwd")
+                 "attn_flash_fwd", "attn_flash_bwd_dkv", "attn_flash_bwd_dq")
+WGMMA_SOURCES = ("attention_fwd", "attention_bwd", "flash_fwd", "flash_bwd")
 
 
 def sass_counts(lib: str) -> dict:
@@ -625,7 +625,7 @@ def phase_build() -> None:
                   f"{stores} B, loads {loads} B{extra}")
     for src in WGMMA_SOURCES:   # e.g. serialized wgmma
         for line in build.PTXAS_LOG.get(src, "").splitlines():
-            if "arning" in line:
+            if "arning" in line or "Performance Loss" in line:
                 print(f"[build] {src}: ptxas: {line.strip()}")
     # the shapelet kernels' flagship instantiations (n = 10: K1 and K3 take
     # 10 shapelet rows a block, K2 and K4 5): FP32, ALU and shared-load
@@ -638,9 +638,9 @@ def phase_build() -> None:
                       f"{alu}, LDS {lds}, all {total} instructions")
     wg = {k: v for k, v in sass.items() if k.startswith(WGMMA_KERNELS)}
     # K5/K6: 2 widths x 2 loaders (TMA, cp.async) x (4 forward, 2 + 2
-    # backward); K9 (with and without the log-sum-exp) and K10 (1 + 1): 3
-    # widths x 2
-    if len(wg) != 44:
+    # backward); K9 (with and without the log-sum-exp) and K10b, K10a
+    # (flash_bwd.cu): 3 widths x 2, and K10a's halved tiles at dk 64
+    if len(wg) != 45:
         fail(f"bf16 attention instantiations in the SASS: {sorted(wg)}")
     off = {k: v for k, v in wg.items() if v[0] == 0 or v[1] != 0}
     if off:
@@ -5821,12 +5821,12 @@ def flash_kernel_rows() -> tuple:
                  f"{STOCK}:758", "ms": ms9, "plain_ms": plain9,
                  "bound_ms": b9[0], "bound_by": b9[1], "library_ms": lib9},
                 {"name": "K10a flash_bwd_dq", "source":
-                 "sie_tpu_torch/csrc/attention_bwd.cu", "replaces":
+                 "sie_tpu_torch/csrc/flash_bwd.cu", "replaces":
                  f"{STOCK}:1456", "ms": ms10a, "plain_ms": plain10,
                  "bound_ms": b10a[0], "bound_by": b10a[1],
                  "library_ms": lib10},
                 {"name": "K10b flash_bwd_dkv", "source":
-                 "sie_tpu_torch/csrc/attention_bwd.cu", "replaces":
+                 "sie_tpu_torch/csrc/flash_bwd.cu", "replaces":
                  f"{STOCK}:1121", "ms": ms10b, "plain_ms": plain10,
                  "bound_ms": b10b[0], "bound_by": b10b[1],
                  "library_ms": lib10}]

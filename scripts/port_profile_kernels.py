@@ -22,17 +22,21 @@ CUDA card, for A/B runs of two trees in one call:
 
     python scripts/port_profile_kernels.py [--tree DIR] [--reps 20]
         [--kernels shapelet,attention,flash] [--rate R] [--long]
-        [--dtypes bfloat16,float32] [--sass]
+        [--dtypes bfloat16,float32] [--sass] [--digest]
 
 `--tree` imports `sie_tpu_torch` from another checkout (e.g. the parent
 commit unpacked under archive_check/), so that two versions can be timed in
-turn within one call on one card. Prints the card's name and power limit
-and one line per kernel. Exits non-zero without a card.
+turn within one call on one card; the inputs come from one seeded
+generator in the same order, so `--digest`, which adds a hash of each
+run's outputs to its line, shows whether two trees' kernels agree bit for
+bit. Prints the card's name and power limit and one line per kernel. Exits
+non-zero without a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import os
 import subprocess
 import sys
@@ -122,6 +126,16 @@ def flash_runs(torch, gen):
     return runs
 
 
+def digest(torch, out) -> str:
+    """sha256 (16 hex digits) of the bytes of every tensor in out."""
+    h = hashlib.sha256()
+    for t in (out if isinstance(out, (tuple, list)) else (out,)):
+        if torch.is_tensor(t):
+            h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+    return h.hexdigest()[:16]
+
+
 def print_sass(tree: str) -> None:
     """ptxas's registers and spills and the inner loop's instruction mix of
     every instantiation of the tree's shapelet kernels."""
@@ -150,6 +164,7 @@ def main(argv=None) -> None:
     ap.add_argument("--long", action="store_true")
     ap.add_argument("--dtypes", type=lambda v: v.split(","), default=None)
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--digest", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.tree))
     # chip_smoke (its SASS parser) from this script's own checkout
@@ -184,15 +199,17 @@ def main(argv=None) -> None:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     for name, fn in runs.items():
-        fn()
+        out = fn()
         torch.cuda.synchronize()
+        tail = f", outputs {digest(torch, out)}" if args.digest else ""
+        del out
         start.record()
         for _ in range(args.reps):
             fn()
         end.record()
         torch.cuda.synchronize()
         print(f"{name} tree {args.tree}: "
-              f"{start.elapsed_time(end) / args.reps:.4f} ms")
+              f"{start.elapsed_time(end) / args.reps:.4f} ms{tail}")
 
 
 if __name__ == "__main__":

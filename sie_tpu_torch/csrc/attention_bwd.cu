@@ -72,17 +72,6 @@
 // accumulator and added to the running one in f32, as in K5. The FP32-FMA
 // passes this replaces (3.0-3.6x their FP32 bound) read one shared word per
 // FMA; here one word a lane feeds one and a half 16x8x8 TF32 products.
-//
-// K10b and K10a, the backward of the JAX package's stock flash attention
-// (entries `flash_bwd_dkv` and `flash_bwd_dq` at the end of this file),
-// are passes 1 + 2 and pass 3 of the bf16 design above, instantiated with
-// RAW scores (not rounded to bf16), no dropout and TMA staging only, at dk
-// 64, 128 or 256, and launched as two entries in the stock VJP's order.
-// Bounds, bf16 tensor-core peak: K10b 8*BH*T^2*dk FLOP (S^T, dP^T, dV, dK),
-// K10a 6*BH*T^2*dk (S, dP, dQ). At dk 256 dK and dV together would take
-// 256 accumulator registers a thread, so each tile runs as two blocks, one
-// a half of the output columns (`out_cols`), both recomputing the scores
-// and dP over all of dk.
 
 #include "attention_common.cuh"
 
@@ -106,25 +95,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-
-// ------------------------------------------------------------ pass 1: delta
-template <typename E>
-__global__ void attn_bwd_delta(const E* __restrict__ o,
-                               const E* __restrict__ dout,
-                               float* __restrict__ delta, int rows, int dk) {
-  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;   // whole warps return together
-  const size_t off = (size_t)row * dk;
-  float acc = 0.f;
-  for (int d = lane; d < dk; d += 32)
-    acc = fmaf(to_f(o[off + d]), to_f(dout[off + d]), acc);
-#pragma unroll
-  for (int s = 16; s > 0; s /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, s);
-  if (lane == 0) delta[row] = acc;
-}
+// pass 1, delta: `attn_bwd_delta` of attention_common.cuh
 
 // --------------------------------------------------- pass 2, bf16: dK, dV
 template <int DKP>
@@ -135,10 +106,8 @@ constexpr size_t dkv_smem_bytes() {
          sizeof(float) * 4 * BT;
 }
 
-// RAW: f32 scores (K10b, the stock flash kernel's numerics), else rounded
-// to bf16 before the scale (K6); TMA: the tiles are staged by TMA
-// (`tma_fits`), else by all threads
-template <int DKP, bool RAW, bool DROP, bool TMA>
+// TMA: the tiles are staged by TMA (`tma_fits`), else by all threads
+template <int DKP, bool DROP, bool TMA>
 __global__ void __launch_bounds__(128)
 attn_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -153,9 +122,7 @@ attn_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int TILE = sw_tile_elems<DKP>();
   constexpr uint32_t TB = sw_tile_bytes<DKP>();
   constexpr int NS = BT / 8;      // 8-query column chunks of S^T
-  constexpr int DKO = out_cols<DKP>();   // columns of dK, dV of this block
-  constexpr int ND = DKO / 8;     // 8-wide column chunks of dK, dV
-  const int p0 = blockIdx.y * (DKO / 64);   // this block's first panel
+  constexpr int ND = DKP / 8;     // 8-wide column chunks of dK, dV
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[3];   // TMA: K/V, Q/dO buffers 0, 1
   bf16* Ks = reinterpret_cast<bf16*>(sw_align(smem_raw));
@@ -258,12 +225,10 @@ attn_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // past T get 0 from lse2 = +inf), then its dropped form, packed: the A
     // operand of dV += P_drop^T dO (dO read MN-major); element 4 nt + e's
     // keep bit is bit 4 nt + e of `keep`
-    if constexpr (!RAW) {
 #pragma unroll
-      for (int nt = 0; nt < NS; ++nt)
+    for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; e += 2) round_bf16_pair(st[nt][e], st[nt][e + 1]);
-    }
+      for (int e = 0; e < 4; e += 2) round_bf16_pair(st[nt][e], st[nt][e + 1]);
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
@@ -298,7 +263,7 @@ attn_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs<4 * ND>(&accv[0][0]);
     wgmma_fence();
 #pragma unroll
-    for (int p = 0; p < DKO / 64; ++p) mma_ab(&accv[8 * p][0], pa, dOs, p0 + p);
+    for (int p = 0; p < DKP / 64; ++p) mma_ab(&accv[8 * p][0], pa, dOs, p);
     wgmma_commit();
     wgmma_wait_one();   // dP^T is complete
     fence_regs<4 * NS>(&dp[0][0]);
@@ -317,7 +282,7 @@ attn_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs<4 * ND>(&acck[0][0]);
     wgmma_fence();
 #pragma unroll
-    for (int p = 0; p < DKO / 64; ++p) mma_ab(&acck[8 * p][0], sa, Qs, p0 + p);
+    for (int p = 0; p < DKP / 64; ++p) mma_ab(&acck[8 * p][0], sa, Qs, p);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<4 * ND>(&accv[0][0]);
@@ -334,7 +299,7 @@ attn_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int dn = 0; dn < ND; ++dn)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = p0 * 64 + dn * 8 + i2 + e;
+        const int col = dn * 8 + i2 + e;
         if (col < dk) {
           dk_out[off + col] = __float2bfloat16(acck[dn][2 * h + e]);
           dv_out[off + col] = __float2bfloat16(accv[dn][2 * h + e]);
@@ -350,8 +315,8 @@ constexpr size_t dq_smem_bytes() {
   return sizeof(bf16) * 6 * sw_tile_elems<DKP>() + 1024;
 }
 
-// RAW and TMA as in the dK/dV pass
-template <int DKP, bool RAW, bool DROP, bool TMA>
+// TMA as in the dK/dV pass
+template <int DKP, bool DROP, bool TMA>
 __global__ void __launch_bounds__(128)
 attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -366,9 +331,7 @@ attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int TILE = sw_tile_elems<DKP>();
   constexpr uint32_t TB = sw_tile_bytes<DKP>();
   constexpr int NS = BT / 8;      // 8-key column chunks of S
-  constexpr int DKO = out_cols<DKP>();   // columns of dQ of this block
-  constexpr int ND = DKO / 8;
-  const int p0 = blockIdx.y * (DKO / 64);   // this block's first panel
+  constexpr int ND = DKP / 8;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[3];   // TMA: Q/dO, K/V buffers 0, 1
   bf16* Qs = reinterpret_cast<bf16*>(sw_align(smem_raw));
@@ -457,12 +420,10 @@ attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs<4 * NS>(&s[0][0]);
 
     // P (keys past T, in the last tile only, get 0), then dS into dp
-    if constexpr (!RAW) {
 #pragma unroll
-      for (int nt = 0; nt < NS; ++nt)
+    for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; e += 2) round_bf16_pair(s[nt][e], s[nt][e + 1]);
-    }
+      for (int e = 0; e < 4; e += 2) round_bf16_pair(s[nt][e], s[nt][e + 1]);
 #pragma unroll
     for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
@@ -498,7 +459,7 @@ attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs<4 * ND>(&acc[0][0]);
     wgmma_fence();
 #pragma unroll
-    for (int p = 0; p < DKO / 64; ++p) mma_ab(&acc[8 * p][0], sa, Ks, p0 + p);
+    for (int p = 0; p < DKP / 64; ++p) mma_ab(&acc[8 * p][0], sa, Ks, p);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<4 * ND>(&acc[0][0]);
@@ -514,7 +475,7 @@ attn_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int dn = 0; dn < ND; ++dn)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = p0 * 64 + dn * 8 + i2 + e;
+        const int col = dn * 8 + i2 + e;
         if (col < dk) orow[col] = __float2bfloat16(acc[dn][2 * h + e]);
       }
   }
@@ -835,17 +796,6 @@ attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // --------------------------------------------------------------- launches
-template <typename E>
-int launch_delta(const Args& a) {
-  const int rows = a.BH * a.T;
-  const int per_block = 8;   // warps, one row each
-  attn_bwd_delta<E><<<(rows + per_block - 1) / per_block, 32 * per_block, 0,
-                      a.stream>>>(static_cast<const E*>(a.o),
-                                  static_cast<const E*>(a.dout), a.delta,
-                                  rows, a.dk);
-  return (int)cudaGetLastError();
-}
-
 // the tensor maps of q, k, v and dO (they hold the pointers: per call)
 struct Maps {
   CUtensorMap q, k, v, o;
@@ -860,16 +810,15 @@ inline int encode_maps(Maps& m, const Args& a) {
 }
 
 // pass 2 (dK, dV) of a bf16 backward, after the delta pass
-template <int DKP, bool RAW, bool DROP, bool TMA>
+template <int DKP, bool DROP, bool TMA>
 int launch_dkv(const Args& a, const Maps& m) {
   const size_t bytes = dkv_smem_bytes<DKP>();
   const cudaError_t e = cudaFuncSetAttribute(
-      attn_bwd_dkv_bf16<DKP, RAW, DROP, TMA>,
+      attn_bwd_dkv_bf16<DKP, DROP, TMA>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  attn_bwd_dkv_bf16<DKP, RAW, DROP, TMA>
-      <<<tile_grid(a.BH, a.T, BT, DKP / out_cols<DKP>()), 128, bytes,
-         a.stream>>>(
+  attn_bwd_dkv_bf16<DKP, DROP, TMA>
+      <<<tile_grid(a.BH, a.T, BT), 128, bytes, a.stream>>>(
           static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
           static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
           a.lse, a.delta, static_cast<bf16*>(a.grad_k),
@@ -879,16 +828,15 @@ int launch_dkv(const Args& a, const Maps& m) {
 }
 
 // pass 3 (dQ) of a bf16 backward, after pass 2
-template <int DKP, bool RAW, bool DROP, bool TMA>
+template <int DKP, bool DROP, bool TMA>
 int launch_dq(const Args& a, const Maps& m) {
   const size_t bytes = dq_smem_bytes<DKP>();
   const cudaError_t e = cudaFuncSetAttribute(
-      attn_bwd_dq_bf16<DKP, RAW, DROP, TMA>,
+      attn_bwd_dq_bf16<DKP, DROP, TMA>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  attn_bwd_dq_bf16<DKP, RAW, DROP, TMA>
-      <<<tile_grid(a.BH, a.T, BT, DKP / out_cols<DKP>()), 128, bytes,
-         a.stream>>>(
+  attn_bwd_dq_bf16<DKP, DROP, TMA>
+      <<<tile_grid(a.BH, a.T, BT), 128, bytes, a.stream>>>(
           static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
           static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
           a.lse, a.delta, static_cast<bf16*>(a.grad_q), a.T, a.dk, a.scale,
@@ -898,12 +846,13 @@ int launch_dq(const Args& a, const Maps& m) {
 
 template <int DKP, bool DROP, bool TMA>
 int launch_bf16_as(const Args& a) {
-  int err = launch_delta<bf16>(a);
+  int err = launch_delta<bf16>(a.o, a.dout, a.delta, a.BH * a.T, a.dk,
+                              a.stream);
   if (err) return err;
   Maps m{};
   if (TMA && (err = encode_maps(m, a))) return err;
-  err = launch_dkv<DKP, false, DROP, TMA>(a, m);
-  return err ? err : launch_dq<DKP, false, DROP, TMA>(a, m);
+  err = launch_dkv<DKP, DROP, TMA>(a, m);
+  return err ? err : launch_dq<DKP, DROP, TMA>(a, m);
 }
 
 template <int DKP, bool DROP>
@@ -916,7 +865,8 @@ int launch_bf16(const Args& a) {
 
 template <int DKP, bool DROP>
 int launch_f32(const Args& a) {
-  int err = launch_delta<float>(a);
+  int err = launch_delta<float>(a.o, a.dout, a.delta, a.BH * a.T, a.dk,
+                              a.stream);
   if (err) return err;
   const dim3 grid = tile_grid(a.BH, a.T, BT);
   const size_t b1 = dkv_f32_smem_bytes<DKP>(), b2 = dq_f32_smem_bytes<DKP>();
@@ -976,80 +926,4 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v,
                inv_keep, static_cast<cudaStream_t>(stream)};
   return dropout ? dispatch<true>(a, is_bf16 != 0)
                  : dispatch<false>(a, is_bf16 != 0);
-}
-
-namespace {
-
-// the flash instantiations: f32 scores, no dropout, TMA only
-bool flash_args_ok(const Args& a) {
-  return (a.dk == 64 || a.dk == 128 || a.dk == 256) && tma_fits(a.q, a.dk) &&
-         tma_fits(a.k, a.dk) && tma_fits(a.v, a.dk) &&
-         tma_fits(a.dout, a.dk);
-}
-
-template <int DKP>
-int flash_dkv_as(const Args& a) {
-  int err = launch_delta<bf16>(a);
-  if (err) return err;
-  Maps m{};
-  if ((err = encode_maps(m, a))) return err;
-  return launch_dkv<DKP, true, false, true>(a, m);
-}
-
-template <int DKP>
-int flash_dq_as(const Args& a) {
-  Maps m{};
-  const int err = encode_maps(m, a);
-  return err ? err : launch_dq<DKP, true, false, true>(a, m);
-}
-
-}  // namespace
-
-// The backward of the JAX package's stock flash attention (its custom VJP,
-// jax/experimental/pallas/ops/tpu/flash_attention.py:254-315), in the
-// stock kernels' numerics: scores in f32, not rounded; p = exp(s - lse) in
-// f32 from K9's row log-sum-exp (the stock kernels read m and l: exp(s -
-// m) / l); dV += bf16(p)^T dO; dS = (dO V^T - di) p scale; dK += bf16(dS)^T
-// Q; dQ += bf16(dS) K; f32 sums, bf16 outputs. Two entries, launched in the
-// VJP's order. All tensors (BH, T, dk) bf16, contiguous and 16-byte
-// aligned, dk in {64, 128, 256}; lse and delta (BH, T) f32. At dk 256 each
-// tile runs as two blocks, one a half of the output columns (`out_cols`).
-// The caller checks BH * T < 2^31.
-//
-// K10b (`_flash_attention_bwd_dkv` :941, launched at :1121, body
-// `_flash_attention_dkv_kernel` :796): di = sum(o * dO) of each row into
-// delta (the VJP's jnp.sum; the delta pass), then dK and dV (pass 2).
-extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
-                             const void* o, const void* dout,
-                             const void* lse, void* delta, void* dk,
-                             void* dv, int BH, int T, int dkdim, float scale,
-                             void* stream) {
-  const Args a{q, k, v, o, dout, static_cast<const float*>(lse),
-               static_cast<float*>(delta), nullptr, dk, dv, nullptr, BH, T,
-               dkdim, scale, 0u, 1.f, static_cast<cudaStream_t>(stream)};
-  if (!flash_args_ok(a)) return (int)cudaErrorInvalidValue;
-  switch (dkdim) {
-    case 64: return flash_dkv_as<64>(a);
-    case 128: return flash_dkv_as<128>(a);
-    default: return flash_dkv_as<256>(a);
-  }
-}
-
-// K10a (`_flash_attention_bwd_dq`, launched at :1456, body
-// `_flash_attention_dq_kernel` :1146): dQ (pass 3), from the delta that
-// K10b wrote.
-extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse,
-                            const void* delta, void* dq, int BH, int T,
-                            int dkdim, float scale, void* stream) {
-  const Args a{q, k, v, nullptr, dout, static_cast<const float*>(lse),
-               const_cast<float*>(static_cast<const float*>(delta)), dq,
-               nullptr, nullptr, nullptr, BH, T, dkdim, scale, 0u, 1.f,
-               static_cast<cudaStream_t>(stream)};
-  if (!flash_args_ok(a)) return (int)cudaErrorInvalidValue;
-  switch (dkdim) {
-    case 64: return flash_dq_as<64>(a);
-    case 128: return flash_dq_as<128>(a);
-    default: return flash_dq_as<256>(a);
-  }
 }

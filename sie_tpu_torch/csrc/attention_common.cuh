@@ -1,9 +1,10 @@
 // Pieces shared by the fused-attention kernels K5 (attention_fwd.cu) and K6
-// (attention_bwd.cu), by the flash-attention backward K10b and K10a built
-// from K6's bf16 bodies, and by the flash-attention forward K9
-// (flash_fwd.cu): for the bf16 paths the swizzled tiles, their two
-// loaders (TMA, and element by element for the shapes TMA cannot take) and
-// the wgmma wrappers; for the f32 paths the 3xTF32 mma.sync pieces and the
+// (attention_bwd.cu), the flash-attention forward K9 (flash_fwd.cu) and the
+// flash-attention backward K10b and K10a (flash_bwd.cu): for the bf16 paths
+// the swizzled tiles, their two loaders (TMA, and element by element for
+// the shapes TMA cannot take), the wgmma wrappers and the pieces of the
+// warp-specialised kernels (mbarrier rings, `setmaxnreg`); the backward's
+// delta pass; for the f32 paths the 3xTF32 mma.sync pieces and the
 // cp.async tile loader; and the dropout hash.
 //
 // The dropout hash is the Pallas kernels' `_dropout_mask`
@@ -44,10 +45,8 @@ __device__ __forceinline__ TileRow tile_row(int T, int rows) {
   return {(int)(blockIdx.x / tiles), (int)(blockIdx.x % tiles) * rows};
 }
 
-// halves: the column halves of each tile (DKP / out_cols<DKP>()), on y
-inline dim3 tile_grid(int BH, int T, int rows, int halves = 1) {
-  return dim3((unsigned)(((size_t)T + rows - 1) / rows * (size_t)BH),
-              (unsigned)halves);
+inline dim3 tile_grid(int BH, int T, int rows) {
+  return dim3((unsigned)(((size_t)T + rows - 1) / rows * (size_t)BH));
 }
 
 // ------------------------------------------------------------ dropout hash
@@ -128,14 +127,6 @@ constexpr uint32_t KMAJOR_LBO_BYTES = 16;     // unused by K-major swizzled
 
 template <int DKP>
 __host__ __device__ constexpr int sw_tile_elems() { return 64 * DKP; }
-
-// Output columns a bf16 block accumulates: all DKP up to 128. At 256 one
-// warpgroup's f32 accumulators of a 64 x 256 output would take 128
-// registers a thread (dK and dV together 256), so a block computes one
-// half of the columns (gridDim.y = 2, half blockIdx.y) from the whole rows
-// of scores, which both halves recompute.
-template <int DKP>
-__host__ __device__ constexpr int out_cols() { return DKP < 128 ? DKP : 128; }
 
 // element offset of (row, col) in a staged tile
 __device__ __forceinline__ int sw_index(int row, int col) {
@@ -295,14 +286,16 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// waits until at most the last N committed wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
+__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
+
 // waits until at most the last committed wgmma group is in flight
-__device__ __forceinline__ void wgmma_wait_one() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
+__device__ __forceinline__ void wgmma_wait_one() { wgmma_wait<1>(); }
 
 // keeps the compiler from moving reads or writes of n accumulator
 // registers across an asynchronous wgmma
@@ -322,6 +315,44 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db) {
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 32) += A B^T, both K-major descriptors: m64n32k16, the 16
+// accumulators of half a 64 x 64 tile
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d += A B: A a K-major descriptor, B an MN-major one (transpose bit of B
+// set)
+__device__ __forceinline__ void wgmma_ss_tb(float* d, uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -372,17 +403,58 @@ __device__ __forceinline__ void mma_abt(float* d, const bf16* a,
   }
 }
 
-// d (64 x columns [64 p, 64 p + 64) of the result) += A B with A (64 x 64)
-// in registers, a[kk] the fragment of k-step kk, and B a staged tile whose
-// 64 rows are the k index (P V, dS K, P^T dO, dS^T Q): k-step kk starts at
-// row 16 kk of panel p
-__device__ __forceinline__ void mma_ab(float* d, const uint32_t (&a)[4][4],
-                                       const bf16* b, int p) {
+// d (64 x columns [64 p, 64 p + 64) of the result) += A B with A (64 x 16
+// NK) in registers, a[kk] the fragment of k-step kk, and B a staged tile
+// whose 64 rows are the k index (P V, dS K, P^T dO, dS^T Q), read from
+// k-step kk0 on: k-step kk starts at row 16 (kk0 + kk) of panel p (NK 2,
+// kk0 0 or 2: K10a's half key tiles)
+template <int NK>
+__device__ __forceinline__ void mma_ab(float* d, const uint32_t (&a)[NK][4],
+                                       const bf16* b, int p, int kk0 = 0) {
+  const uint64_t db = sw_desc(b, SW_PANEL_BYTES);
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk)
+    wgmma_rs(d, a[kk], db + ((p * SW_PANEL_BYTES +
+                              (kk0 + kk) * KSTEP_MNMAJOR_BYTES) >> 4));
+}
+
+// d (64 x 32) += A B^T over DKP columns, A a staged tile and B the 32
+// rows of one that start at b (row 32 of a tile: 4096 bytes into each
+// panel, four swizzle periods): `mma_abt`'s k-steps on m64n32k16 (K10b's
+// half score tiles at dk 256, S^T = K Q^T and dP^T = V dO^T)
+template <int DKP>
+__device__ __forceinline__ void mma_abt_n32(float* d, const bf16* a,
+                                            const bf16* b) {
+  const uint64_t da = sw_desc(a, KMAJOR_LBO_BYTES);
+  const uint64_t db = sw_desc(b, KMAJOR_LBO_BYTES);
+#pragma unroll
+  for (int kk = 0; kk < DKP / 16; ++kk) {
+    const uint32_t off = (kk / 4) * SW_PANEL_BYTES + (kk % 4) * KSTEP_KMAJOR_BYTES;
+    wgmma_ss_n32(d, da + (off >> 4), db + (off >> 4));
+  }
+}
+
+// d (64 x columns [64 p, 64 p + 64)) += A B with A a 64 x 64 staged tile
+// (one panel: rows the M index, columns the k index, as written by
+// `store_pair`) and B a staged tile whose 64 rows are the k index, read
+// MN-major (K10b at dk 256: dV += P^T dO, dK += dS^T Q, with P^T and dS^T
+// from shared memory): k-step kk reads bytes 32 kk of each row of A and
+// starts at row 16 kk of B's panel p
+__device__ __forceinline__ void mma_sab(float* d, const bf16* a, const bf16* b,
+                                        int p) {
+  const uint64_t da = sw_desc(a, KMAJOR_LBO_BYTES);
   const uint64_t db = sw_desc(b, SW_PANEL_BYTES);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs(d, a[kk],
-             db + ((p * SW_PANEL_BYTES + kk * KSTEP_MNMAJOR_BYTES) >> 4));
+    wgmma_ss_tb(d, da + ((kk * KSTEP_KMAJOR_BYTES) >> 4),
+                db + ((p * SW_PANEL_BYTES + kk * KSTEP_MNMAJOR_BYTES) >> 4));
+}
+
+// the bf16 pair (lo, hi) at (row, col), (row, col + 1) of a staged tile,
+// col even, as one 32-bit word (the two share a 16-byte chunk)
+__device__ __forceinline__ void store_pair(bf16* tile, int row, int col,
+                                           float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(tile + sw_index(row, col)) = pack_bf16(lo, hi);
 }
 
 // A operand of k-step kk from the f32 accumulators of chunks 2kk, 2kk + 1
@@ -392,6 +464,84 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
   a[1] = pack_bf16(c0[2], c0[3]);
   a[2] = pack_bf16(c1[0], c1[1]);
   a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// ---------------------------------- bf16: warp-specialised kernels (K9, K10)
+// A block of warpgroups: warpgroup 0 the producer, whose one thread issues
+// every TMA load into a ring of stages, each with a "full" mbarrier (TMA
+// counts its bytes) and an "empty" one (each consumer warp arrives once it
+// is done with the stage); the others the consumers. `setmaxnreg` moves
+// registers from the producer to the consumers.
+
+__device__ __forceinline__ void bar_init(uint64_t* b, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(b)), "r"(count));
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(b)) : "memory");
+}
+
+// the barriers' initialisation visible to the async proxy (TMA)
+__device__ __forceinline__ void bar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// registers a thread of this warpgroup from here on (all four warps)
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+constexpr int PRODUCER_REGS = 24;
+
+// a consumer's registers after `setmaxnreg` with ncons consumer
+// warpgroups at minb blocks an SM: with the producer at 24, what the
+// block's launch allocation (65536 registers over the SM's threads, in
+// steps of 8) leaves, at most 240: 24 x 128 + 240 x 256 = 168 x 384; 24 x
+// 128 + 104 x 256 <= 80 x 384; 24 x 128 + 160 x 384 <= 128 x 512
+__host__ __device__ constexpr int consumer_regs(int minb, int ncons = 2) {
+  const int launch = 65536 / (128 * (1 + ncons) * minb) / 8 * 8;
+  const int regs = (launch * (1 + ncons) - PRODUCER_REGS) / ncons / 8 * 8;
+  return regs < 240 ? regs : 240;
+}
+
+// ------------------------------------------------- the backward's delta pass
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+// delta[r] = sum_d dO[r, d] O[r, d] in f32, one warp a row (K6's pass 1,
+// K10b's di)
+template <typename E>
+__global__ void attn_bwd_delta(const E* __restrict__ o,
+                               const E* __restrict__ dout,
+                               float* __restrict__ delta, int rows, int dk) {
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;   // whole warps return together
+  const size_t off = (size_t)row * dk;
+  float acc = 0.f;
+  for (int d = lane; d < dk; d += 32)
+    acc = fmaf(to_f(o[off + d]), to_f(dout[off + d]), acc);
+#pragma unroll
+  for (int s = 16; s > 0; s /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+  if (lane == 0) delta[row] = acc;
+}
+
+template <typename E>
+int launch_delta(const void* o, const void* dout, float* delta, int rows,
+                 int dk, cudaStream_t stream) {
+  const int per_block = 8;   // warps, one row each
+  attn_bwd_delta<E><<<(rows + per_block - 1) / per_block, 32 * per_block, 0,
+                      stream>>>(static_cast<const E*>(o),
+                                static_cast<const E*>(dout), delta, rows, dk);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------- f32 paths: 3xTF32 mma

@@ -118,8 +118,7 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int TILE = sw_tile_elems<DKP>();
   constexpr uint32_t TB = sw_tile_bytes<DKP>();
   constexpr int NS = BK / 8;      // 8-key column chunks of the scores
-  constexpr int DKO = out_cols<DKP>();   // output columns of this block
-  constexpr int ND = DKO / 8;     // 8-wide column chunks of the output
+  constexpr int ND = DKP / 8;     // 8-wide column chunks of the output
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[3];   // TMA: Q, K/V buffers 0, 1
   bf16* Qs = reinterpret_cast<bf16*>(sw_align(smem_raw));
@@ -251,16 +250,14 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) acc[dn][e] *= alpha[e / 2];
 
     // O += P V: the score accumulators of chunks 2kk, 2kk + 1 are the A
-    // operand of key step kk (registers); V is read MN-major, this block's
-    // column panels
+    // operand of key step kk (registers); V is read MN-major
     uint32_t pa[BK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) pack_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
     fence_regs<4 * ND>(&acc[0][0]);
     wgmma_fence();
 #pragma unroll
-    for (int p = 0; p < DKO / 64; ++p)
-      mma_ab(&acc[8 * p][0], pa, Vs, blockIdx.y * (DKO / 64) + p);
+    for (int p = 0; p < DKP / 64; ++p) mma_ab(&acc[8 * p][0], pa, Vs, p);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs<4 * ND>(&acc[0][0]);
@@ -277,16 +274,15 @@ attn_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = q0 + warp * 16 + g + 8 * h;
     if (row >= T) continue;
     const float inv = 1.f / l[h];
-    bf16* orow = o + base + (size_t)row * dk + blockIdx.y * DKO;
+    bf16* orow = o + base + (size_t)row * dk;
 #pragma unroll
     for (int dn = 0; dn < ND; ++dn)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = dn * 8 + i2 + e;
-        if (blockIdx.y * DKO + col < dk)
-          orow[col] = __float2bfloat16(acc[dn][2 * h + e] * inv);
+        if (col < dk) orow[col] = __float2bfloat16(acc[dn][2 * h + e] * inv);
       }
-    if (LSE && i2 == 0 && blockIdx.y == 0)
+    if (LSE && i2 == 0)
       lse[(size_t)bh * T + row] = (m[h] + log2f(l[h])) * LN2;
   }
 }
@@ -490,7 +486,7 @@ int launch_bf16_as(const Args& a) {
     if (!e) e = encode_tile_map(&mv, a.v, a.BH, a.T, a.dk);
     if (e) return e;
   }
-  const dim3 grid = tile_grid(a.BH, a.T, BQ, DKP / out_cols<DKP>());
+  const dim3 grid = tile_grid(a.BH, a.T, BQ);
   attn_fwd_bf16<DKP, DROP, LSE, TMA><<<grid, 128, bytes, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.T,

@@ -14,7 +14,7 @@
 // output is divided by l and rounded to bf16 once. Keys at or past T are
 // masked in the last key tile only. In place of the stock kernel's m and l
 // it writes each row's natural log-sum-exp (BH, T) f32, which K10b and
-// K10a (attention_bwd.cu) read.
+// K10a (flash_bwd.cu) read.
 //
 // What bounds it on an H100: the two products are 4*BH*T^2*dk FLOP on the
 // bf16 tensor cores (989 TFLOP/s) against 4*BH*T*dk*2 bytes of q, k, v and
@@ -97,13 +97,6 @@ __host__ __device__ constexpr int stages() { return DKP == 256 ? 2 : 4; }
 template <int DKP>
 __host__ __device__ constexpr int blocks_per_sm() { return DKP == 64 ? 2 : 1; }
 
-// a consumer's registers after `setmaxnreg` at minb blocks an SM: with
-// the producer at 24, what the block's launch allocation leaves (24 x 128
-// + 240 x 256 = 168 x 384; 24 x 128 + 104 x 256 <= 80 x 384)
-__host__ __device__ constexpr int consumer_regs(int minb) {
-  return minb == 2 ? 104 : 240;
-}
-
 // tile j + 1's S issued before tile j's P V: only where it measured faster
 // (dk 128). At dk 256 the two stages starve (the stage of tile j is freed
 // only after tile j + 1's scores are issued), at dk 64 the overlap's live
@@ -115,27 +108,6 @@ template <int DKP>
 constexpr size_t smem_bytes() {
   // two Q tiles, then K and V of each stage; 1024 bytes of slack to align
   return sw_tile_bytes<DKP>() * (2 + 2 * stages<DKP>()) + 1024;
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* b, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_addr(b)), "r"(count));
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_addr(b)) : "memory");
-}
-
-// registers a thread of this warpgroup from here on (all four warps)
-template <int N>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-
-template <int N>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
 }
 
 // Online softmax of one 64 x 64 score tile in a consumer's registers (rows
@@ -209,12 +181,12 @@ attn_flash_fwd(bf16* __restrict__ o, float* __restrict__ lse, int T,
       bar_init(&empty[s], 4 * nact);   // one arrival a consumer warp
     }
     bar_init(&qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    bar_init_fence();
   }
   __syncthreads();
 
   if (wg == 0) {   // ------------------------------------------- producer
-    regs_dec<24>();
+    regs_dec<PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       mbar_expect(&qbar, nact * TB);
       for (int c = 0; c < nact; ++c)

@@ -69,6 +69,8 @@ SIGNATURES = {
         # dropout, thresh, inv_keep, is_bf16, stream
         "attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                           _I, _F, _I, _U, _F, _I, _P],
+    },
+    "flash_bwd": {
         # K10b: q, k, v, o, dout, lse, delta, dk, dv, BH, T, dk, scale,
         # stream
         "flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,

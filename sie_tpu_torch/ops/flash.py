@@ -9,13 +9,15 @@ whose backward launches K10b (`flash_attention_bwd_dkv`: each row's di =
 sum(o * dO), then dK and dV) and then K10a (`flash_attention_bwd_dq`: dQ),
 in the order of the stock kernel's custom VJP (flash_attention.py:254-315).
 For CPU tensors they run the plain versions `flash_attention_plain` and
-`flash_attention_bwd_plain`; for CUDA tensors the hand-written kernels:
-K9 a warp-specialised kernel of its own (csrc/flash_fwd.cu: a TMA producer
-and two wgmma consumer warpgroups over 128 query rows), K10b and K10a the
-bf16 warpgroup-MMA bodies of K6 instantiated with the stock kernels'
-numerics (`flash_bwd_dkv` and `flash_bwd_dq` in csrc/attention_bwd.cu).
-The sources say what bounds them and how dk 256 is held. There is no
-other route.
+`flash_attention_bwd_plain`; for CUDA tensors the hand-written kernels,
+each warp-specialised (a TMA producer warpgroup and wgmma consumer
+warpgroups): K9 in csrc/flash_fwd.cu over 128 query rows a block, K10b
+and K10a in csrc/flash_bwd.cu over 64 keys (`flash_bwd_dkv`) or query
+rows (`flash_bwd_dq`) a consumer, three consumers at dk 64 and two
+above (K10a at dk 64 and T <= 2048: two blocks of two, over half key
+tiles); at dk 256 K10b's two consumers share 64 keys and split each
+tile's scores. The sources say what bounds them and how dk 256 is held. There is
+no other route.
 
 Numerics (no dropout, not causal), those of the stock kernels: s = Q K^T
 accumulates in f32 from bf16 and is scaled in f32, not rounded to bf16
@@ -210,7 +212,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     if q.numel() == 0:
         return dk, dv, delta
     q, k, v, o, do = (_aligned(z) for z in (q, k, v, o, do))
-    lib = build.load("attention_bwd")
+    lib = build.load("flash_bwd")
     with torch.cuda.device(q.device):
         code = lib.flash_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -238,7 +240,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
     if q.numel() == 0:
         return dq
     q, k, v, do = (_aligned(z) for z in (q, k, v, do))
-    lib = build.load("attention_bwd")
+    lib = build.load("flash_bwd")
     with torch.cuda.device(q.device):
         code = lib.flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

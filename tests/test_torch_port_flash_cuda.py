@@ -62,14 +62,20 @@ def _close(got, want, what):
 
 
 @pytest.mark.parametrize("dk", [64, 128, 256])
-@pytest.mark.parametrize("t", [1, 64, 65, 105, 127, 128, 129, 192, 193,
-                               4097])
+@pytest.mark.parametrize("t", [1, 64, 65, 96, 105, 127, 128, 129, 192, 193,
+                               255, 256, 257, 2048, 2049, 4097])
 def test_kernels_match_plain(card, t, dk):
     """K9's output and log-sum-exp, K10b's dK, dV and di, K10a's dQ, with
-    T at the edges of the 64-row tiles and of K9's 128-row blocks (T <= 64:
-    K9's second consumer warpgroup has no real rows; 129, 193: the last
-    block's second one has none), under them and past 4096; two backward
-    runs equal bit for bit."""
+    T at the edges of the 64-row tiles and of the blocks of 64 rows or
+    keys a consumer warpgroup (K9: 128; K10b 192 at dk 64, K10a 128 there
+    up to T 2048 and 192 past it; both 128 at dk 128; T <= 64: a block's second consumer has no real rows or keys;
+    129, 193, 257: the last block's last consumers have none), at K10b's
+    dk 256 split (65, 96: the last query tile has no rows in the second
+    consumer's 32 columns), where the rings wrap (129: K10b's two stages
+    at dk 256; 257: its four, and K10a's eight slots), at K10a's switch at
+    dk 64 (T <= 2048: two blocks an SM, 128 rows a block, key tiles in
+    halves; 2049: three consumers), under them and past 4096; two
+    backward runs equal bit for bit."""
     bh = 3
     q, k, v, do = _normal(t + dk, card, *[(bh, t, dk)] * 4)
     scale = 1.0 / dk ** 0.5
